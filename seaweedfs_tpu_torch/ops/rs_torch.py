@@ -1,0 +1,126 @@
+"""Reed-Solomon codec on a torch device — the port of ops/rs_jax.py's
+ReedSolomonTPU.
+
+The GF(2^8) matrix apply is rs_cuda.gf_apply: the hand-written CUDA kernel
+for tensors on the card, its plain PyTorch version for tensors on the CPU.
+The numpy-level API (encode / reconstruct / reconstruct_data / verify over
+lists of equal-length uint8 arrays) matches the reference codecs, and
+`encode_device` / `apply_rows_device` take tensors already on the device,
+for the streaming file pipeline.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import gf256
+from .rs_cuda import coefficients, gf_apply
+
+
+def matrix_from_numpy(matrix: np.ndarray) -> np.ndarray:
+    """A GF matrix from the JAX package (rs_matrix, decode_plan_for, as
+    numpy) in this port's coefficient form: a read-only C-contiguous uint8
+    (R, S) array, validated for the kernel's limits."""
+    m = coefficients(matrix).copy()
+    m.setflags(write=False)
+    return m
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device a codec runs on; raises when CUDA is asked for and
+    this process has no usable card — there is no silent CPU fallback."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False; ask for device='cpu' explicitly to run on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class ReedSolomonTorch:
+    """RS(data, parity) codec running the GF matmul on `device`."""
+
+    def __init__(self, data_shards: int = 10, parity_shards: int = 4,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.data_shards = data_shards
+        self.parity_shards = parity_shards
+        self.total_shards = data_shards + parity_shards
+        self.matrix = gf256.rs_matrix(data_shards, self.total_shards)
+        self.parity_matrix = gf256.rs_parity_matrix(data_shards, parity_shards)
+
+    # -- device-resident ----------------------------------------------------
+
+    def encode_device(self, data: torch.Tensor) -> torch.Tensor:
+        """(data_shards, B) uint8 on the device -> (parity_shards, B)."""
+        return gf_apply(self.parity_matrix, data)
+
+    def apply_rows_device(self, rows: np.ndarray,
+                          inputs: torch.Tensor) -> torch.Tensor:
+        """Arbitrary GF matrix application (decode plans, rebuild)."""
+        return gf_apply(rows, inputs)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def parity_of(self, data: np.ndarray) -> np.ndarray:
+        """(data_shards, B) numpy -> (parity_shards, B) numpy."""
+        if data.shape[0] != self.data_shards:
+            raise ValueError(
+                f"expected {self.data_shards} data rows, got {data.shape[0]}")
+        return self.encode_device(self._to_device(data)).cpu().numpy()
+
+    # -- numpy convenience (same shapes as rs_cpu) --------------------------
+
+    def encode(self, shards: list[np.ndarray]) -> None:
+        parity = self.parity_of(np.stack(shards[: self.data_shards]))
+        for i in range(self.parity_shards):
+            shards[self.data_shards + i][:] = parity[i]
+
+    def _reconstruct(self, shards, data_only: bool):
+        if len(shards) != self.total_shards:
+            raise ValueError(f"expected {self.total_shards} shard slots")
+        present = [i for i, s in enumerate(shards) if s is not None]
+        if len(present) == self.total_shards:
+            return list(shards)
+        if len(present) < self.data_shards:
+            raise ValueError("too few shards to reconstruct")
+        out = list(shards)
+        missing_data = [i for i in range(self.data_shards) if shards[i] is None]
+        if missing_data:
+            inputs = self._to_device(
+                np.stack([shards[i] for i in present[: self.data_shards]]))
+            rows = gf256.decode_plan_for(
+                self.matrix, self.data_shards, present, tuple(missing_data))
+            rec = self.apply_rows_device(rows, inputs).cpu().numpy()
+            for i, r in zip(missing_data, rec):
+                out[i] = r
+        if not data_only:
+            missing_parity = [i for i in range(self.data_shards,
+                                               self.total_shards)
+                              if shards[i] is None]
+            if missing_parity:
+                data = self._to_device(np.stack(
+                    [np.asarray(out[i]) for i in range(self.data_shards)]))
+                rows = self.matrix[np.asarray(missing_parity)]
+                par = self.apply_rows_device(rows, data).cpu().numpy()
+                for i, p in zip(missing_parity, par):
+                    out[i] = p
+        return out
+
+    def reconstruct(self, shards):
+        return self._reconstruct(shards, data_only=False)
+
+    def reconstruct_data(self, shards):
+        return self._reconstruct(shards, data_only=True)
+
+    def verify(self, shards: list[np.ndarray]) -> bool:
+        parity = self.parity_of(np.stack(shards[: self.data_shards]))
+        return all(np.array_equal(parity[i], shards[self.data_shards + i])
+                   for i in range(self.parity_shards))

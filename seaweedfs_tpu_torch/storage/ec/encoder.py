@@ -1,0 +1,423 @@
+"""EC file pipeline: `.dat` -> `.ec00`..`.ec13` shards + `.ecx` sorted index,
+and the rebuild of lost shards — the port of seaweedfs_tpu/storage/ec/
+encoder.py for the torch codecs.
+
+Layout matches the reference pipeline (ec_encoder.go:57-231): stripe the
+volume into rows of 10 large (1GB) blocks while MORE than one full large row
+remains, then rows of 10 small (1MB) blocks, zero-padding the tail; parity
+is RS(10,4) over columns.  Column slices of up to `slice_size` bytes per
+shard go through the codec as one (10, W) kernel call; output bytes are the
+same for any slice width because parity is columnwise.
+
+Encode and rebuild share one streaming pipeline (_stream_apply):
+  * a prefetch thread fills (S, W) slices in page-locked host buffers;
+  * the main thread copies each slice to the card and launches the GF
+    kernel on a compute stream; a second stream copies the result back
+    into page-locked memory behind a CUDA event, so slice k's readback
+    overlaps slice k+1's upload and kernel;
+  * a writer thread appends the shard rows and recycles the buffers.
+On the torch_cpu codec the same pipeline computes inline on the host.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ...ops import gf256
+from ...ops.codec import get_codec
+from ..needle_map import NeedleMap
+from .constants import (
+    DATA_SHARDS,
+    LARGE_BLOCK_SIZE,
+    SMALL_BLOCK_SIZE,
+    TOTAL_SHARDS,
+    to_ext,
+)
+
+# bytes per shard per kernel call (64 x 256KB reference batches)
+DEFAULT_SLICE = 16 * 1024 * 1024
+# host slice buffers in rotation: one filling, one on the card, one
+# awaiting readback, one in the writer
+_HOST_BUFFERS = 4
+
+
+def write_sorted_file_from_idx(base_name: str, ext: str = ".ecx") -> None:
+    """Generate the sorted .ecx index from the .idx log (ec_encoder.go:27-54)."""
+    NeedleMap.load_from_idx(base_name + ".idx").write_sorted_index(
+        base_name + ext)
+
+
+def write_ec_files(base_name: str, codec_name: str = "cuda",
+                   slice_size: int = DEFAULT_SLICE) -> int:
+    """Generate .ec00 ~ .ec13 from .dat (ec_encoder.go:57-59); -> the
+    number of codec calls (slices) dispatched."""
+    return generate_ec_files(base_name, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE,
+                             codec_name, slice_size)
+
+
+def generate_ec_files(base_name: str,
+                      large_block_size: int = LARGE_BLOCK_SIZE,
+                      small_block_size: int = SMALL_BLOCK_SIZE,
+                      codec_name: str = "cuda",
+                      slice_size: int = DEFAULT_SLICE) -> int:
+    """Stripe `<base>.dat` into the 14 shard files; -> slices dispatched."""
+    codec = get_codec(codec_name)
+    dat_path = base_name + ".dat"
+    dat_size = os.path.getsize(dat_path)
+    outs = [open(base_name + to_ext(i), "wb") for i in range(TOTAL_SHARDS)]
+    try:
+        with open(dat_path, "rb") as f:
+            return _encode_stream_pipelined(
+                f, dat_size, outs, codec, large_block_size, small_block_size,
+                slice_size)
+    finally:
+        for o in outs:
+            o.close()
+
+
+def _segments(dat_size: int, large: int, small: int, slice_size: int):
+    """Yield (row_start, block_size, col, width) in shard-file write order."""
+    processed = 0
+    remaining = dat_size
+    # large rows: strictly-greater loop per the reference (ec_encoder.go:214)
+    while remaining > large * DATA_SHARDS:
+        for col in range(0, large, slice_size):
+            yield processed, large, col, min(slice_size, large - col)
+        remaining -= large * DATA_SHARDS
+        processed += large * DATA_SHARDS
+    while remaining > 0:
+        for col in range(0, small, slice_size):
+            yield processed, small, col, min(slice_size, small - col)
+        remaining -= small * DATA_SHARDS
+        processed += small * DATA_SHARDS
+
+
+def _slice_tasks(dat_size: int, large: int, small: int, slice_size: int):
+    """Group stripe segments into codec-call batches of up to slice_size
+    bytes per shard.
+
+    Parity is columnwise, so segments from DIFFERENT stripe rows can share
+    one codec call: shard i's bytes for consecutive rows are consecutive in
+    its .ecNN file, so a batch is a per-shard concatenation.  Without this
+    every small-row call would be a (10, 1MB) stripe — 16x the launches and
+    host<->card round trips.  Yields lists of (row_start, block_size, col,
+    width) whose widths sum to <= slice_size, in shard-file write order.
+    """
+    batch: list[tuple[int, int, int, int]] = []
+    batch_width = 0
+    for seg in _segments(dat_size, large, small, slice_size):
+        width = seg[3]
+        if batch and batch_width + width > slice_size:
+            yield batch
+            batch, batch_width = [], 0
+        batch.append(seg)
+        batch_width += width
+    if batch:
+        yield batch
+
+
+def fill_stripe_rows(f, batch, dest: np.ndarray) -> None:
+    """Fill dest[(DATA_SHARDS, total_width)] with one _slice_tasks batch:
+    row i gathers the batch's segments at `row_start + i*block + col`."""
+    for i in range(DATA_SHARDS):
+        row = memoryview(dest[i])
+        at = 0
+        for row_start, block, col, width in batch:
+            _read_into(f, row_start + i * block + col, row[at:at + width])
+            at += width
+
+
+def _read_into(f, offset: int, dest: memoryview) -> None:
+    """Fill `dest` from f[offset:], zero-filling past EOF (the reference
+    zero-pads tail buffers), reading straight into the stripe row."""
+    f.seek(offset)
+    n = f.readinto(dest) or 0
+    while 0 < n < len(dest):  # short read mid-file
+        more = f.readinto(dest[n:])
+        if not more:
+            break
+        n += more
+    if n < len(dest):
+        dest[n:] = bytes(len(dest) - n)
+
+
+def _pread_into(fd: int, dest, offset: int) -> None:
+    """Positioned read of exactly len(dest) bytes; a short shard file
+    raises (shard files have a fixed extent)."""
+    got = 0
+    length = len(dest)
+    while got < length:
+        n = os.preadv(fd, [dest[got:]], offset + got)
+        if n <= 0:
+            raise IOError(f"short shard read at {offset + got}")
+        got += n
+
+
+class _HostBuffers:
+    """A fixed rotation of flat host buffers; `view(buf, rows, w)` is the
+    contiguous (rows, w) prefix, so every H2D/D2H copy is one linear DMA.
+    Page-locked when the codec runs on a card."""
+
+    def __init__(self, count: int, nbytes: int, pinned: bool,
+                 stop: threading.Event):
+        self._free: queue.Queue = queue.Queue()
+        self._stop = stop
+        for _ in range(count):
+            self._free.put(torch.empty(nbytes, dtype=torch.uint8,
+                                       pin_memory=pinned))
+
+    def get(self) -> "torch.Tensor | None":
+        """Stop-aware take: None once the pipeline is shutting down."""
+        while not self._stop.is_set():
+            try:
+                return self._free.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return None
+
+    def put(self, buf: torch.Tensor) -> None:
+        self._free.put(buf)
+
+    @staticmethod
+    def view(buf: torch.Tensor, rows: int, width: int) -> torch.Tensor:
+        return buf[: rows * width].view(rows, width)
+
+
+def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
+                  write_out, slice_size: int) -> int:
+    """Run `matrix` (R, S) over a stream of column slices; -> slices run.
+
+    For each item of `items` (consumed by the prefetch thread):
+    `read_into(item, dest)` fills dest (S, width_of(item)) uint8 numpy;
+    the GF product (R, width) is computed on the codec's device; the
+    writer thread then calls `write_out(item, src, out)` with both as
+    numpy arrays.  Any stage's exception stops the pipeline, joins its
+    threads and propagates."""
+    n_in, n_out = matrix.shape[1], matrix.shape[0]
+    on_card = codec.device.type == "cuda"
+    stop = threading.Event()
+    in_bufs = _HostBuffers(_HOST_BUFFERS, n_in * slice_size, on_card, stop)
+    out_bufs = _HostBuffers(_HOST_BUFFERS, n_out * slice_size, on_card, stop)
+    q: queue.Queue = queue.Queue(maxsize=2)
+    wq: queue.Queue = queue.Queue(maxsize=2)
+    write_err: list[BaseException] = []
+
+    def _put(item) -> bool:
+        """Bounded put that gives up when the consumer has bailed."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def reader() -> None:
+        try:
+            for item in items:
+                width = width_of(item)
+                buf = in_bufs.get()
+                if buf is None:
+                    return
+                read_into(item, _HostBuffers.view(buf, n_in, width).numpy())
+                if not _put((item, buf, width)):
+                    return
+        except Exception as e:  # surfaced by the consumer
+            _put(e)
+            return
+        _put(None)
+
+    def writer() -> None:
+        while True:
+            pending = wq.get()
+            if pending is None:
+                return
+            if write_err:
+                continue  # drain so the main thread never blocks
+            try:
+                item, ibuf, obuf, width = pending
+                write_out(item, _HostBuffers.view(ibuf, n_in, width).numpy(),
+                          _HostBuffers.view(obuf, n_out, width).numpy())
+                in_bufs.put(ibuf)
+                out_bufs.put(obuf)
+            except Exception as e:  # surfaced by the main thread
+                write_err.append(e)
+
+    rt = threading.Thread(target=reader, name="ec-prefetch", daemon=True)
+    wt = threading.Thread(target=writer, name="ec-writer", daemon=True)
+    if on_card:
+        compute = torch.cuda.Stream(codec.device)
+        readback = torch.cuda.Stream(codec.device)
+        dev_in = torch.empty(n_in * slice_size, dtype=torch.uint8,
+                             device=codec.device)
+
+    def dispatch(ibuf, obuf, width):
+        """Start one slice; -> a CUDA event that fires when its result is
+        in obuf, or None when it was computed inline on the host."""
+        host_in = _HostBuffers.view(ibuf, n_in, width)
+        host_out = _HostBuffers.view(obuf, n_out, width)
+        if not on_card:
+            host_out.copy_(codec.apply_rows_device(matrix, host_in))
+            return None
+        with torch.cuda.stream(compute):
+            d_in = _HostBuffers.view(dev_in, n_in, width)
+            d_in.copy_(host_in, non_blocking=True)
+            d_out = codec.apply_rows_device(matrix, d_in)
+        readback.wait_stream(compute)
+        with torch.cuda.stream(readback):
+            d_out.record_stream(readback)
+            host_out.copy_(d_out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(readback)
+        return done
+
+    def drain(pending) -> None:
+        item, ibuf, obuf, width, done = pending
+        if done is not None:
+            done.synchronize()
+        wq.put((item, ibuf, obuf, width))
+        if write_err:
+            raise write_err[0]
+
+    slices = 0
+    in_flight: deque = deque()
+    try:
+        rt.start()
+        wt.start()
+        while True:
+            got = q.get()
+            if isinstance(got, Exception):
+                raise got
+            if got is None:
+                break
+            item, ibuf, width = got
+            obuf = out_bufs.get()
+            if obuf is None:
+                break
+            in_flight.append((item, ibuf, obuf, width,
+                              dispatch(ibuf, obuf, width)))
+            slices += 1
+            if len(in_flight) > 1:  # k reads back while k+1 computes
+                drain(in_flight.popleft())
+        while in_flight:
+            drain(in_flight.popleft())
+        wq.put(None)
+        wt.join()
+        if write_err:
+            raise write_err[0]
+    finally:
+        stop.set()  # unblocks the prefetch thread and buffer waits
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        if rt.ident is not None:
+            rt.join()
+        if wt.ident is not None and wt.is_alive():
+            while True:
+                try:
+                    wq.get_nowait()
+                except queue.Empty:
+                    break
+            wq.put(None)
+            wt.join()
+        if on_card:
+            # no copy may still target a host buffer once they are freed
+            compute.synchronize()
+            readback.synchronize()
+    return slices
+
+
+def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
+                             slice_size) -> int:
+    """Encode the .dat open as `f` into the 14 open shard files `outs`."""
+
+    def width_of(batch) -> int:
+        return sum(seg[3] for seg in batch)
+
+    def read_into(batch, dest: np.ndarray) -> None:
+        fill_stripe_rows(f, batch, dest)
+
+    def write_out(batch, data: np.ndarray, parity: np.ndarray) -> None:
+        for i in range(DATA_SHARDS):
+            outs[i].write(data[i])
+        for j, prow in enumerate(parity):
+            outs[DATA_SHARDS + j].write(prow)
+
+    return _stream_apply(
+        codec, codec.parity_matrix,
+        _slice_tasks(dat_size, large, small, slice_size),
+        width_of, read_into, write_out, slice_size)
+
+
+def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
+                     slice_size: int = DEFAULT_SLICE) -> list[int]:
+    """Regenerate whichever .ecNN files are missing (ec_encoder.go:61-62)
+    from DATA_SHARDS local source shards; -> the rebuilt shard ids.
+
+    The cached decode plan for this loss pattern runs through the same
+    pipeline as the encode; the DATA_SHARDS sources of each slice are read
+    in parallel.  On any error the partial .ecNN outputs are REMOVED — a
+    failed rebuild leaves no truncated shard for a later mount to trust.
+    """
+    codec = get_codec(codec_name)
+    local = [i for i in range(TOTAL_SHARDS)
+             if os.path.exists(base_name + to_ext(i))]
+    missing = [i for i in range(TOTAL_SHARDS) if i not in local]
+    if not missing:
+        return []
+    if len(local) < DATA_SHARDS:
+        raise ValueError(
+            f"cannot rebuild: only {len(local)} of {TOTAL_SHARDS} shards "
+            f"present, need {DATA_SHARDS}")
+    sources = local[:DATA_SHARDS]
+    shard_size = os.path.getsize(base_name + to_ext(sources[0]))
+    rows = gf256.decode_plan_for(
+        codec.matrix, DATA_SHARDS, sources, tuple(missing))
+
+    ins: dict[int, object] = {}
+    outs: dict[int, object] = {}
+    ok = False
+    try:
+        for i in sources:
+            ins[i] = open(base_name + to_ext(i), "rb")
+        for i in missing:
+            outs[i] = open(base_name + to_ext(i), "wb")
+        with ThreadPoolExecutor(max_workers=DATA_SHARDS,
+                                thread_name_prefix="ec-rebuild-read") as pool:
+
+            def read_into(off: int, dest: np.ndarray) -> None:
+                list(pool.map(
+                    lambda j: _pread_into(ins[sources[j]].fileno(), dest[j],
+                                          off),
+                    range(DATA_SHARDS)))
+
+            def write_out(off: int, _src, rebuilt: np.ndarray) -> None:
+                for row, sid in zip(rebuilt, missing):
+                    outs[sid].write(row)
+
+            _stream_apply(
+                codec, rows, range(0, shard_size, slice_size),
+                lambda off: min(slice_size, shard_size - off),
+                read_into, write_out, slice_size)
+        ok = True
+    finally:
+        for h in ins.values():
+            h.close()
+        for h in outs.values():
+            h.close()
+        if not ok:
+            for sid in missing:
+                try:
+                    os.remove(base_name + to_ext(sid))
+                except FileNotFoundError:
+                    pass
+    return missing

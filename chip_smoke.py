@@ -1,12 +1,15 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--volume-gib 12] [--seed 0]
+    python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3] [--seed 0]
 
 The main path is what SeaweedFS operators run to seal and protect volumes,
 `ec.encode` then `ec.rebuild`: a full volume `.dat` is striped into the
 RS(10,4) shards `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are
 lost, and the lost ones are rebuilt.  Both go through one hand-written CUDA
-kernel, `seaweedfs_tpu_torch/ops/csrc/gf_matmul.cu`.
+kernel, `seaweedfs_tpu_torch/ops/csrc/gf_matmul.cu`: one volume at a time
+through its direct entry (`gf_matmul`), and many volumes at once through
+the codec service, which stacks their slices into one batched launch
+(`gf_matmul_batched`, also the port of bench.py:104's sweep kernel).
 
 Phases, each printing one JSON line:
   1. card and build: the card's name and power limit, the kernel's nvcc
@@ -20,9 +23,24 @@ Phases, each printing one JSON line:
      1 MB-block rows still run) encoded with write_ec_files +
      write_sorted_file_from_idx, every slice's parity checked against the
      plain version on the card, then .ec00-.ec03 deleted, rebuilt with
-     rebuild_ec_files and checked by sha256.  Kernel launch counts are
-     zeroed just before and read just after this phase;
-  5. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
+     rebuild_ec_files and checked by sha256.  This phase takes the direct
+     route (the service's own switch, SEAWEEDFS_TPU_EC_SERVICE=0, is set
+     for it).  Kernel launch counts are zeroed just before and read just
+     after this phase;
+  5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
+     ragged, unaligned and 16 MiB widths, more than 65535 entries, and
+     gf_sweep over overlapping windows, byte-equal to the plain versions;
+  6. kernel_sweep: bench.py:104's leg, K parity sweeps over windows
+     shifted by 128 KiB in one gf_sweep launch per stage, timed beside
+     gf_apply at the same width and the memory bound;
+  7. service_concurrent: 4 volumes (3 GiB each) encoded from 4 threads
+     through one device-mode CodecService, .ec00-.ec03 of each deleted and
+     rebuilt from 4 threads through it, checked by sha256, .ecx and
+     sampled parity.  Launch counts are zeroed just before and read just
+     after; batched launches must be fewer than the slices submitted.
+     Then one volume alone, encoded and rebuilt on the direct route and
+     through the service in turns;
+  8. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this script.  Data comes from --seed; nothing is downloaded.
@@ -39,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -52,6 +71,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12
 LOSS_SETS = ((0,), (2, 3), (0, 1, 2, 3), (10, 11, 12, 13), (2, 3, 11, 12))
 PHASE2_WIDTHS = (1, 3, 15, 100, 511, 513, 4097, 16 * MIB, 64 * MIB + 3)
+BATCH_ENTRIES = (1, 3, 16)
+BATCH_WIDTHS = (1, 15, 513, 4097, 16 * MIB)
+# bench.py:77's stages: (MiB per shard, sweeps K); one block of 256 x 128
+# uint32 lanes = 128 KiB per shard is the shift between sweeps
+SWEEP_STAGES = ((4, 8), (16, 32), (64, 16), (256, 8))
+SWEEP_SHIFT = 128 * 1024
+SERVICE_VOLUMES = 4
+# slices in flight per volume (2) x volumes, of 10 x 16 MiB each: a batch
+# cap that lets concurrent volumes' 16 MiB slices share a launch (the
+# reference's 64 MB default was sized for a TPU mesh and holds less than one)
+SERVICE_BATCH_MB = SERVICE_VOLUMES * 10 * 16
 
 
 def emit(obj) -> None:
@@ -244,13 +274,16 @@ def check_layout(base: str, dat_size: int, rng, enc) -> None:
                 raise AssertionError(f"layout mismatch at .dat offset {pos}")
 
 
-def check_parity(base: str, rs_cuda, gf256, slice_size: int) -> int:
-    """Every encode slice's parity shards against the plain version on the
-    card; -> slices checked."""
+def check_parity(base: str, rs_cuda, gf256, slice_size: int,
+                 offsets=None) -> int:
+    """Every encode slice's parity shards (or those at `offsets`) against
+    the plain version on the card; -> slices checked."""
     m = gf256.rs_parity_matrix(10, 4)
     shard_size = os.path.getsize(base + ".ec00")
     n = 0
-    for off in range(0, shard_size, slice_size):
+    if offsets is None:
+        offsets = range(0, shard_size, slice_size)
+    for off in offsets:
         w = min(slice_size, shard_size - off)
         rows = [np.fromfile(base + f".ec{i:02d}", dtype=np.uint8, count=w,
                             offset=off) for i in range(14)]
@@ -293,6 +326,7 @@ def phase_end_to_end(rs_cuda, gf256, enc, work: str, size: int, seed: int,
     dat_read_GBps = read_rate(base + ".dat")
 
     rs_cuda.gf_apply.launches = 0
+    rs_cuda.gf_apply_batched.launches = 0
     t0 = time.perf_counter()
     encode_slices = enc.write_ec_files(base, codec_name="cuda")
     enc.write_sorted_file_from_idx(base)
@@ -310,6 +344,8 @@ def phase_end_to_end(rs_cuda, gf256, enc, work: str, size: int, seed: int,
     rebuild_s = time.perf_counter() - t0
     rebuild_launches = rs_cuda.gf_apply.launches
     rebuild_slices = -(-shard_size // enc.DEFAULT_SLICE)
+    if rs_cuda.gf_apply_batched.launches:
+        raise AssertionError("the direct route made batched launches")
 
     if encode_launches != encode_slices:
         raise AssertionError(f"encode launched {encode_launches} kernels for "
@@ -341,14 +377,305 @@ def phase_end_to_end(rs_cuda, gf256, enc, work: str, size: int, seed: int,
     return row
 
 
-def volume_size(work: str, want: int) -> tuple[int, list[str]]:
-    """The volume to encode: `want` bytes, cut to what the disk can hold
-    (.dat + 1.4x for shards + margin); -> (bytes, cuts made)."""
+# -- phase 5 -------------------------------------------------------------
+
+
+def rebuild_plan(gf256, lost=(0, 1, 2, 3)) -> np.ndarray:
+    return gf256.decode_plan_for(gf256.rs_matrix(10, 14), 10,
+                                 [i for i in range(14) if i not in lost], lost)
+
+
+def phase_batched(rs_cuda, gf256, gen) -> int:
+    """gf_apply_batched and gf_sweep against their plain versions; ->
+    the largest error (0, or the run has already failed)."""
+    t0 = time.perf_counter()
+    mats = (("parity", gf256.rs_parity_matrix(10, 4)),
+            ("plan[0, 1, 2, 3]", rebuild_plan(gf256)))
+    cases = []  # (name, matrix, data)
+    for v in BATCH_ENTRIES:
+        for b in BATCH_WIDTHS:
+            for name, m in mats:
+                cases.append((f"{name} V={v} B={b}", m,
+                              random_u8((v, 10, b), gen)))
+    # 1-byte-offset views: every row and entry starts unaligned
+    for v, b in ((3, 4097), (16, 513)):
+        for name, m in mats:
+            cases.append((f"{name} V={v} B={b} offset 1", m,
+                          random_u8((v, 10, b + 1), gen)[:, :, 1:]))
+    # aligned rows, odd entry stride: the batch stride alone picks the path
+    flat = random_u8((3 * (10 * 4096 + 1),), gen)
+    cases.append(("parity V=3 B=4096 entry stride 40961", mats[0][1],
+                  flat.as_strided((3, 10, 4096), (10 * 4096 + 1, 4096, 1))))
+    # more entries than gridDim.y holds: blocks walk the rest
+    cases.append(("parity V=70000 B=16", mats[0][1],
+                  random_u8((70000, 10, 16), gen)))
+    worst = 0
+    for name, m, data in cases:
+        got = rs_cuda.gf_apply_batched(m, data)
+        if data.shape[0] > 1000:
+            # the per-entry plain loop would make ~300 small launches per
+            # entry; columns are independent, so apply the plain version
+            # once to all entries side by side
+            v, s, b = data.shape
+            flat = data.permute(1, 0, 2).reshape(s, v * b)
+            want = rs_cuda.gf_apply_reference(m, flat).reshape(
+                -1, v, b).permute(1, 0, 2)
+        else:
+            want = rs_cuda.gf_apply_batched_reference(m, data)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"batched kernel != plain for {name}: "
+                                 f"max_abs_err {err}")
+        worst = max(worst, err)
+    sweeps = ((4096, 5, 1), (4097, 4, 4096), (513, 3, 100),
+              (16 * MIB, 3, SWEEP_SHIFT))
+    for b, k, shift in sweeps:
+        for name, m in mats:
+            buf = random_u8((10, b + (k - 1) * shift), gen)
+            got = rs_cuda.gf_sweep(m, buf, b, k, shift)
+            want = rs_cuda.gf_sweep_reference(m, buf, b, k, shift)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if err:
+                raise AssertionError(
+                    f"gf_sweep != plain for {name} B={b} K={k} "
+                    f"shift={shift}: max_abs_err {err}")
+    emit({"phase": "batched_vs_plain", "cases": len(cases) + 2 * len(sweeps),
+          "byte_equal": True, "max_abs_err": worst,
+          "wall_s": time.perf_counter() - t0})
+    return worst
+
+
+# -- phase 6 -------------------------------------------------------------
+
+
+def phase_kernel_sweep(rs_cuda, gf256, gen, power: str) -> list[dict]:
+    """bench.py:104's leg on the card: K sweeps in one launch per stage."""
+    m = gf256.rs_parity_matrix(10, 4)
+    rows = []
+    for mb, k in SWEEP_STAGES:
+        t0 = time.perf_counter()
+        b = mb * MIB
+        buf = random_u8((10, b + (k - 1) * SWEEP_SHIFT), gen)
+        out = rs_cuda.gf_sweep(m, buf, b, k, SWEEP_SHIFT)
+        for kk in (k - 1, k // 2):  # the window bench.py keeps, and another
+            want = rs_cuda.gf_apply_reference(
+                m, buf[:, kk * SWEEP_SHIFT: kk * SWEEP_SHIFT + b])
+            err = max_abs_err(out[kk], want)
+            if err:
+                raise AssertionError(f"sweep {kk} of stage {mb} MiB x {k}: "
+                                     f"max_abs_err {err}")
+            del want
+        del out
+        ms = time_ms(lambda: rs_cuda.gf_sweep(m, buf, b, k, SWEEP_SHIFT),
+                     reps=10, warmup=2)
+        window = buf[:, :b]
+        apply_ms = time_ms(lambda: rs_cuda.gf_apply(m, window), reps=10,
+                           warmup=2)
+        bound_ms = (10 + 4) * b * k / HBM_BYTES_PER_S * 1e3
+        once_ms = (10 * buf.shape[1] + 4 * b * k) / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "kernel_sweep", "mb_per_shard": mb, "sweeps": k,
+               "shift": SWEEP_SHIFT, "launches": 1, "ms": ms,
+               "GBps": 10 * b * k / ms / 1e6,
+               "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+               "bound_each_byte_once_ms": once_ms,
+               "apply_ms": apply_ms,
+               "sweep_over_apply": ms / k / apply_ms,
+               "windows_checked": [k - 1, k // 2], "card": power,
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        rows.append(row)
+        del buf, window
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 7 -------------------------------------------------------------
+
+
+def hist_snapshot(child) -> tuple[float, int]:
+    return child.total, child.count
+
+
+def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
+                  size: int, seed: int, reduced: list[str]) -> dict:
+    """SERVICE_VOLUMES volumes encoded, then rebuilt, concurrently through
+    one device-mode service."""
+    t_phase = time.perf_counter()
+    pr = codec_service.device_probe.probe(timeout_s=120)
+    if not pr.accelerator:
+        raise AssertionError(f"the device probe found no card: {pr}")
+    auto = codec_service.service_for_codec("cuda")
+    if auto is None or auto.mode != "device":
+        raise AssertionError("default routing did not pick the device "
+                             f"service: {auto and auto.mode}")
+    codec_service.shutdown_all()
+
+    bases = [os.path.join(work, str(i + 1)) for i in range(SERVICE_VOLUMES)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVICE_VOLUMES) as pool:
+        list(pool.map(lambda i: make_volume(bases[i], size, seed + 10 + i),
+                      range(SERVICE_VOLUMES)))
+    setup_s = time.perf_counter() - t0
+
+    svc = codec_service.CodecService(mode="device", codec_name="cuda",
+                                     max_batch_mb=SERVICE_BATCH_MB)
+    stages = {st: metrics.EC_SERVICE_STAGE.labels(st)
+              for st in ("build", "compute", "readback")}
+    jobs_child = metrics.EC_SERVICE_BATCH_JOBS.labels()
+    before = {st: hist_snapshot(c) for st, c in stages.items()}
+    jobs_before = hist_snapshot(jobs_child)
+
+    def encode(base: str) -> int:
+        n = enc.write_ec_files(base, codec_name="cuda", service=svc)
+        enc.write_sorted_file_from_idx(base)
+        return n
+
+    lost = (0, 1, 2, 3)
+    try:
+        rs_cuda.gf_apply.launches = 0
+        rs_cuda.gf_apply_batched.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVICE_VOLUMES) as pool:
+            encode_slices = sum(pool.map(encode, bases))
+        encode_s = time.perf_counter() - t0
+        encode_launches = rs_cuda.gf_apply_batched.launches
+        encode_direct = rs_cuda.gf_apply.launches
+        mid = {st: hist_snapshot(c) for st, c in stages.items()}
+        jobs_mid = hist_snapshot(jobs_child)
+
+        paths = [b + f".ec{i:02d}" for b in bases for i in lost]
+        with ThreadPoolExecutor(8) as pool:
+            digests = dict(zip(paths, pool.map(sha256_of, paths)))
+        for p in paths:
+            os.remove(p)
+        shard_size = os.path.getsize(bases[0] + ".ec04")
+        rs_cuda.gf_apply.launches = 0
+        rs_cuda.gf_apply_batched.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVICE_VOLUMES) as pool:
+            rebuilt = list(pool.map(
+                lambda b: enc.rebuild_ec_files(b, codec_name="cuda",
+                                               service=svc), bases))
+        rebuild_s = time.perf_counter() - t0
+        rebuild_launches = rs_cuda.gf_apply_batched.launches
+        rebuild_direct = rs_cuda.gf_apply.launches
+        after = {st: hist_snapshot(c) for st, c in stages.items()}
+        jobs_after = hist_snapshot(jobs_child)
+        solo = route_ab(enc, bases[0], size, lost, svc)
+    finally:
+        svc.close()
+    rebuild_slices = SERVICE_VOLUMES * -(-shard_size // enc.DEFAULT_SLICE)
+
+    if encode_direct or rebuild_direct:
+        raise AssertionError("the service route made direct launches")
+    if not 0 < encode_launches < encode_slices:
+        raise AssertionError(f"encode: {encode_launches} batched launches "
+                             f"for {encode_slices} slices")
+    if not 0 < rebuild_launches <= rebuild_slices:
+        raise AssertionError(f"rebuild: {rebuild_launches} batched launches "
+                             f"for {rebuild_slices} slices")
+    if any(r != list(lost) for r in rebuilt):
+        raise AssertionError(f"rebuilt {rebuilt}, expected {list(lost)}")
+    batches = jobs_after[1] - jobs_before[1]
+    if batches != encode_launches + rebuild_launches:
+        raise AssertionError(f"{batches} service batches made "
+                             f"{encode_launches + rebuild_launches} launches")
+    with ThreadPoolExecutor(8) as pool:
+        for p, h in zip(paths, pool.map(sha256_of, paths)):
+            if h != digests[p]:
+                raise AssertionError(f"rebuilt {p} differs by sha256")
+    rng = np.random.default_rng(seed + 2)
+    checked = 0
+    for b in bases:
+        check_ecx(b)
+        offsets = sorted({int(o) // enc.DEFAULT_SLICE * enc.DEFAULT_SLICE
+                          for o in rng.integers(0, shard_size, 4)})
+        checked += check_parity(b, rs_cuda, gf256, enc.DEFAULT_SLICE,
+                                offsets)
+
+    def stage_s(a, b) -> dict:
+        return {st: b[st][0] - a[st][0] for st in stages}
+    row = {"phase": "service_concurrent", "volumes": SERVICE_VOLUMES,
+           "volume_bytes": size, "setup_s": setup_s,
+           "batch_cap_mb": SERVICE_BATCH_MB,
+           "encode_s": encode_s,
+           "encode_GBps": SERVICE_VOLUMES * size / encode_s / 1e9,
+           "encode_slices": encode_slices, "encode_launches": encode_launches,
+           "rebuild_s": rebuild_s,
+           "rebuild_GBps_read": SERVICE_VOLUMES * 10 * shard_size
+           / rebuild_s / 1e9,
+           "rebuild_slices": rebuild_slices,
+           "rebuild_launches": rebuild_launches,
+           "batches": batches,
+           "encode_batches": jobs_mid[1] - jobs_before[1],
+           "mean_jobs_per_batch": (jobs_after[0] - jobs_before[0])
+           / max(batches, 1),
+           "encode_stage_s": stage_s(before, mid),
+           "rebuild_stage_s": stage_s(mid, after),
+           "solo_GBps": solo,
+           "parity_slices_checked": checked,
+           "rebuild_sha256_equal": True, "ecx_sorted": True,
+           "probe_s": pr.seconds, "reduced": reduced,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
+def route_ab(enc, base: str, size: int, lost, svc) -> dict:
+    """One volume alone on each route, in turns (direct, service, service,
+    direct): {route: [[encode GB/s, rebuild GB/s read], ...]}.  The
+    volume's shards end as they were."""
+    shard_size = os.path.getsize(base + ".ec04")
+    rates: dict[str, list] = {"direct": [], "service": []}
+    for route in ("direct", "service", "service", "direct"):
+        kw = {"service": svc} if route == "service" else {}
+        if route == "direct":
+            os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"
+        try:
+            t0 = time.perf_counter()
+            enc.write_ec_files(base, codec_name="cuda", **kw)
+            encode_s = time.perf_counter() - t0
+            for i in lost:
+                os.remove(base + f".ec{i:02d}")
+            t0 = time.perf_counter()
+            enc.rebuild_ec_files(base, codec_name="cuda", **kw)
+            rebuild_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("SEAWEEDFS_TPU_EC_SERVICE", None)
+        rates[route].append([size / encode_s / 1e9,
+                             10 * shard_size / rebuild_s / 1e9])
+    return rates
+
+
+def time_batched(rs_cuda, gf256, gen, power: str) -> dict:
+    """gf_apply_batched at the service's batch shape: 4 parity jobs of
+    16 MiB per shard in one launch."""
+    m = gf256.rs_parity_matrix(10, 4)
+    v, b = SERVICE_VOLUMES, 16 * MIB
+    data = random_u8((v, 10, b), gen)
+    ms = time_ms(lambda: rs_cuda.gf_apply_batched(m, data))
+    plain_ms = time_ms(lambda: rs_cuda.gf_apply_batched_reference(m, data),
+                       reps=5, warmup=1)
+    b_ms, b_by = bound(m, b)
+    row = {"phase": "batched_timing", "entries": v, "bytes_per_shard": b,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": v * b_ms,
+           "bound_by": b_by, "share_of_bound": v * b_ms / ms, "card": power}
+    emit(row)
+    return row
+
+
+def volume_size(work: str, want: int, count: int = 1
+                ) -> tuple[int, list[str]]:
+    """The size of each of `count` volumes to encode: `want` bytes, cut to
+    what the disk can hold (.dat + 1.4x for shards + margin); -> (bytes,
+    cuts made)."""
     free = shutil.disk_usage(work).free
-    fits = int(free / 2.6) // MIB * MIB
+    fits = int(free / 2.6 / count) // MIB * MIB
     if fits >= want:
         return want, []
-    if fits < GIB:
+    if fits < min(want, GIB // 4):
         raise RuntimeError(f"only {free} bytes free under {work}")
     return fits, [f"volume {want} -> {fits} bytes: {free} bytes free"]
 
@@ -356,13 +683,15 @@ def volume_size(work: str, want: int) -> tuple[int, list[str]]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--volume-gib", type=float, default=12.0)
+    ap.add_argument("--service-volume-gib", type=float, default=3.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+    from seaweedfs_tpu_torch.ops import codec_service, gf256, rs_cuda
+    from seaweedfs_tpu_torch.stats import metrics
     from seaweedfs_tpu_torch.storage.ec import encoder as enc
 
     start = time.perf_counter()
@@ -383,10 +712,25 @@ def main() -> int:
     parity16 = next(r for r in timing if r["matrix"] == "parity"
                     and r["bytes_per_shard"] == 16 * MIB)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"  # phase 4: direct route
     try:
         size, reduced = volume_size(work, int(args.volume_gib * GIB) // MIB * MIB)
         e2e = phase_end_to_end(rs_cuda, gf256, enc, work, size, args.seed,
                                reduced, parity16["ms"])
+    finally:
+        del os.environ["SEAWEEDFS_TPU_EC_SERVICE"]
+        shutil.rmtree(work, ignore_errors=True)
+
+    batched_err = phase_batched(rs_cuda, gf256, gen)
+    phase_kernel_sweep(rs_cuda, gf256, gen, power)
+    batched = time_batched(rs_cuda, gf256, gen, power)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        size, reduced = volume_size(
+            work, int(args.service_volume_gib * GIB) // MIB * MIB,
+            SERVICE_VOLUMES)
+        svc = phase_service(rs_cuda, gf256, enc, codec_service, metrics, work,
+                            size, args.seed, reduced)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -397,7 +741,14 @@ def main() -> int:
         "launches": e2e["encode_launches"] + e2e["rebuild_launches"],
         "max_abs_err": err, "ms": parity16["ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
-        "bound_by": parity16["bound_by"], "library_ms": None}]})
+        "bound_by": parity16["bound_by"], "library_ms": None}, {
+        "name": "gf_matmul_batched", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/ops/csrc/gf_matmul.cu",
+        "replaces": "bench.py:104",
+        "launches": svc["encode_launches"] + svc["rebuild_launches"],
+        "max_abs_err": batched_err, "ms": batched["ms"],
+        "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],
+        "bound_by": batched["bound_by"], "library_ms": None}]})
     emit({"phase": "done", "wall_s": time.perf_counter() - start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,9 @@ PARITY_SHARDS = 4
 TOTAL_SHARDS = DATA_SHARDS + PARITY_SHARDS
 
 _DEVICES = {"cuda": "cuda", "torch_cpu": "cpu"}
+# every name get_codec resolves to a codec on the card — the single source
+# of truth shared with ops.codec_service's mode and routing logic
+DEVICE_CODEC_NAMES = frozenset({"cuda"})
 
 
 def get_codec(name: str = "cuda", data_shards: int = DATA_SHARDS,

@@ -1,11 +1,16 @@
-"""GF(2^8) matrix apply on the GPU — the port of ops/rs_pallas.py.
+"""GF(2^8) matrix apply on the GPU — the port of ops/rs_pallas.py and of
+the sweep kernel of bench.py:104.
 
 `gf_apply(matrix, data)` computes out[i] = XOR_j matrix[i][j] * data[j] over
 GF(2^8) for an (R, S) uint8 coefficient matrix and an (S, B) uint8 tensor.
-On a CUDA tensor it launches the hand-written kernel csrc/gf_matmul.cu
-(built for sm_90a at first use) or raises; on a CPU tensor it runs the
-plain PyTorch version, `gf_apply_reference`, which the tests and
-chip_smoke.py also hold the kernel against.
+`gf_apply_batched(matrix, data)` does the same for each entry of a
+(V, S, B) tensor in one launch, and `gf_sweep` runs it over K windows of one
+(S, B + (K-1)*shift) buffer, each shifted by `shift` columns.  On a CUDA
+tensor each launches the hand-written kernel csrc/gf_matmul.cu (built for
+sm_90a at first use) or raises; on a CPU tensor it runs the plain PyTorch
+version (`gf_apply_reference`, `gf_apply_batched_reference`,
+`gf_sweep_reference`), which the tests and chip_smoke.py also hold the
+kernel against.
 """
 
 from __future__ import annotations
@@ -91,6 +96,14 @@ def _lib() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_void_p,
             ]
             lib.gf_matmul.restype = ctypes.c_int
+            lib.gf_matmul_batched.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.gf_matmul_batched.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
@@ -136,6 +149,111 @@ def gf_apply(matrix, data: torch.Tensor) -> torch.Tensor:
 
 
 gf_apply.launches = 0  # kernel launches since the last reset to 0
+
+
+def _check_batched(m: np.ndarray, data: torch.Tensor) -> None:
+    if not isinstance(data, torch.Tensor):
+        raise TypeError(f"data must be a torch.Tensor, got {type(data)}")
+    if data.dtype != torch.uint8 or data.ndim != 3:
+        raise ValueError(
+            f"data must be 3-D uint8, got {data.dtype} {tuple(data.shape)}")
+    if data.shape[1] != m.shape[1]:
+        raise ValueError(
+            f"matrix has {m.shape[1]} columns but data entries have "
+            f"{data.shape[1]} rows")
+
+
+def gf_apply_batched_reference(matrix, data: torch.Tensor) -> torch.Tensor:
+    """The plain version of gf_apply_batched: gf_apply_reference on each
+    entry.  (V, S, B) uint8 -> (V, R, B) uint8."""
+    m = coefficients(matrix)
+    _check_batched(m, data)
+    out = torch.empty((data.shape[0], m.shape[0], data.shape[2]),
+                      dtype=torch.uint8, device=data.device)
+    for v in range(data.shape[0]):
+        out[v] = gf_apply_reference(m, data[v])
+    return out
+
+
+def gf_apply_batched(matrix, data: torch.Tensor) -> torch.Tensor:
+    """(R, S) GF matrix x each (S, B) entry of a (V, S, B) uint8 tensor ->
+    (V, R, B) uint8, in ONE kernel launch on a CUDA tensor.
+
+    Rows must be contiguous; row and entry strides are free, and entries
+    may overlap (gf_sweep's windows do).  Every output entry is its own
+    slice of a fresh (V, R, B) tensor, so no two entries share an output
+    byte.  CPU tensors go through gf_apply_batched_reference."""
+    m = coefficients(matrix)
+    _check_batched(m, data)
+    if data.device.type == "cpu":
+        return gf_apply_batched_reference(m, data)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    v, s, b = data.shape
+    if b > 1 and data.stride(2) != 1:
+        raise ValueError("each data row must be contiguous (stride(2) == 1)")
+    row_stride = data.stride(1) if s > 1 else b
+    if row_stride < b:
+        raise ValueError(f"row stride {row_stride} < width {b}")
+    entry_stride = data.stride(0) if v > 1 else 0
+    r = m.shape[0]
+    out = torch.empty((v, r, b), dtype=torch.uint8, device=data.device)
+    if b == 0 or v == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    err = lib.gf_matmul_batched(
+        m.ctypes.data, r, s, data.data_ptr(), row_stride, entry_stride,
+        out.data_ptr(), b, r * b, b, v, data.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"gf_matmul_batched launch failed: cudaError {err}")
+    with _COUNT_LOCK:
+        gf_apply_batched.launches += 1
+    return out
+
+
+gf_apply_batched.launches = 0  # batched launches since the last reset to 0
+
+
+def _sweep_windows(m: np.ndarray, buf: torch.Tensor, width: int,
+                   sweeps: int, shift: int) -> torch.Tensor:
+    """Validate a sweep and return its (K, S, width) window view of buf."""
+    _check_data(m, buf)
+    if width < 0 or sweeps < 1 or shift < 0:
+        raise ValueError(
+            f"need width >= 0, sweeps >= 1, shift >= 0; got {width}, "
+            f"{sweeps}, {shift}")
+    need = width + (sweeps - 1) * shift
+    if buf.shape[1] < need:
+        raise ValueError(f"buffer has {buf.shape[1]} columns, the sweep "
+                         f"reads {need}")
+    if buf.shape[1] > 1 and buf.stride(1) != 1:
+        raise ValueError("each buffer row must be contiguous")
+    return buf.as_strided((sweeps, buf.shape[0], width),
+                          (shift, buf.stride(0), 1), buf.storage_offset())
+
+
+def gf_sweep_reference(matrix, buf: torch.Tensor, width: int, sweeps: int,
+                       shift: int) -> torch.Tensor:
+    """The plain version of gf_sweep: gf_apply_reference on each window."""
+    m = coefficients(matrix)
+    _sweep_windows(m, buf, width, sweeps, shift)
+    return torch.stack([gf_apply_reference(m, buf[:, k * shift:
+                                                  k * shift + width])
+                        for k in range(sweeps)])
+
+
+def gf_sweep(matrix, buf: torch.Tensor, width: int, sweeps: int,
+             shift: int) -> torch.Tensor:
+    """K full matrix applies over shifted windows of one buffer, in ONE
+    launch: (S, width + (K-1)*shift) -> (K, R, width), where entry k is the
+    product with buf[:, k*shift : k*shift + width].  This is the kernel of
+    bench.py:104, whose (K, G) grid read the input window shifted by k
+    blocks on sweep k; there one output was rewritten K times and kept
+    window K-1, here each sweep has its own output entry (entry K-1 is what
+    bench.py leaves), because CUDA blocks run in no order."""
+    m = coefficients(matrix)
+    return gf_apply_batched(m, _sweep_windows(m, buf, width, sweeps, shift))
 
 
 def parity_fn(data_shards: int = 10, parity_shards: int = 4):

@@ -10,13 +10,20 @@ shard go through the codec as one (10, W) kernel call; output bytes are the
 same for any slice width because parity is columnwise.
 
 Encode and rebuild share one streaming pipeline (_stream_apply):
-  * a prefetch thread fills (S, W) slices in page-locked host buffers;
-  * the main thread copies each slice to the card and launches the GF
-    kernel on a compute stream; a second stream copies the result back
-    into page-locked memory behind a CUDA event, so slice k's readback
-    overlaps slice k+1's upload and kernel;
+  * a prefetch thread fills (S, W) slices in host buffers;
+  * the main thread hands each slice to the compute route, one of
+    - the codec service (ops/codec_service.py), where slices become jobs
+      that the scheduler coalesces with other concurrent volumes' slices
+      into one batched kernel launch; two slices ride in flight.  The
+      default for the `cuda` codec when the probe finds a card, as in the
+      reference (encoder.py:97-98, :745-746);
+    - direct: the main thread copies each slice from page-locked memory to
+      the card and launches the GF kernel on a compute stream; a second
+      stream copies the result back into page-locked memory behind a CUDA
+      event, so slice k's readback overlaps slice k+1's upload and kernel;
+    - inline on the host, for the torch_cpu codec without a service;
   * a writer thread appends the shard rows and recycles the buffers.
-On the torch_cpu codec the same pipeline computes inline on the host.
+The bytes written are the same on every route.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ...ops import gf256
+from ...ops import codec_service, gf256
 from ...ops.codec import get_codec
 from ..needle_map import NeedleMap
 from .constants import (
@@ -44,7 +51,8 @@ from .constants import (
 # bytes per shard per kernel call (64 x 256KB reference batches)
 DEFAULT_SLICE = 16 * 1024 * 1024
 # host slice buffers in rotation: one filling, one on the card, one
-# awaiting readback, one in the writer
+# awaiting readback, one in the writer — and one more through a service,
+# which keeps two slices in flight
 _HOST_BUFFERS = 4
 
 
@@ -55,20 +63,30 @@ def write_sorted_file_from_idx(base_name: str, ext: str = ".ecx") -> None:
 
 
 def write_ec_files(base_name: str, codec_name: str = "cuda",
-                   slice_size: int = DEFAULT_SLICE) -> int:
+                   slice_size: int = DEFAULT_SLICE, service=None) -> int:
     """Generate .ec00 ~ .ec13 from .dat (ec_encoder.go:57-59); -> the
     number of codec calls (slices) dispatched."""
     return generate_ec_files(base_name, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE,
-                             codec_name, slice_size)
+                             codec_name, slice_size, service)
 
 
 def generate_ec_files(base_name: str,
                       large_block_size: int = LARGE_BLOCK_SIZE,
                       small_block_size: int = SMALL_BLOCK_SIZE,
                       codec_name: str = "cuda",
-                      slice_size: int = DEFAULT_SLICE) -> int:
-    """Stripe `<base>.dat` into the 14 shard files; -> slices dispatched."""
+                      slice_size: int = DEFAULT_SLICE,
+                      service=None) -> int:
+    """Stripe `<base>.dat` into the 14 shard files; -> slices dispatched.
+
+    `service` routes the parity compute through a codec service
+    (ops.codec_service): slices become jobs the scheduler coalesces with
+    OTHER concurrent volumes' slices into one batched launch.  Default:
+    the shared service when `codec_name` is a device codec and the probe
+    finds a card (codec_service.service_for_codec), else the direct
+    path."""
     codec = get_codec(codec_name)
+    if service is None:
+        service = codec_service.service_for_codec(codec_name)
     dat_path = base_name + ".dat"
     dat_size = os.path.getsize(dat_path)
     outs = [open(base_name + to_ext(i), "wb") for i in range(TOTAL_SHARDS)]
@@ -76,7 +94,7 @@ def generate_ec_files(base_name: str,
         with open(dat_path, "rb") as f:
             return _encode_stream_pipelined(
                 f, dat_size, outs, codec, large_block_size, small_block_size,
-                slice_size)
+                slice_size, service)
     finally:
         for o in outs:
             o.close()
@@ -191,20 +209,27 @@ class _HostBuffers:
 
 
 def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
-                  write_out, slice_size: int) -> int:
+                  write_out, slice_size: int, submit=None) -> int:
     """Run `matrix` (R, S) over a stream of column slices; -> slices run.
 
     For each item of `items` (consumed by the prefetch thread):
     `read_into(item, dest)` fills dest (S, width_of(item)) uint8 numpy;
-    the GF product (R, width) is computed on the codec's device; the
-    writer thread then calls `write_out(item, src, out)` with both as
-    numpy arrays.  Any stage's exception stops the pipeline, joins its
-    threads and propagates."""
+    the GF product (R, width) is computed on the codec's device, or by
+    `submit(dest)` -> a codec-service future of it when given; the writer
+    thread then calls `write_out(item, src, out)` with both as numpy
+    arrays.  Any stage's exception stops the pipeline, joins its threads
+    and propagates."""
     n_in, n_out = matrix.shape[1], matrix.shape[0]
-    on_card = codec.device.type == "cuda"
+    # the service stages slices itself: only the direct route needs
+    # page-locked buffers
+    on_card = submit is None and codec.device.type == "cuda"
+    max_pending = 1 if submit is None else 2
     stop = threading.Event()
-    in_bufs = _HostBuffers(_HOST_BUFFERS, n_in * slice_size, on_card, stop)
-    out_bufs = _HostBuffers(_HOST_BUFFERS, n_out * slice_size, on_card, stop)
+    in_bufs = _HostBuffers(_HOST_BUFFERS + max_pending - 1,
+                           n_in * slice_size, on_card, stop)
+    # the service hands results back in its own buffers
+    out_bufs = _HostBuffers(_HOST_BUFFERS if submit is None else 0,
+                            n_out * slice_size, on_card, stop)
     q: queue.Queue = queue.Queue(maxsize=2)
     wq: queue.Queue = queue.Queue(maxsize=2)
     write_err: list[BaseException] = []
@@ -242,11 +267,14 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
             if write_err:
                 continue  # drain so the main thread never blocks
             try:
-                item, ibuf, obuf, width = pending
+                item, ibuf, obuf, width, result = pending
+                if result is None:
+                    result = _HostBuffers.view(obuf, n_out, width).numpy()
                 write_out(item, _HostBuffers.view(ibuf, n_in, width).numpy(),
-                          _HostBuffers.view(obuf, n_out, width).numpy())
+                          result)
                 in_bufs.put(ibuf)
-                out_bufs.put(obuf)
+                if obuf is not None:
+                    out_bufs.put(obuf)
             except Exception as e:  # surfaced by the main thread
                 write_err.append(e)
 
@@ -259,9 +287,12 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
                              device=codec.device)
 
     def dispatch(ibuf, obuf, width):
-        """Start one slice; -> a CUDA event that fires when its result is
-        in obuf, or None when it was computed inline on the host."""
+        """Start one slice; -> a codec-service future of its result, a CUDA
+        event that fires when its result is in obuf, or None when it was
+        computed inline on the host."""
         host_in = _HostBuffers.view(ibuf, n_in, width)
+        if submit is not None:
+            return submit(host_in.numpy())
         host_out = _HostBuffers.view(obuf, n_out, width)
         if not on_card:
             host_out.copy_(codec.apply_rows_device(matrix, host_in))
@@ -280,9 +311,12 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
 
     def drain(pending) -> None:
         item, ibuf, obuf, width, done = pending
-        if done is not None:
+        result = None
+        if submit is not None:
+            result = done.result()  # (R, width), the service's to hand out
+        elif done is not None:
             done.synchronize()
-        wq.put((item, ibuf, obuf, width))
+        wq.put((item, ibuf, obuf, width, result))
         if write_err:
             raise write_err[0]
 
@@ -298,13 +332,15 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
             if got is None:
                 break
             item, ibuf, width = got
-            obuf = out_bufs.get()
-            if obuf is None:
-                break
+            obuf = None
+            if submit is None:
+                obuf = out_bufs.get()
+                if obuf is None:
+                    break
             in_flight.append((item, ibuf, obuf, width,
                               dispatch(ibuf, obuf, width)))
             slices += 1
-            if len(in_flight) > 1:  # k reads back while k+1 computes
+            if len(in_flight) > max_pending:  # k reads back while k+1 computes
                 drain(in_flight.popleft())
         while in_flight:
             drain(in_flight.popleft())
@@ -337,7 +373,7 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
 
 
 def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
-                             slice_size) -> int:
+                             slice_size, service=None) -> int:
     """Encode the .dat open as `f` into the 14 open shard files `outs`."""
 
     def width_of(batch) -> int:
@@ -355,17 +391,20 @@ def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
     return _stream_apply(
         codec, codec.parity_matrix,
         _slice_tasks(dat_size, large, small, slice_size),
-        width_of, read_into, write_out, slice_size)
+        width_of, read_into, write_out, slice_size,
+        None if service is None else service.submit_parity)
 
 
 def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
-                     slice_size: int = DEFAULT_SLICE) -> list[int]:
+                     slice_size: int = DEFAULT_SLICE,
+                     service=None) -> list[int]:
     """Regenerate whichever .ecNN files are missing (ec_encoder.go:61-62)
     from DATA_SHARDS local source shards; -> the rebuilt shard ids.
 
     The cached decode plan for this loss pattern runs through the same
-    pipeline as the encode; the DATA_SHARDS sources of each slice are read
-    in parallel.  On any error the partial .ecNN outputs are REMOVED — a
+    pipeline as the encode, on the same routes (`service` as for
+    generate_ec_files); the DATA_SHARDS sources of each slice are read in
+    parallel.  On any error the partial .ecNN outputs are REMOVED — a
     failed rebuild leaves no truncated shard for a later mount to trust.
     """
     codec = get_codec(codec_name)
@@ -378,6 +417,8 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
         raise ValueError(
             f"cannot rebuild: only {len(local)} of {TOTAL_SHARDS} shards "
             f"present, need {DATA_SHARDS}")
+    if service is None:
+        service = codec_service.service_for_codec(codec_name)
     sources = local[:DATA_SHARDS]
     shard_size = os.path.getsize(base_name + to_ext(sources[0]))
     rows = gf256.decode_plan_for(
@@ -407,7 +448,9 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
             _stream_apply(
                 codec, rows, range(0, shard_size, slice_size),
                 lambda off: min(slice_size, shard_size - off),
-                read_into, write_out, slice_size)
+                read_into, write_out, slice_size,
+                None if service is None
+                else lambda data: service.submit_apply(rows, data))
         ok = True
     finally:
         for h in ins.values():

@@ -162,3 +162,107 @@ def test_cuda_codec_raises_without_a_card():
         ReedSolomonTorch(device="cuda")
     with pytest.raises(ValueError):
         get_codec("tpu")
+
+
+# -- the batched launch and bench.py:104's sweep ------------------------------
+
+
+def _bench_sweep_pallas(rows, host_u32, g, k, tile):
+    """bench.py:104's pallas_call, built the same way at a small tile: a
+    (K, G) grid where sweep kk reads input block gg + kk and writes output
+    block gg, so the output keeps the parity of window K-1."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from seaweedfs_tpu.ops.rs_pallas import LANES, _kernel_body
+
+    fn = pl.pallas_call(
+        functools.partial(_kernel_body, rows),
+        out_shape=jax.ShapeDtypeStruct((4, g * tile, LANES), jnp.uint32),
+        grid=(k, g),
+        in_specs=[pl.BlockSpec((10, tile, LANES),
+                               lambda kk, gg: (0, gg + kk, 0),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((4, tile, LANES), lambda kk, gg: (0, gg, 0),
+                               memory_space=pltpu.VMEM),
+        interpret=True,
+    )
+    return np.asarray(fn(jnp.asarray(host_u32)))
+
+
+@pytest.mark.parametrize("g,k", [(1, 3), (2, 4)])
+def test_sweep_matches_bench_pallas_grid(g, k):
+    from seaweedfs_tpu.ops.rs_pallas import LANES
+
+    tile = 8  # bench.py runs 256 rows of 128 lanes; the grid is the same
+    rng = np.random.default_rng(100 + g * k)
+    host = rng.integers(0, 2**32, (10, (g + k) * tile, LANES),
+                        dtype=np.uint32)
+    m = jgf.rs_parity_matrix(10, 4)
+    want_last = _bench_sweep_pallas(_rows(m), host, g, k, tile)
+    buf = host.view(np.uint8).reshape(10, -1)  # little-endian lane bytes
+    shift = tile * LANES * 4  # one block per sweep
+    width = g * shift
+    got = rs_cuda.gf_sweep_reference(m, torch.from_numpy(buf), width, k,
+                                     shift)
+    assert tuple(got.shape) == (k, 4, width)
+    assert np.array_equal(got[k - 1].numpy(),
+                          want_last.view(np.uint8).reshape(4, -1))
+    # every sweep's own entry is the Pallas kernel over its window
+    pallas = make_apply_pallas(_rows(m), interpret=True)
+    for kk in range(k):
+        window = buf[:, kk * shift: kk * shift + width]
+        assert np.array_equal(got[kk].numpy(),
+                              np.asarray(pallas(jnp.asarray(window)))), kk
+    # the public wrapper on a CPU tensor takes the plain version
+    assert torch.equal(rs_cuda.gf_sweep(m, torch.from_numpy(buf), width, k,
+                                        shift), got)
+
+
+@pytest.mark.parametrize("which", ["parity", "(0, 1, 2, 3)", "(2, 3, 11, 12)"])
+def test_batched_reference_matches_pallas_interpret(which):
+    m = (jgf.rs_parity_matrix(10, 4) if which == "parity"
+         else _plan(dict((str(lost), lost) for lost in LOSSES)[which]))
+    pallas = make_apply_pallas(_rows(m), interpret=True)
+    rng = np.random.default_rng(len(which) + 50)
+    for v, b in ((1, 513), (3, 100), (5, 1)):
+        data = rng.integers(0, 256, (v, 10, b), dtype=np.uint8)
+        got = rs_cuda.gf_apply_batched_reference(m, torch.from_numpy(data))
+        assert tuple(got.shape) == (v, m.shape[0], b)
+        for e in range(v):
+            want = np.asarray(pallas(jnp.asarray(data[e])))
+            assert np.array_equal(got[e].numpy(), want), (which, v, b, e)
+        assert torch.equal(
+            rs_cuda.gf_apply_batched(m, torch.from_numpy(data)), got)
+    # overlapping entries (a sweep's windows) read the same bytes
+    buf = rng.integers(0, 256, (10, 700), dtype=np.uint8)
+    t = torch.from_numpy(buf)
+    windows = t.as_strided((4, 10, 400), (100, 700, 1))
+    got = rs_cuda.gf_apply_batched_reference(m, windows)
+    for e in range(4):
+        want = np.asarray(pallas(jnp.asarray(buf[:, 100 * e: 100 * e + 400])))
+        assert np.array_equal(got[e].numpy(), want), e
+
+
+def test_batched_and_sweep_reject_bad_inputs():
+    m = tgf.rs_parity_matrix(10, 4)
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply_batched(m, torch.zeros((2, 9, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        rs_cuda.gf_apply_batched(m, torch.zeros((10, 8), dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        rs_cuda.gf_apply_batched(m, np.zeros((1, 10, 8), np.uint8))
+    buf = torch.zeros((10, 100), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        rs_cuda.gf_sweep(m, buf, 60, 3, 30)  # reads 120 of 100 columns
+    with pytest.raises(ValueError):
+        rs_cuda.gf_sweep_reference(m, buf, 10, 0, 5)
+    assert tuple(rs_cuda.gf_sweep(m, buf, 40, 3, 30).shape) == (3, 4, 40)
+    assert tuple(rs_cuda.gf_apply_batched(
+        m, torch.zeros((0, 10, 8), dtype=torch.uint8)).shape) == (0, 4, 8)
+    before = rs_cuda.gf_apply_batched.launches
+    rs_cuda.gf_apply_batched(m, torch.zeros((2, 10, 8), dtype=torch.uint8))
+    assert rs_cuda.gf_apply_batched.launches == before  # no launch on CPU

@@ -34,13 +34,16 @@ Phases, each printing one JSON line:
      shifted by 128 KiB in one gf_sweep launch per stage, timed beside
      gf_apply at the same width and the memory bound;
   7. service_concurrent: 4 volumes (3 GiB each) encoded from 4 threads
-     through one device-mode CodecService, .ec00-.ec03 of each deleted and
-     rebuilt from 4 threads through it, checked by sha256, .ecx and
-     sampled parity.  Launch counts are zeroed just before and read just
-     after; batched launches must be fewer than the slices submitted.
-     Then one volume alone, encoded and rebuilt on the direct route and
-     through the service in turns;
-  8. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
+     through one device-mode CodecService with its default settings,
+     .ec00-.ec03 of each deleted and rebuilt from 4 threads through it,
+     checked by sha256, .ecx and sampled parity.  Launch counts are zeroed
+     just before and read just after; batched launches must be fewer than
+     the slices submitted, in both flows;
+  8. default_route: one of those volumes alone, encoded and rebuilt in
+     turns on the direct route (SEAWEEDFS_TPU_EC_SERVICE=0) and on the
+     default route a user gets with no arguments (the shared service, its
+     default batch cap), each checked by sha256 and its launches;
+  9. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this script.  Data comes from --seed; nothing is downloaded.
@@ -78,10 +81,6 @@ BATCH_WIDTHS = (1, 15, 513, 4097, 16 * MIB)
 SWEEP_STAGES = ((4, 8), (16, 32), (64, 16), (256, 8))
 SWEEP_SHIFT = 128 * 1024
 SERVICE_VOLUMES = 4
-# slices in flight per volume (2) x volumes, of 10 x 16 MiB each: a batch
-# cap that lets concurrent volumes' 16 MiB slices share a launch (the
-# reference's 64 MB default was sized for a TPU mesh and holds less than one)
-SERVICE_BATCH_MB = SERVICE_VOLUMES * 10 * 16
 
 
 def emit(obj) -> None:
@@ -473,13 +472,17 @@ def phase_kernel_sweep(rs_cuda, gf256, gen, power: str) -> list[dict]:
         window = buf[:, :b]
         apply_ms = time_ms(lambda: rs_cuda.gf_apply(m, window), reps=10,
                            warmup=2)
-        bound_ms = (10 + 4) * b * k / HBM_BYTES_PER_S * 1e3
-        once_ms = (10 * buf.shape[1] + 4 * b * k) / HBM_BYTES_PER_S * 1e3
+        # the least bytes the launch must move: the overlapping windows'
+        # distinct input once, and K outputs
+        bound_ms = (10 * buf.shape[1] + 4 * b * k) / HBM_BYTES_PER_S * 1e3
+        # bench.py:126's accounting, which re-reads each window
+        bench_ms = (10 + 4) * b * k / HBM_BYTES_PER_S * 1e3
         row = {"phase": "kernel_sweep", "mb_per_shard": mb, "sweeps": k,
                "shift": SWEEP_SHIFT, "launches": 1, "ms": ms,
-               "GBps": 10 * b * k / ms / 1e6,
+               "bench_GBps": 10 * b * k / ms / 1e6,
                "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
-               "bound_each_byte_once_ms": once_ms,
+               "bench_accounting_bound_ms": bench_ms,
+               "bench_accounting_share": bench_ms / ms,
                "apply_ms": apply_ms,
                "sweep_over_apply": ms / k / apply_ms,
                "windows_checked": [k - 1, k // 2], "card": power,
@@ -510,6 +513,11 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
     if auto is None or auto.mode != "device":
         raise AssertionError("default routing did not pick the device "
                              f"service: {auto and auto.mode}")
+    bare = codec_service.CodecService()
+    bare.close()
+    if bare.mode != "device":
+        raise AssertionError(f"CodecService() resolved to {bare.mode}: "
+                             f"{bare.fallback_reason}")
     codec_service.shutdown_all()
 
     bases = [os.path.join(work, str(i + 1)) for i in range(SERVICE_VOLUMES)]
@@ -519,8 +527,7 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
                       range(SERVICE_VOLUMES)))
     setup_s = time.perf_counter() - t0
 
-    svc = codec_service.CodecService(mode="device", codec_name="cuda",
-                                     max_batch_mb=SERVICE_BATCH_MB)
+    svc = codec_service.CodecService(mode="device")
     stages = {st: metrics.EC_SERVICE_STAGE.labels(st)
               for st in ("build", "compute", "readback")}
     jobs_child = metrics.EC_SERVICE_BATCH_JOBS.labels()
@@ -563,7 +570,6 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
         rebuild_direct = rs_cuda.gf_apply.launches
         after = {st: hist_snapshot(c) for st, c in stages.items()}
         jobs_after = hist_snapshot(jobs_child)
-        solo = route_ab(enc, bases[0], size, lost, svc)
     finally:
         svc.close()
     rebuild_slices = SERVICE_VOLUMES * -(-shard_size // enc.DEFAULT_SLICE)
@@ -573,7 +579,7 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
     if not 0 < encode_launches < encode_slices:
         raise AssertionError(f"encode: {encode_launches} batched launches "
                              f"for {encode_slices} slices")
-    if not 0 < rebuild_launches <= rebuild_slices:
+    if not 0 < rebuild_launches < rebuild_slices:
         raise AssertionError(f"rebuild: {rebuild_launches} batched launches "
                              f"for {rebuild_slices} slices")
     if any(r != list(lost) for r in rebuilt):
@@ -599,7 +605,7 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
         return {st: b[st][0] - a[st][0] for st in stages}
     row = {"phase": "service_concurrent", "volumes": SERVICE_VOLUMES,
            "volume_bytes": size, "setup_s": setup_s,
-           "batch_cap_mb": SERVICE_BATCH_MB,
+           "batch_cap_mb": svc.max_batch_bytes >> 20,
            "encode_s": encode_s,
            "encode_GBps": SERVICE_VOLUMES * size / encode_s / 1e9,
            "encode_slices": encode_slices, "encode_launches": encode_launches,
@@ -614,7 +620,6 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
            / max(batches, 1),
            "encode_stage_s": stage_s(before, mid),
            "rebuild_stage_s": stage_s(mid, after),
-           "solo_GBps": solo,
            "parity_slices_checked": checked,
            "rebuild_sha256_equal": True, "ecx_sorted": True,
            "probe_s": pr.seconds, "reduced": reduced,
@@ -623,30 +628,59 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
     return row
 
 
-def route_ab(enc, base: str, size: int, lost, svc) -> dict:
-    """One volume alone on each route, in turns (direct, service, service,
-    direct): {route: [[encode GB/s, rebuild GB/s read], ...]}.  The
-    volume's shards end as they were."""
+def phase_default_route(rs_cuda, enc, codec_service, base: str,
+                        size: int) -> dict:
+    """One volume alone, in turns (direct, default, default, direct): the
+    direct route, and the route `write_ec_files(base)` takes with no
+    service and no settings (the shared service from service_for_codec,
+    its default batch cap).  Each rebuild is checked by sha256, and each
+    leg by the kernel entry it launched."""
+    t_phase = time.perf_counter()
+    lost = (0, 1, 2, 3)
     shard_size = os.path.getsize(base + ".ec04")
-    rates: dict[str, list] = {"direct": [], "service": []}
-    for route in ("direct", "service", "service", "direct"):
-        kw = {"service": svc} if route == "service" else {}
+    digests = {i: sha256_of(base + f".ec{i:02d}") for i in lost}
+    rates: dict[str, list] = {"direct": [], "default": []}
+    launches: dict[str, list] = {"direct": [], "default": []}
+    cap_mb = None
+    for route in ("direct", "default", "default", "direct"):
         if route == "direct":
             os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"
         try:
+            rs_cuda.gf_apply.launches = 0
+            rs_cuda.gf_apply_batched.launches = 0
             t0 = time.perf_counter()
-            enc.write_ec_files(base, codec_name="cuda", **kw)
+            enc.write_ec_files(base, codec_name="cuda")
             encode_s = time.perf_counter() - t0
             for i in lost:
                 os.remove(base + f".ec{i:02d}")
             t0 = time.perf_counter()
-            enc.rebuild_ec_files(base, codec_name="cuda", **kw)
+            enc.rebuild_ec_files(base, codec_name="cuda")
             rebuild_s = time.perf_counter() - t0
+            if route == "default":
+                cap_mb = codec_service.get_service().max_batch_bytes >> 20
         finally:
             os.environ.pop("SEAWEEDFS_TPU_EC_SERVICE", None)
+        direct = rs_cuda.gf_apply.launches
+        batched = rs_cuda.gf_apply_batched.launches
+        ok = (direct > 0 and batched == 0 if route == "direct"
+              else batched > 0 and direct == 0)
+        if not ok:
+            raise AssertionError(f"{route} route made {direct} direct and "
+                                 f"{batched} batched launches")
+        for i in lost:
+            if sha256_of(base + f".ec{i:02d}") != digests[i]:
+                raise AssertionError(f"{route} rebuild: .ec{i:02d} differs")
         rates[route].append([size / encode_s / 1e9,
                              10 * shard_size / rebuild_s / 1e9])
-    return rates
+        launches[route].append(direct + batched)
+    codec_service.shutdown_all()
+    row = {"phase": "default_route", "volume_bytes": size,
+           "GBps_encode_rebuild_read": rates, "launches": launches,
+           "order": ["direct", "default", "default", "direct"],
+           "default_batch_cap_mb": cap_mb,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
 
 
 def time_batched(rs_cuda, gf256, gen, power: str) -> dict:
@@ -731,6 +765,8 @@ def main() -> int:
             SERVICE_VOLUMES)
         svc = phase_service(rs_cuda, gf256, enc, codec_service, metrics, work,
                             size, args.seed, reduced)
+        phase_default_route(rs_cuda, enc, codec_service,
+                            os.path.join(work, "1"), size)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

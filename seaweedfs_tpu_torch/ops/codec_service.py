@@ -7,18 +7,22 @@ thread drains it, coalesces jobs that share a matrix (same generator rows
 or same decode plan) into one batch, and dispatches the batch as a single
 compute call:
 
-* **device mode**: a batch is stacked into a reused page-locked
-  ``(V, S, W_pad)`` staging block (``W_pad`` is the widest job rounded up
-  to 16 bytes, the kernel's vector width), copied to the card on a compute
-  stream and run as ONE ``rs_cuda.gf_apply_batched`` launch of the
-  hand-written kernel.  The result is copied back on a readback stream,
-  behind an event, into page-locked memory.  Up to two batches stay in
-  flight: while batch *k* computes, batch *k+1* is assembled and
-  dispatched, and *k*'s readback overlaps *k+1*'s compute.  Each batch
-  reads back into its own buffer, never reused while a delivered result
-  still views it; jobs that gave an ``out`` get a copy there instead.
-  ``device="cpu"`` runs the same staging, batching and dispatch on CPU
-  tensors through the kernel's plain version (tests only).
+* **device mode**: each job of a batch is copied straight from the
+  caller's rows into its entry of one ``(V, S, W_pad)`` block on the card
+  (``W_pad`` is the widest job rounded up to 16 bytes, the kernel's vector
+  width) on a compute stream, and the batch runs as ONE
+  ``rs_cuda.gf_apply_batched`` launch of the hand-written kernel.  Rows
+  that lie in page-locked memory (the encoder's slices) upload as
+  asynchronous DMA, with no host copy.  The result is copied back on a
+  readback stream, behind an event, into page-locked memory.  Up to two
+  batches stay in flight: while batch *k* computes, batch *k+1* is
+  uploaded and launched, and *k*'s readback overlaps *k+1*'s compute.
+  Each batch reads back into its own buffer, never reused while a
+  delivered result still views it; jobs that gave an ``out`` get a copy
+  there instead.  A caller's rows are read by the card until its job is
+  delivered, so it must not refill them before.  ``device="cpu"`` runs
+  the same batching and dispatch on CPU tensors through the kernel's
+  plain version (tests only).
 
 * **host mode**: the SAME scheduler runs on the port's ``torch_cpu`` codec
   (the kernel's plain version), so the batching and fairness properties
@@ -36,7 +40,8 @@ batch's service time.  GF arithmetic is exact, so every mode gives the
 same bytes.
 
 Env knobs (all ``SEAWEEDFS_TPU_EC_SERVICE_*``): ``QUEUE`` (bound, 64),
-``BATCH`` (max jobs/batch, 16), ``BATCH_MB`` (max input MB/batch, 64),
+``BATCH`` (max jobs/batch, 16), ``BATCH_MB`` (max input MB/batch: 64 in
+host mode, 1024 in device mode),
 ``COALESCE_KB`` (host slab threshold per job, 16), ``DEGRADED`` ("1"
 routes degraded-read interval decodes through the service), and the
 top-level ``SEAWEEDFS_TPU_EC_SERVICE`` ("0" disables every default
@@ -71,6 +76,12 @@ from .rs_torch import resolve_device
 DATA_SHARDS = 10
 PARITY_SHARDS = 4
 _VEC_BYTES = 16  # the kernel's widest access: rows padded to it take it
+# input MB per batch: the host's slab and cache sizes bound a host batch;
+# on a card the cap must admit the encoder's slices (16 MiB per shard =
+# 160 MiB of input each), so six of them share a launch.  Two batches in
+# flight then hold ~2.7 GiB of the card (inputs and outputs).
+_HOST_BATCH_MB = 64
+_DEVICE_BATCH_MB = 1024
 
 _STAGE_BUILD = EC_SERVICE_STAGE.labels("build")
 _STAGE_COMPUTE = EC_SERVICE_STAGE.labels("compute")
@@ -123,17 +134,6 @@ class CodecFuture:
         return self._job.result
 
 
-class _Staging:
-    """One reused host staging block for a device-mode batch, and the
-    event after which the card has finished reading it."""
-
-    __slots__ = ("buf", "read")
-
-    def __init__(self):
-        self.buf: "torch.Tensor | None" = None
-        self.read: "torch.cuda.Event | None" = None
-
-
 class CodecService:
     """Batched GF(2⁸) dispatch behind a bounded queue.
 
@@ -141,10 +141,13 @@ class CodecService:
     kernel launch per batch on ``device``, a CUDA card unless ``"cpu"`` is
     asked for), or ``auto`` (device iff ``codec_name`` names a device codec
     AND the fast probe reports a reachable card — an unreachable card
-    degrades to host in probe-timeout seconds, never minutes).
+    degrades to host in probe-timeout seconds, never minutes).  The
+    defaults, ``auto`` with the ``cuda`` codec, run on the card when there
+    is one; callers that want the host pass ``mode="host"`` or
+    ``codec_name="torch_cpu"``.
     """
 
-    def __init__(self, mode: str = "auto", codec_name: str = "torch_cpu",
+    def __init__(self, mode: str = "auto", codec_name: str = "cuda",
                  data_shards: int = DATA_SHARDS,
                  parity_shards: int = PARITY_SHARDS,
                  max_batch: "int | None" = None,
@@ -184,7 +187,9 @@ class CodecService:
             "SEAWEEDFS_TPU_EC_SERVICE_QUEUE", 64)
         self.max_batch_bytes = (
             max_batch_mb if max_batch_mb is not None else _env_int(
-                "SEAWEEDFS_TPU_EC_SERVICE_BATCH_MB", 64)) << 20
+                "SEAWEEDFS_TPU_EC_SERVICE_BATCH_MB",
+                _DEVICE_BATCH_MB if mode == "device" else _HOST_BATCH_MB)
+        ) << 20
         self.coalesce_bytes = (
             coalesce_kb if coalesce_kb is not None else _env_int(
                 "SEAWEEDFS_TPU_EC_SERVICE_COALESCE_KB", 16)) << 10
@@ -197,9 +202,6 @@ class CodecService:
         # a fresh allocation per batch pays more in page faults than the
         # compute call it feeds
         self._slab_in: "np.ndarray | None" = None
-        # device mode: one staging block per in-flight batch, used in turn
-        self._staging = (_Staging(), _Staging())
-        self._batches = 0
         self._on_card = self.device.type == "cuda"
         if self._on_card:
             self._compute = torch.cuda.Stream(self.device)
@@ -502,57 +504,53 @@ class CodecService:
 
     # -- device backend ---------------------------------------------------
 
-    def _stage(self, nbytes: int) -> _Staging:
-        """The next staging block, at least `nbytes`, free to refill: the
-        card has finished the copy that read it two batches ago."""
-        st = self._staging[self._batches % 2]
-        self._batches += 1
-        if st.read is not None:
-            st.read.synchronize()
-            st.read = None
-        if st.buf is None or st.buf.numel() < nbytes:
-            # sized to the batch cap at once: page-locking is slow, and a
-            # block grown batch by batch would pay it again and again
-            st.buf = torch.empty(max(nbytes, self.max_batch_bytes),
-                                 dtype=torch.uint8, pin_memory=self._on_card)
-        return st
-
     def _dispatch_device(self, batch: list[_Job]):
-        """Stage, upload and launch one batch; -> (output, event) where the
-        event fires once the (V, R, W_pad) host output holds the result
-        (None when the batch ran on CPU tensors)."""
+        """Upload and launch one batch; -> (output, event) where the event
+        fires once the (V, R, W_pad) host output holds the result (None
+        when the batch ran on CPU tensors)."""
         rows = batch[0].rows
         s = rows.shape[1]
-        v = len(batch)
+        w_pad = -(-max(j.width for j in batch) // _VEC_BYTES) * _VEC_BYTES
+        if not self._on_card:
+            return self._upload_and_launch(batch, rows, s, w_pad), None
+        with torch.cuda.device(self.device):
+            with torch.cuda.stream(self._compute):
+                d_out = self._upload_and_launch(batch, rows, s, w_pad)
+            self._readback.wait_stream(self._compute)
+            with torch.cuda.stream(self._readback):
+                # a fresh page-locked output per batch: results handed to
+                # callers view it, so it is never refilled under them
+                out = torch.empty(d_out.shape, dtype=torch.uint8,
+                                  pin_memory=True)
+                out.copy_(d_out, non_blocking=True)
+                d_out.record_stream(self._readback)
+                done = torch.cuda.Event()
+                done.record(self._readback)
+        return out, done
+
+    def _upload_and_launch(self, batch: list[_Job], rows, s: int,
+                           w_pad: int) -> torch.Tensor:
+        """Copy every job's rows into its entry of one (V, S, W_pad) block
+        on the service's device and launch the batch; on a card both only
+        enqueue work on the current (compute) stream."""
         with _STAGE_BUILD.time():
-            w_pad = -(-max(j.width for j in batch) // _VEC_BYTES) * _VEC_BYTES
-            st = self._stage(v * s * w_pad)
-            block = st.buf[: v * s * w_pad].view(v, s, w_pad)
-            host = block.numpy()
+            block = torch.empty((len(batch), s, w_pad), dtype=torch.uint8,
+                                device=self.device)
             for vi, j in enumerate(batch):
-                # columns past a job's width stay stale: columns are
-                # independent, and their outputs are never delivered
-                self._fill(host[vi, :, :j.width], j.data, s)
-        with _STAGE_COMPUTE.time():  # enqueue only: the launch is async
-            if not self._on_card:
-                return gf_apply_batched(rows, block), None
-            with torch.cuda.device(self.device):
-                with torch.cuda.stream(self._compute):
-                    d_in = block.to(self.device, non_blocking=True)
-                    st.read = torch.cuda.Event()
-                    st.read.record(self._compute)
-                    d_out = gf_apply_batched(rows, d_in)
-                self._readback.wait_stream(self._compute)
-                with torch.cuda.stream(self._readback):
-                    # a fresh page-locked output per batch: results handed
-                    # to callers view it, so it is never refilled under them
-                    out = torch.empty(d_out.shape, dtype=torch.uint8,
-                                      pin_memory=True)
-                    out.copy_(d_out, non_blocking=True)
-                    d_out.record_stream(self._readback)
-                    done = torch.cuda.Event()
-                    done.record(self._readback)
-            return out, done
+                # columns past a job's width stay unset: columns are
+                # independent, and their outputs are never delivered.
+                # One call per job where its rows are one array: each call
+                # gives up and retakes the GIL, which the volumes' I/O
+                # threads hold for milliseconds at a time.
+                if isinstance(j.data, np.ndarray):
+                    block[vi, :, :j.width].copy_(torch.from_numpy(j.data),
+                                                 non_blocking=True)
+                    continue
+                for ri, row in enumerate(j.data):
+                    block[vi, ri, :j.width].copy_(torch.from_numpy(row),
+                                                  non_blocking=True)
+        with _STAGE_COMPUTE.time():
+            return gf_apply_batched(rows, block)
 
     def _complete_device(self, batch: list[_Job], handle) -> None:
         try:
@@ -583,7 +581,7 @@ def enabled() -> bool:
         "0", "false", "off", "no")
 
 
-def get_service(codec_name: str = "torch_cpu") -> "CodecService | None":
+def get_service(codec_name: str = "cuda") -> "CodecService | None":
     """The shared service for a codec backend, or None when disabled."""
     if not enabled():
         return None

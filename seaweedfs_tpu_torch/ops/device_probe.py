@@ -6,7 +6,10 @@ One question, answered in seconds and cached for the process lifetime:
 codec service's mode pick (`auto`) and the default routing of the EC file
 pipelines (`codec_service.service_for_codec`) ask here, so a card that
 hangs degrades the caller to the host path in
-``SEAWEEDFS_TPU_PROBE_TIMEOUT_S`` (default 10s) instead of hanging it.
+``SEAWEEDFS_TPU_PROBE_TIMEOUT_S`` (default 30s) instead of hanging it.
+The deadline is the reference's 10s raised: a fresh process that imports
+torch and opens a CUDA context takes 7-9s to reach an H100, so 10s would
+let a busy host flip the routing to the host path.
 
 The check runs in a KILLABLE subprocess: a hung call into the card cannot be
 interrupted from a thread.  The child does a real host->device->host round
@@ -24,7 +27,7 @@ import threading
 import time
 from dataclasses import dataclass
 
-DEFAULT_TIMEOUT_S = 10.0
+DEFAULT_TIMEOUT_S = 30.0
 
 # the child prints ONE json line after the round trip; anything else
 # (hang, crash, failed CUDA init) is a failed probe

@@ -10,11 +10,13 @@ shard go through the codec as one (10, W) kernel call; output bytes are the
 same for any slice width because parity is columnwise.
 
 Encode and rebuild share one streaming pipeline (_stream_apply):
-  * a prefetch thread fills (S, W) slices in host buffers;
+  * a prefetch thread fills (S, W) slices in host buffers, page-locked
+    when the codec runs on a card;
   * the main thread hands each slice to the compute route, one of
     - the codec service (ops/codec_service.py), where slices become jobs
       that the scheduler coalesces with other concurrent volumes' slices
-      into one batched kernel launch; two slices ride in flight.  The
+      into one batched kernel launch, uploading each slice straight from
+      its page-locked buffer; two slices ride in flight.  The
       default for the `cuda` codec when the probe finds a card, as in the
       reference (encoder.py:97-98, :745-746);
     - direct: the main thread copies each slice from page-locked memory to
@@ -220,13 +222,14 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
     arrays.  Any stage's exception stops the pipeline, joins its threads
     and propagates."""
     n_in, n_out = matrix.shape[1], matrix.shape[0]
-    # the service stages slices itself: only the direct route needs
-    # page-locked buffers
-    on_card = submit is None and codec.device.type == "cuda"
+    # page-locked slices upload as DMA on either route; the direct route
+    # drives the card's streams itself, the service drives its own
+    pinned = codec.device.type == "cuda"
+    on_card = submit is None and pinned
     max_pending = 1 if submit is None else 2
     stop = threading.Event()
     in_bufs = _HostBuffers(_HOST_BUFFERS + max_pending - 1,
-                           n_in * slice_size, on_card, stop)
+                           n_in * slice_size, pinned, stop)
     # the service hands results back in its own buffers
     out_bufs = _HostBuffers(_HOST_BUFFERS if submit is None else 0,
                             n_out * slice_size, on_card, stop)

@@ -6,8 +6,9 @@ one (the port has no EcVolume yet).  The same seeded numpy inputs go
 through the reference CodecService (host mode, and device mode on the
 virtual cpu-jax mesh as its own tests run it) and through the port's
 service in host mode and in device mode on CPU tensors
-(`mode="device", device="cpu"`: the same staging, batching and batched
-dispatch as on the card, through the kernel's plain version).  GF
+(`mode="device", device="cpu"`: the same batching, per-job upload into
+one block and batched dispatch as on the card, through the kernel's plain
+version).  GF
 arithmetic is exact, so every comparison is byte equality.
 """
 
@@ -272,6 +273,53 @@ def test_auto_mode_falls_back_to_host_without_accelerator():
         _as2d(svc.submit_parity(block).result(60)),
         ReedSolomon().parity_of(block))
     svc.close()
+
+
+def test_default_service_runs_on_the_card(monkeypatch):
+    """No arguments mean the card: the default `auto` mode with the `cuda`
+    codec picks device mode whenever the probe reports an accelerator (with
+    no card to open, construction then raises rather than fall back), and
+    only an absent accelerator sends it to the host, saying why."""
+    device_probe.reset_cache()
+    svc = CodecService()
+    assert svc.codec_name == "cuda"
+    if torch.cuda.is_available():
+        assert svc.mode == "device" and svc.device.type == "cuda"
+    else:
+        assert svc.mode == "host"
+        assert svc.fallback_reason == "no accelerator (cpu)"
+    svc.close()
+    monkeypatch.setattr(device_probe, "probe", lambda *a, **k:
+                        device_probe.ProbeResult(ok=True, devices=1,
+                                                 platform="cuda"))
+    monkeypatch.delenv("SEAWEEDFS_TPU_EC_SERVICE", raising=False)
+    if torch.cuda.is_available():
+        assert CodecService().mode == "device"
+        assert codec_service.get_service().mode == "device"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CodecService()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            codec_service.get_service()
+
+
+def test_batch_cap_defaults_admit_encoder_slices(monkeypatch):
+    """On a card a batch holds several of the encoder's 16 MiB-per-shard
+    slices (160 MiB of input each, two in flight per volume); the host
+    keeps the reference's 64 MB.  The env knob sets both."""
+    monkeypatch.delenv("SEAWEEDFS_TPU_EC_SERVICE_BATCH_MB", raising=False)
+    slice_input = 10 * tenc.DEFAULT_SLICE
+    dev = CodecService(mode="device", device="cpu")
+    host = CodecService(mode="host")
+    assert dev.max_batch_bytes >= 2 * 3 * slice_input
+    assert host.max_batch_bytes == 64 << 20 == ref_service.CodecService(
+        mode="host").max_batch_bytes
+    monkeypatch.setenv("SEAWEEDFS_TPU_EC_SERVICE_BATCH_MB", "200")
+    for mode in (("host", None), ("device", "cpu")):
+        assert _svc(mode).max_batch_bytes == 200 << 20
+        assert _svc(mode, max_batch_mb=7).max_batch_bytes == 7 << 20
+    for svc in (dev, host):
+        svc.close()
 
 
 # -- scheduler behavior -----------------------------------------------------

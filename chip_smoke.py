@@ -6,18 +6,27 @@ The main path is what SeaweedFS operators run to seal and protect volumes,
 `ec.encode` then `ec.rebuild`: a full volume `.dat` is striped into the
 RS(10,4) shards `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are
 lost, and the lost ones are rebuilt.  Both go through one hand-written CUDA
-kernel, `seaweedfs_tpu_torch/ops/csrc/gf_matmul.cu`: one volume at a time
-through its direct entry (`gf_matmul`), and many volumes at once through
-the codec service, which stacks their slices into one batched launch
-(`gf_matmul_batched`, also the port of bench.py:104's sweep kernel).
+kernel design, the bit-sliced XOR network of
+`seaweedfs_tpu_torch/ops/csrc/gf_bitslice.cu`, compiled with NVRTC for each
+matrix at its first use: one volume at a time through `gf_apply` (named
+`gf_matmul` in the kernels line, as in earlier runs), and many volumes at
+once through the codec service, which stacks their slices into one batched
+launch (`gf_apply_batched`, named `gf_matmul_batched`, also the port of
+bench.py:104's sweep kernel).
 
 Phases, each printing one JSON line:
-  1. card and build: the card's name and power limit, the kernel's nvcc
-     build time;
+  1. card and build: the card's name and power limit, the host library's
+     nvcc build and the RS(10,4) parity kernel's NVRTC compile, with its
+     registers, spill bytes and machine-code bytes, and the kernel cache's
+     counters (printed again after phases 4 and 7);
   2. the kernel against its plain PyTorch version on the card, byte-equal,
-     for parity and decode-plan matrices at ragged and unaligned widths;
-  3. kernel timing with CUDA events (median of 20) at 16 MiB and 64 MiB per
-     shard, beside its memory bound and the plain version's time;
+     for parity and decode-plan matrices at ragged and unaligned widths,
+     each matrix's compile time beside;
+  3. kernel timing with CUDA events (20 launches back to back between two
+     events, median of 5 such windows) at 16 MiB and 64 MiB per shard,
+     beside its memory bound, its integer-ALU bound (`alu_ms`), the rate of
+     a device-to-device copy of the same bytes (`achievable_GBps`) and the
+     plain version's time;
   4. end to end: a synthetic volume (12 GiB by default: SeaweedFS's default
      30 GB volume limit cut so that one 1 GB-block row and 2 GiB of
      1 MB-block rows still run) encoded with write_ec_files +
@@ -68,14 +77,16 @@ import torch
 GIB = 1 << 30
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-# No integer-ALU peak is published beside the tensor-core rates; the
-# CUDA-core float32 rate (67 TFLOP/s) is not below the card's 32-bit integer
-# rate, so operations over it still give a lower bound on time.
-CUDA_CORE_OPS_PER_S = 67e12
+# 32-bit integer add, shift, compare and bitwise operations: 64 results per
+# clock per SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table); times the SMs and the card's
+# clocks.max.sm from nvidia-smi, read in main()
+INT32_OPS_PER_CLOCK_PER_SM = 64
 LOSS_SETS = ((0,), (2, 3), (0, 1, 2, 3), (10, 11, 12, 13), (2, 3, 11, 12))
-PHASE2_WIDTHS = (1, 3, 15, 100, 511, 513, 4097, 16 * MIB, 64 * MIB + 3)
+PHASE2_WIDTHS = (1, 3, 15, 31, 32, 33, 100, 511, 513, 4097, 16 * MIB,
+                 64 * MIB + 3)
 BATCH_ENTRIES = (1, 3, 16)
-BATCH_WIDTHS = (1, 15, 513, 4097, 16 * MIB)
+BATCH_WIDTHS = (1, 15, 31, 32, 33, 513, 4097, 16 * MIB)
 # bench.py:77's stages: (MiB per shard, sweeps K); one block of 256 x 128
 # uint32 lanes = 128 KiB per shard is the shift between sweeps
 SWEEP_STAGES = ((4, 8), (16, 32), (64, 16), (256, 8))
@@ -87,35 +98,60 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(fields: str) -> str:
     proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return proc.stdout.strip().splitlines()[0]
 
 
-def gf_ops(matrix: np.ndarray, width: int) -> int:
-    """32-bit integer operations the SWAR kernel needs for this matrix:
-    per 4-byte word and source, 5 per doubling step up to the column's
-    highest set bit and 1 XOR per selected multiple."""
-    ops = 0
-    for col in np.asarray(matrix).T:
-        top = max(int(c).bit_length() for c in col)
-        ops += 5 * max(top - 1, 0) + sum(bin(int(c)).count("1") for c in col)
-    return ops * -(-width // 4)
+INT32_OPS_PER_S = 0.0  # set in main() from the card's SMs and clock
 
 
-def bound(matrix: np.ndarray, width: int) -> tuple[float, str]:
-    """(least milliseconds, "bytes" or "operations") for one apply."""
+def int32_ops_per_s() -> float:
+    """64 per clock per SM x the SMs x clocks.max.sm (MHz)."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def bound(gf_network, matrix: np.ndarray, width: int) -> dict:
+    """The least time of one apply: the bytes it must move over the memory
+    rate, and the 32-bit operations the kernel issues for this matrix
+    (gf_network.network_ops per 32-column group) over the integer rate;
+    `bound_ms` is the larger."""
     r, s = matrix.shape
     t_bytes = (r + s) * width / HBM_BYTES_PER_S * 1e3
-    t_ops = gf_ops(matrix, width) / CUDA_CORE_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ops = gf_network.network_ops(matrix) * -(-width // gf_network.GROUP_BYTES)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "alu_ms": t_ops, "ops": ops}
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of `fn()` on the card, each run between events."""
+def time_ms(fn, reps: int = 20, windows: int = 5, warmup: int = 3) -> float:
+    """Milliseconds per `fn()` on the card: `reps` calls back to back
+    between two events (so the host's launch time overlaps the card's
+    work), median over `windows`."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def time_single_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of `fn()` on the card, each run alone between
+    two events, so the host's launch time is included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -156,9 +192,10 @@ def phase_correctness(rs_cuda, gf256, gen) -> int:
     for lost in LOSS_SETS:
         present = [i for i in range(14) if i not in lost]
         plan = gf256.decode_plan_for(full, 10, present, lost)
-        for b in (1, 513, 4096, 16 * MIB + 5):
+        for b in (1, 32, 33, 513, 4096, 16 * MIB + 5):
             cases.append((f"plan{list(lost)}", plan, b, 0))
         cases.append((f"plan{list(lost)}", plan, 4096, 1))
+    cases.append(("plan[0, 1, 2, 3]", rebuild_plan(gf256), 16 * MIB, 1))
     worst = 0
     for name, m, b, offset in cases:
         base = random_u8((10, b + offset), gen)
@@ -172,36 +209,45 @@ def phase_correctness(rs_cuda, gf256, gen) -> int:
                                  f"offset={offset}: max_abs_err {err}")
         worst = max(worst, err)
     emit({"phase": "kernel_vs_plain", "cases": len(cases),
-          "byte_equal": True, "max_abs_err": worst})
+          "byte_equal": True, "max_abs_err": worst,
+          "kernels": rs_cuda.loaded_kernels(),
+          "cache": rs_cuda.cache_stats()})
     return worst
 
 
 # -- phase 3 -------------------------------------------------------------
 
 
-def phase_timing(rs_cuda, gf256, gen, power: str) -> list[dict]:
-    full = gf256.rs_matrix(10, 14)
-    lost = (0, 1, 2, 3)
-    plan = gf256.decode_plan_for(
-        full, 10, [i for i in range(14) if i not in lost], lost)
+def phase_timing(rs_cuda, gf256, gf_network, gen, power: str) -> list[dict]:
     rows = []
     for name, m in (("parity", gf256.rs_parity_matrix(10, 4)),
-                    ("rebuild_plan_4", plan)):
+                    ("rebuild_plan_4", rebuild_plan(gf256))):
         for b in (16 * MIB, 64 * MIB):
             data = random_u8((10, b), gen)
             ms = time_ms(lambda: rs_cuda.gf_apply(m, data))
-            plain_ms = time_ms(lambda: rs_cuda.gf_apply_reference(m, data),
-                               reps=10, warmup=1)
-            b_ms, b_by = bound(m, b)
+            single_ms = time_single_ms(lambda: rs_cuda.gf_apply(m, data))
+            plain_ms = time_single_ms(
+                lambda: rs_cuda.gf_apply_reference(m, data), reps=10,
+                warmup=1)
+            # the card's yardstick: one copy of the same 14 x B bytes,
+            # counted as bytes moved (read + written)
+            src = torch.empty((14, b), dtype=torch.uint8, device="cuda")
+            dst = torch.empty_like(src)
+            copy_ms = time_ms(lambda: dst.copy_(src))
+            achievable = 2 * 14 * b / copy_ms / 1e6
+            moved = 14 * b / ms / 1e6
+            bd = bound(gf_network, m, b)
             row = {"phase": "kernel_timing", "matrix": name,
                    "bytes_per_shard": b, "ms": ms,
-                   "input_GBps": 10 * b / ms / 1e6,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "share_of_bound": b_ms / ms, "plain_ms": plain_ms,
-                   "card": power}
+                   "single_launch_ms": single_ms,
+                   "input_GBps": 10 * b / ms / 1e6, **bd,
+                   "share_of_bound": bd["bound_ms"] / ms,
+                   "moved_GBps": moved, "achievable_GBps": achievable,
+                   "share_of_achievable": moved / achievable,
+                   "plain_ms": plain_ms, "card": power}
             emit(row)
             rows.append(row)
-            del data
+            del data, src, dst
     return rows
 
 
@@ -324,6 +370,7 @@ def phase_end_to_end(rs_cuda, gf256, enc, work: str, size: int, seed: int,
     setup_s = time.perf_counter() - t0
     dat_read_GBps = read_rate(base + ".dat")
 
+    cache_before = rs_cuda.cache_stats()
     rs_cuda.gf_apply.launches = 0
     rs_cuda.gf_apply_batched.launches = 0
     t0 = time.perf_counter()
@@ -342,6 +389,7 @@ def phase_end_to_end(rs_cuda, gf256, enc, work: str, size: int, seed: int,
     rebuilt = enc.rebuild_ec_files(base, codec_name="cuda")
     rebuild_s = time.perf_counter() - t0
     rebuild_launches = rs_cuda.gf_apply.launches
+    cache_after = rs_cuda.cache_stats()
     rebuild_slices = -(-shard_size // enc.DEFAULT_SLICE)
     if rs_cuda.gf_apply_batched.launches:
         raise AssertionError("the direct route made batched launches")
@@ -371,7 +419,9 @@ def phase_end_to_end(rs_cuda, gf256, enc, work: str, size: int, seed: int,
            "rebuild_launches": rebuild_launches,
            "parity_slices_checked": parity_slices,
            "rebuild_sha256_equal": True, "ecx_sorted": True,
-           "layout_sampled": 64, "reduced": reduced}
+           "layout_sampled": 64, "reduced": reduced,
+           "compiles_in_flows": cache_after["compiles"]
+           - cache_before["compiles"], "cache": cache_after}
     emit(row)
     return row
 
@@ -397,7 +447,7 @@ def phase_batched(rs_cuda, gf256, gen) -> int:
                 cases.append((f"{name} V={v} B={b}", m,
                               random_u8((v, 10, b), gen)))
     # 1-byte-offset views: every row and entry starts unaligned
-    for v, b in ((3, 4097), (16, 513)):
+    for v, b in ((3, 4097), (16, 513), (2, 16 * MIB)):
         for name, m in mats:
             cases.append((f"{name} V={v} B={b} offset 1", m,
                           random_u8((v, 10, b + 1), gen)[:, :, 1:]))
@@ -468,7 +518,7 @@ def phase_kernel_sweep(rs_cuda, gf256, gen, power: str) -> list[dict]:
             del want
         del out
         ms = time_ms(lambda: rs_cuda.gf_sweep(m, buf, b, k, SWEEP_SHIFT),
-                     reps=10, warmup=2)
+                     reps=3, warmup=2)
         window = buf[:, :b]
         apply_ms = time_ms(lambda: rs_cuda.gf_apply(m, window), reps=10,
                            warmup=2)
@@ -540,6 +590,7 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
         return n
 
     lost = (0, 1, 2, 3)
+    cache_before = rs_cuda.cache_stats()
     try:
         rs_cuda.gf_apply.launches = 0
         rs_cuda.gf_apply_batched.launches = 0
@@ -568,6 +619,7 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
         rebuild_s = time.perf_counter() - t0
         rebuild_launches = rs_cuda.gf_apply_batched.launches
         rebuild_direct = rs_cuda.gf_apply.launches
+        cache_after = rs_cuda.cache_stats()
         after = {st: hist_snapshot(c) for st, c in stages.items()}
         jobs_after = hist_snapshot(jobs_child)
     finally:
@@ -623,6 +675,8 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
            "parity_slices_checked": checked,
            "rebuild_sha256_equal": True, "ecx_sorted": True,
            "probe_s": pr.seconds, "reduced": reduced,
+           "compiles_in_flows": cache_after["compiles"]
+           - cache_before["compiles"], "cache": cache_after,
            "wall_s": time.perf_counter() - t_phase}
     emit(row)
     return row
@@ -683,19 +737,20 @@ def phase_default_route(rs_cuda, enc, codec_service, base: str,
     return row
 
 
-def time_batched(rs_cuda, gf256, gen, power: str) -> dict:
+def time_batched(rs_cuda, gf256, gf_network, gen, power: str) -> dict:
     """gf_apply_batched at the service's batch shape: 4 parity jobs of
     16 MiB per shard in one launch."""
     m = gf256.rs_parity_matrix(10, 4)
     v, b = SERVICE_VOLUMES, 16 * MIB
     data = random_u8((v, 10, b), gen)
     ms = time_ms(lambda: rs_cuda.gf_apply_batched(m, data))
-    plain_ms = time_ms(lambda: rs_cuda.gf_apply_batched_reference(m, data),
-                       reps=5, warmup=1)
-    b_ms, b_by = bound(m, b)
+    single_ms = time_single_ms(lambda: rs_cuda.gf_apply_batched(m, data))
+    plain_ms = time_single_ms(
+        lambda: rs_cuda.gf_apply_batched_reference(m, data), reps=5, warmup=1)
+    bd = bound(gf_network, m, v * b)  # columns are independent
     row = {"phase": "batched_timing", "entries": v, "bytes_per_shard": b,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": v * b_ms,
-           "bound_by": b_by, "share_of_bound": v * b_ms / ms, "card": power}
+           "ms": ms, "single_launch_ms": single_ms, "plain_ms": plain_ms,
+           **bd, "share_of_bound": bd["bound_ms"] / ms, "card": power}
     emit(row)
     return row
 
@@ -724,24 +779,36 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from seaweedfs_tpu_torch.ops import codec_service, gf256, rs_cuda
+    from seaweedfs_tpu_torch.ops import (_build, codec_service, gf256,
+                                         gf_network, rs_cuda)
     from seaweedfs_tpu_torch.stats import metrics
     from seaweedfs_tpu_torch.storage.ec import encoder as enc
 
+    global INT32_OPS_PER_S
     start = time.perf_counter()
-    power = nvidia_smi_line()
+    power = nvidia_smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
+    INT32_OPS_PER_S = int32_ops_per_s()
     t0 = time.perf_counter()
-    rs_cuda.build_kernel()
-    build_s = time.perf_counter() - t0
+    rs_cuda._lib()  # the host library, nvcc
+    host_lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rs_cuda.build_kernel()  # the RS(10,4) parity kernel, NVRTC
+    parity_kernel_s = time.perf_counter() - t0
     print(power, flush=True)
     emit({"phase": "card_and_build", "nvidia_smi": power, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s})
+          "int32_ops_per_s": INT32_OPS_PER_S,
+          "host_lib_nvcc_s": host_lib_s, "parity_kernel_s": parity_kernel_s,
+          "nvrtc": _build.nvrtc_path(), "kernels": rs_cuda.loaded_kernels(),
+          "ptxas": [line for log in _build.COMPILE_LOGS.values()
+                    for line in log.splitlines() if "Used" in line
+                    or "spill" in line],
+          "cache": rs_cuda.cache_stats()})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     err = phase_correctness(rs_cuda, gf256, gen)
-    timing = phase_timing(rs_cuda, gf256, gen, power)
+    timing = phase_timing(rs_cuda, gf256, gf_network, gen, power)
 
     parity16 = next(r for r in timing if r["matrix"] == "parity"
                     and r["bytes_per_shard"] == 16 * MIB)
@@ -757,7 +824,7 @@ def main() -> int:
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
-    batched = time_batched(rs_cuda, gf256, gen, power)
+    batched = time_batched(rs_cuda, gf256, gf_network, gen, power)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         size, reduced = volume_size(
@@ -770,21 +837,22 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    source = "seaweedfs_tpu_torch/ops/csrc/gf_bitslice.cu"
     emit({"kernels": [{
-        "name": "gf_matmul", "route": "cuda",
-        "source": "seaweedfs_tpu_torch/ops/csrc/gf_matmul.cu",
+        "name": "gf_matmul", "route": "cuda", "source": source,
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:44",
         "launches": e2e["encode_launches"] + e2e["rebuild_launches"],
         "max_abs_err": err, "ms": parity16["ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
-        "bound_by": parity16["bound_by"], "library_ms": None}, {
-        "name": "gf_matmul_batched", "route": "cuda",
-        "source": "seaweedfs_tpu_torch/ops/csrc/gf_matmul.cu",
+        "bound_by": parity16["bound_by"], "alu_ms": parity16["alu_ms"],
+        "library_ms": None}, {
+        "name": "gf_matmul_batched", "route": "cuda", "source": source,
         "replaces": "bench.py:104",
         "launches": svc["encode_launches"] + svc["rebuild_launches"],
         "max_abs_err": batched_err, "ms": batched["ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],
-        "bound_by": batched["bound_by"], "library_ms": None}]})
+        "bound_by": batched["bound_by"], "alu_ms": batched["alu_ms"],
+        "library_ms": None}]})
     emit({"phase": "done", "wall_s": time.perf_counter() - start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

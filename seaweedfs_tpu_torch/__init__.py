@@ -6,12 +6,15 @@ on the card (device "cuda") unless the caller asks for the CPU.
 
 Ported (erasure coding of a sealed volume, `ec.encode` + `ec.rebuild`):
   * ops/gf256.py — GF(2^8) tables, RS generator matrix, decode-plan LRU.
-  * ops/csrc/gf_matmul.cu + ops/rs_cuda.py — the hand-written CUDA
-    GF(2^8) matrix-apply kernel for sm_90a, with a batch axis: `gf_apply`
-    replaces the Pallas kernel seaweedfs_tpu/ops/rs_pallas.py::_kernel_body,
-    `gf_apply_batched` / `gf_sweep` replace the sweep kernel of
-    bench.py:104; each has its plain PyTorch version and a launch counter;
-    ops/_build.py builds the kernel with nvcc.
+  * ops/csrc/gf_bitslice.cu + ops/gf_network.py + ops/rs_cuda.py — the
+    hand-written CUDA GF(2^8) matrix-apply kernel for sm_90a, a bit-sliced
+    XOR network generated and compiled for each matrix at its first use,
+    with a batch axis: `gf_apply` replaces the Pallas kernel
+    seaweedfs_tpu/ops/rs_pallas.py::_kernel_body, `gf_apply_batched` /
+    `gf_sweep` replace the sweep kernel of bench.py:104; each has its
+    plain PyTorch version and a launch counter; ops/_build.py compiles the
+    kernels with NVRTC and the host library ops/csrc/gf_launch.cu with
+    nvcc, and caches both under _build/.
   * ops/rs_torch.py — ReedSolomonTorch, the port of rs_jax.ReedSolomonTPU.
   * ops/codec.py — get_codec("cuda") / get_codec("torch_cpu") and
     DEVICE_CODEC_NAMES.

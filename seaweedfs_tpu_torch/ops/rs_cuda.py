@@ -6,9 +6,11 @@ GF(2^8) for an (R, S) uint8 coefficient matrix and an (S, B) uint8 tensor.
 `gf_apply_batched(matrix, data)` does the same for each entry of a
 (V, S, B) tensor in one launch, and `gf_sweep` runs it over K windows of one
 (S, B + (K-1)*shift) buffer, each shifted by `shift` columns.  On a CUDA
-tensor each launches the hand-written kernel csrc/gf_matmul.cu (built for
-sm_90a at first use) or raises; on a CPU tensor it runs the plain PyTorch
-version (`gf_apply_reference`, `gf_apply_batched_reference`,
+tensor each launches the matrix's own hand-written kernel, the bit-sliced
+XOR network of csrc/gf_bitslice.cu built for sm_90a at the matrix's first
+use (gf_network.py generates it, _build.py compiles and caches it,
+`kernel_for` holds it loaded), or raises; on a CPU tensor it runs the plain
+PyTorch version (`gf_apply_reference`, `gf_apply_batched_reference`,
 `gf_sweep_reference`), which the tests and chip_smoke.py also hold the
 kernel against.
 """
@@ -17,15 +19,17 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from . import gf256
+from . import _build, gf256, gf_network
 from ._build import load
 
-MAX_ROWS = 16  # the kernel's limits on R and S
-MAX_SRCS = 16
+MAX_ROWS = gf_network.MAX_ROWS  # the kernel's limits on R and S
+MAX_SRCS = gf_network.MAX_SRCS
 _REDUCE = 0x1D  # low byte of the field polynomial 0x11D
 
 _LIB: "ctypes.CDLL | None" = None
@@ -88,29 +92,149 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = load("gf_matmul")
-            lib.gf_matmul.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.gf_matmul.restype = ctypes.c_int
-            lib.gf_matmul_batched.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.gf_matmul_batched.restype = ctypes.c_int
+            lib = load("gf_launch")
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            ip = ctypes.POINTER(ctypes.c_int)
+            for fn, args in (
+                    ("gf_bs_load", [p, ctypes.c_char_p, i,
+                                    ctypes.POINTER(p), ctypes.POINTER(p)]),
+                    ("gf_bs_unload", [p, i]),
+                    ("gf_bs_attributes", [p, i, ip, ip, ip, ip, ip]),
+                    ("gf_bs_launch", [p, i, i, p, ll, ll, p, ll, ll, ll, ll,
+                                      i, p])):
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = i
             _LIB = lib
         return _LIB
 
 
-def build_kernel() -> None:
-    """Build (or load) the kernel's library now instead of at first launch."""
-    _lib()
+class _Kernel:
+    """One matrix's compiled kernel, loaded: its library and kernel
+    handles, and what its build reported."""
+
+    def __init__(self, m: np.ndarray, device: int):
+        net = gf_network.network_for(m)
+        text = gf_network.template()
+        self.key = gf_network.cache_key(
+            text, gf_network.generated_part(net), _build.NVRTC_FLAGS)
+        self.device = device
+        t0 = time.perf_counter()
+        image = _build.compile_cubin(gf_network.kernel_source(net, text),
+                                     self.key, "gf_bitslice.cu")
+        lib, kernel = ctypes.c_void_p(), ctypes.c_void_p()
+        err = _lib().gf_bs_load(image, gf_network.KERNEL_NAME.encode(),
+                                device, ctypes.byref(lib),
+                                ctypes.byref(kernel))
+        if err != 0:
+            raise RuntimeError(f"loading the {m.shape} GF kernel failed: "
+                               f"cudaError {err}")
+        self.library, self.kernel = lib.value, kernel.value
+        self.image = image  # held while the library may read it
+        self.build_s = time.perf_counter() - t0
+        self.sass_bytes = _build.text_bytes(image)
+        self.attributes = self._attributes()
+
+    def _attributes(self) -> dict:
+        vals = [ctypes.c_int() for _ in range(5)]
+        err = _lib().gf_bs_attributes(self.kernel, self.device,
+                                      *[ctypes.byref(x) for x in vals])
+        if err != 0:
+            raise RuntimeError(f"reading the kernel's attributes failed: "
+                               f"cudaError {err}")
+        return dict(zip(("registers", "local_bytes", "shared_bytes",
+                         "blocks_per_sm", "sms"), [x.value for x in vals]))
+
+
+_KERNELS: "OrderedDict[tuple, _Kernel]" = OrderedDict()
+_KERNELS_MAX = 256  # loaded kernels held in process, least recently used out
+_KERNEL_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
+KERNEL_STATS = {"memory_hits": 0, "loads": 0, "evictions": 0}
+
+
+def kernel_for(matrix, device: int = 0) -> _Kernel:
+    """The loaded kernel of an (R, S) matrix on CUDA device `device`: from
+    memory, else from the disk cache or NVRTC (see _build), then loaded.
+    Raises if it does not compile or load."""
+    m = coefficients(matrix)
+    while True:
+        key = _ensure(m, device)
+        with _KERNEL_LOCK:
+            k = _KERNELS.get(key)
+        if k is not None:
+            return k
+
+
+def _ensure(m: np.ndarray, device: int) -> tuple:
+    """Load m's kernel into the table unless it is there; -> its key.  A
+    kernel pushed out of the table is unloaded under the table's lock, so
+    no launch of it is under way (launches hold the lock)."""
+    key = (device, m.shape, m.tobytes())
+    with _KERNEL_LOCK:
+        if key in _KERNELS:
+            _KERNELS.move_to_end(key)
+            KERNEL_STATS["memory_hits"] += 1
+            return key
+    with _BUILD_LOCK:  # one build per matrix, even when threads race
+        with _KERNEL_LOCK:
+            if key in _KERNELS:
+                KERNEL_STATS["memory_hits"] += 1
+                return key
+        k = _Kernel(m, device)  # compiles outside the table's lock
+        with _KERNEL_LOCK:
+            _KERNELS[key] = k
+            KERNEL_STATS["loads"] += 1
+            while len(_KERNELS) > _KERNELS_MAX:
+                old = _KERNELS.popitem(last=False)[1]
+                _lib().gf_bs_unload(old.library, old.device)
+                KERNEL_STATS["evictions"] += 1
+    return key
+
+
+def _launch(m: np.ndarray, data: torch.Tensor, row_stride: int,
+            entry_stride: int, out: torch.Tensor, out_stride: int,
+            out_entry_stride: int, b: int, v: int) -> None:
+    """One launch of m's kernel on the current stream of data's device."""
+    device = data.device.index
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    while True:
+        key = _ensure(m, device)
+        with _KERNEL_LOCK:
+            k = _KERNELS.get(key)
+            if k is None:  # pushed out by other threads' builds meanwhile
+                continue
+            err = _lib().gf_bs_launch(
+                k.kernel, m.shape[0], m.shape[1], data.data_ptr(),
+                row_stride, entry_stride, out.data_ptr(), out_stride,
+                out_entry_stride, b, v, device, stream)
+        break
+    if err != 0:
+        raise RuntimeError(f"gf_bitslice launch failed: cudaError {err}")
+
+
+def cache_stats() -> dict:
+    """The kernel cache's counters: compiles and disk hits (_build.STATS),
+    then loads, memory hits and evictions of the loaded-kernel table."""
+    with _KERNEL_LOCK:
+        return {**_build.STATS, **KERNEL_STATS, "loaded": len(_KERNELS)}
+
+
+def loaded_kernels() -> list[dict]:
+    """What each loaded kernel's build reported: its matrix shape, cache
+    key, seconds to compile (None if read from disk) and to get loaded,
+    bytes of machine code, registers, spill bytes, blocks per SM."""
+    with _KERNEL_LOCK:
+        kernels = list(_KERNELS.items())
+    return [{"shape": list(key[1]), "key": k.key[:16],
+             "compile_s": _build.COMPILE_SECONDS.get(k.key),
+             "build_s": k.build_s, "sass_bytes": k.sass_bytes,
+             **k.attributes} for key, k in kernels]
+
+
+def build_kernel(device: int = 0) -> None:
+    """Build the host library and the RS(10,4) parity kernel, which every
+    encode runs, now instead of at first launch."""
+    kernel_for(gf256.rs_parity_matrix(10, 4), device)
 
 
 def gf_apply(matrix, data: torch.Tensor) -> torch.Tensor:
@@ -135,14 +259,7 @@ def gf_apply(matrix, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m.shape[0], b), dtype=torch.uint8, device=data.device)
     if b == 0:
         return out
-    lib = _lib()
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    err = lib.gf_matmul(
-        m.ctypes.data, m.shape[0], m.shape[1],
-        data.data_ptr(), row_stride, out.data_ptr(), b, b,
-        data.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"gf_matmul launch failed: cudaError {err}")
+    _launch(m, data, row_stride, 0, out, b, 0, b, 1)
     with _COUNT_LOCK:
         gf_apply.launches += 1
     return out
@@ -200,13 +317,7 @@ def gf_apply_batched(matrix, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((v, r, b), dtype=torch.uint8, device=data.device)
     if b == 0 or v == 0:
         return out
-    lib = _lib()
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    err = lib.gf_matmul_batched(
-        m.ctypes.data, r, s, data.data_ptr(), row_stride, entry_stride,
-        out.data_ptr(), b, r * b, b, v, data.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"gf_matmul_batched launch failed: cudaError {err}")
+    _launch(m, data, row_stride, entry_stride, out, b, r * b, b, v)
     with _COUNT_LOCK:
         gf_apply_batched.launches += 1
     return out

@@ -33,7 +33,6 @@ import glob
 import hashlib
 import os
 import shutil
-import struct
 import subprocess
 import tempfile
 import threading
@@ -222,24 +221,3 @@ def compile_cubin(source: str, key: str, name: str) -> bytes:
         COMPILE_LOGS[key] = log
     return image
 
-
-def text_bytes(image: bytes) -> int:
-    """Bytes of machine code in an ELF cubin: the sizes of its .text.*
-    sections (one per kernel)."""
-    if image[:4] != b"\x7fELF" or image[4] != 2:
-        raise ValueError("not a 64-bit ELF image")
-    shoff, = struct.unpack_from("<Q", image, 0x28)
-    shentsize, shnum, shstrndx = struct.unpack_from("<HHH", image, 0x3A)
-
-    def section(i: int) -> tuple[int, int, int]:
-        name, _, _, _, off, size = struct.unpack_from(
-            "<IIQQQQ", image, shoff + i * shentsize)
-        return name, off, size
-    _, str_off, _ = section(shstrndx)
-    total = 0
-    for i in range(shnum):
-        name, _, size = section(i)
-        end = image.index(b"\0", str_off + name)
-        if image[str_off + name:end].startswith(b".text."):
-            total += size
-    return total

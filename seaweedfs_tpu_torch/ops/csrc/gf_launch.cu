@@ -47,27 +47,6 @@ extern "C" int gf_bs_unload(void* library, int device) {
   return (int)cudaLibraryUnload((cudaLibrary_t)library);
 }
 
-// Registers per thread, local (stack and spill) bytes per thread, static
-// shared bytes per block, blocks of kThreads resident on one SM, and the
-// device's SM count.
-extern "C" int gf_bs_attributes(void* kernel, int device, int* regs,
-                                int* local_bytes, int* shared_bytes,
-                                int* blocks_per_sm, int* sms) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes a = {};
-  err = cudaFuncGetAttributes(&a, (const void*)kernel);
-  if (err != cudaSuccess) return (int)err;
-  *regs = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
-  *shared_bytes = (int)a.sharedSizeBytes;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, (const void*)kernel, kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
-                                     device);
-}
-
 // kernel: from gf_bs_load, built for an (rows, srcs) matrix.  in/out:
 // device pointers on CUDA device `device`; entry v's input row j starts at
 // in + v*in_bstride + j*in_stride, its output row i at

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import time
 from collections import OrderedDict
 
 import numpy as np
@@ -94,12 +93,10 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = load("gf_launch")
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            ip = ctypes.POINTER(ctypes.c_int)
             for fn, args in (
                     ("gf_bs_load", [p, ctypes.c_char_p, i,
                                     ctypes.POINTER(p), ctypes.POINTER(p)]),
                     ("gf_bs_unload", [p, i]),
-                    ("gf_bs_attributes", [p, i, ip, ip, ip, ip, ip]),
                     ("gf_bs_launch", [p, i, i, p, ll, ll, p, ll, ll, ll, ll,
                                       i, p])):
                 getattr(lib, fn).argtypes = args
@@ -110,7 +107,7 @@ def _lib() -> ctypes.CDLL:
 
 class _Kernel:
     """One matrix's compiled kernel, loaded: its library and kernel
-    handles, and what its build reported."""
+    handles."""
 
     def __init__(self, m: np.ndarray, device: int):
         net = gf_network.network_for(m)
@@ -118,7 +115,6 @@ class _Kernel:
         self.key = gf_network.cache_key(
             text, gf_network.generated_part(net), _build.NVRTC_FLAGS)
         self.device = device
-        t0 = time.perf_counter()
         image = _build.compile_cubin(gf_network.kernel_source(net, text),
                                      self.key, "gf_bitslice.cu")
         lib, kernel = ctypes.c_void_p(), ctypes.c_void_p()
@@ -130,19 +126,6 @@ class _Kernel:
                                f"cudaError {err}")
         self.library, self.kernel = lib.value, kernel.value
         self.image = image  # held while the library may read it
-        self.build_s = time.perf_counter() - t0
-        self.sass_bytes = _build.text_bytes(image)
-        self.attributes = self._attributes()
-
-    def _attributes(self) -> dict:
-        vals = [ctypes.c_int() for _ in range(5)]
-        err = _lib().gf_bs_attributes(self.kernel, self.device,
-                                      *[ctypes.byref(x) for x in vals])
-        if err != 0:
-            raise RuntimeError(f"reading the kernel's attributes failed: "
-                               f"cudaError {err}")
-        return dict(zip(("registers", "local_bytes", "shared_bytes",
-                         "blocks_per_sm", "sms"), [x.value for x in vals]))
 
 
 _KERNELS: "OrderedDict[tuple, _Kernel]" = OrderedDict()
@@ -217,18 +200,6 @@ def cache_stats() -> dict:
     then loads, memory hits and evictions of the loaded-kernel table."""
     with _KERNEL_LOCK:
         return {**_build.STATS, **KERNEL_STATS, "loaded": len(_KERNELS)}
-
-
-def loaded_kernels() -> list[dict]:
-    """What each loaded kernel's build reported: its matrix shape, cache
-    key, seconds to compile (None if read from disk) and to get loaded,
-    bytes of machine code, registers, spill bytes, blocks per SM."""
-    with _KERNEL_LOCK:
-        kernels = list(_KERNELS.items())
-    return [{"shape": list(key[1]), "key": k.key[:16],
-             "compile_s": _build.COMPILE_SECONDS.get(k.key),
-             "build_s": k.build_s, "sass_bytes": k.sass_bytes,
-             **k.attributes} for key, k in kernels]
 
 
 def build_kernel(device: int = 0) -> None:

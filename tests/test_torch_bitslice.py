@@ -183,22 +183,6 @@ def test_kernel_source_splices_the_block_once():
         gf_network.network_for(np.zeros((17, 2), np.uint8))
 
 
-def test_text_bytes_reads_elf_sections(tmp_path):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler")
-    src = tmp_path / "f.cpp"
-    src.write_text('extern "C" int f(int x) { return x * 3 + 1; }\n'
-                   'extern "C" int g(int x) { return x ^ 5; }\n')
-    obj = tmp_path / "f.o"
-    subprocess.run([gxx, "-c", "-O1", "-ffunction-sections", "-o", str(obj),
-                    str(src)], check=True)
-    n = _build.text_bytes(obj.read_bytes())
-    assert 0 < n < 256  # two tiny functions, in .text.f and .text.g
-    with pytest.raises(ValueError):
-        _build.text_bytes(b"not an elf image")
-
-
 _HARNESS = r"""
 // the CUDA template on the host: one thread at a time, in grid order
 struct uint4 { unsigned x, y, z, w; };
@@ -280,6 +264,29 @@ def test_compile_cubin_reads_the_disk_cache(tmp_path, monkeypatch):
     stats = rs_cuda.cache_stats()
     assert {"compiles", "disk_hits", "memory_hits", "loads",
             "evictions"} <= set(stats)
+
+
+def test_compile_cubin_compiles_once_and_keeps_its_log(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    calls = []
+
+    def fake_compile(source, name):
+        calls.append(name)
+        return (b"\x7fELF cubin of " + source.encode(),
+                "ptxas info: Used 64 registers")
+    monkeypatch.setattr(_build, "_nvrtc_compile", fake_compile)
+    key = gf_network.cache_key("template", "block 2", _build.NVRTC_FLAGS)
+    before = dict(_build.STATS)
+    image = _build.compile_cubin("src", key, "k.cu")
+    assert image == b"\x7fELF cubin of src" and calls == ["k.cu"]
+    assert _build.STATS["compiles"] == before["compiles"] + 1
+    assert _build.COMPILE_SECONDS[key] >= 0
+    assert "Used 64 registers" in _build.COMPILE_LOGS[key]
+    assert (tmp_path / f"{key[:16]}.cubin").read_bytes() == image
+    # the second call reads the image the first one wrote
+    assert _build.compile_cubin("src", key, "k.cu") == image
+    assert calls == ["k.cu"]
+    assert _build.STATS["disk_hits"] == before["disk_hits"] + 1
 
 
 def test_compile_failure_raises(tmp_path, monkeypatch):

@@ -1,0 +1,101 @@
+"""The port's chip scripts on a host without a CUDA card, and the parts of
+chip_ab.py that need none: each script exits non-zero and prints no
+result; the cuobjdump report and the medians are read correctly."""
+
+import json
+import os
+import stat
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_ab  # noqa: E402
+
+
+@pytest.mark.parametrize("argv", [["chip_smoke.py"],
+                                  ["chip_ab.py", "--tree", "a=."]])
+def test_exits_nonzero_without_a_card(argv):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no CUDA card" in proc.stderr
+
+
+def test_summary_takes_medians_per_checkout_and_skips_failed_runs():
+    def run(label, ms, enc):
+        return {"label": label,
+                "kernel": {"parity": {"ms": ms, "back_to_back_ms": ms / 2}},
+                "direct": {"encode_GBps": enc}}
+    rows = [run("parent", 0.2, 1.0), run("change", 0.1, 1.1),
+            run("change", 0.12, 1.3), run("parent", 0.18, 0.9),
+            run("change", 0.14, 1.2), {"label": "parent", "error": 1}]
+    out = chip_ab.summary(rows)
+    assert out["parent"]["runs"] == 2 and out["change"]["runs"] == 3
+    assert out["change"]["kernel.parity.ms"] == {
+        "median": pytest.approx(0.12), "min": 0.1, "max": 0.14}
+    assert out["parent"]["direct.encode_GBps"]["median"] == pytest.approx(0.95)
+    assert "service.encode_GBps" not in out["change"]  # flow not run
+    json.dumps(out)
+
+
+_SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,8]
+host = linux
+compile_size = 64bit
+
+\tcode for sm_90a
+\t\tFunction : gf_bitslice
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+                                                                 /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;            /* 0x0000000000007919 */
+                                                                 /* 0x000e240000002100 */
+        /*0020*/                   EXIT ;                        /* 0x000000000000794d */
+                                                                 /* 0x000fea0003800000 */
+\t\t..........
+"""
+
+_RES = """Resource usage:
+ Common:
+  GLOBAL:0
+ Function gf_bitslice:
+  REG:64 STACK:0 SHARED:0 LOCAL:8 CONSTANT[0]:440 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+
+def _fake_cuobjdump(tmp_path, body: str) -> None:
+    tool = tmp_path / "bin" / "cuobjdump"
+    tool.parent.mkdir()
+    tool.write_text("#!/bin/sh\n" + body)
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+
+
+def test_cuobjdump_report_counts_instructions_and_resources(tmp_path,
+                                                            monkeypatch):
+    (tmp_path / "sass.txt").write_text(_SASS)
+    (tmp_path / "res.txt").write_text(_RES)
+    _fake_cuobjdump(tmp_path, f"""
+case "$1" in
+  -sass) cat {tmp_path}/sass.txt ;;
+  -res-usage) cat {tmp_path}/res.txt ;;
+esac
+""")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert chip_ab.cuobjdump("k.cubin") == {"gf_bitslice": {
+        "instructions": 3, "sass_bytes": 48, "registers": 64, "stack": 0,
+        "shared": 0, "local": 8}}
+
+
+def test_cuobjdump_report_carries_the_tool_error(tmp_path, monkeypatch):
+    _fake_cuobjdump(tmp_path, "echo 'no device code' >&2; exit 1\n")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert chip_ab.cuobjdump("x.so") == {"error": "no device code"}

@@ -1,18 +1,21 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3] [--seed 0]
+                          [--only-ec-reads]
 
-The main path is what SeaweedFS operators run to seal and protect volumes,
-`ec.encode` then `ec.rebuild`: a full volume `.dat` is striped into the
+The main path is what SeaweedFS operators run to seal, protect and serve
+volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
+volume.  A full volume `.dat` of needle records is striped into the
 RS(10,4) shards `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are
-lost, and the lost ones are rebuilt.  Both go through one hand-written CUDA
+lost, the lost ones are rebuilt, and needles are read back, lost intervals
+decoded on the fly.  All GF(2^8) work goes through one hand-written CUDA
 kernel design, the bit-sliced XOR network of
 `seaweedfs_tpu_torch/ops/csrc/gf_bitslice.cu`, compiled with NVRTC for each
-matrix at its first use: one volume at a time through `gf_apply` (named
-`gf_matmul` in the kernels line, as in earlier runs), and many volumes at
-once through the codec service, which stacks their slices into one batched
-launch (`gf_apply_batched`, named `gf_matmul_batched`, also the port of
-bench.py:104's sweep kernel).
+matrix at its first use: one volume at a time and each degraded read
+through `gf_apply` (named `gf_matmul` in the kernels line, as in earlier
+runs), and many volumes at once through the codec service, which stacks
+their slices into one batched launch (`gf_apply_batched`, named
+`gf_matmul_batched`, also the port of bench.py:104's sweep kernel).
 
 Phases, each printing one JSON line:
   1. card and build: the card's name and power limit, the host library's
@@ -29,9 +32,11 @@ Phases, each printing one JSON line:
      beside its memory bound, its integer-ALU bound (`alu_ms`), the rate of
      a device-to-device copy of the same bytes (`achievable_GBps`) and the
      plain version's time;
-  4. end to end: a synthetic volume (12 GiB by default: SeaweedFS's default
-     30 GB volume limit cut so that one 1 GB-block row and 2 GiB of
-     1 MB-block rows still run) encoded with write_ec_files +
+  4. end to end: a volume of real needle records (version 3, seeded data of
+     1 B to 256 KiB, the port's CRC32-C, a real superblock; 12 GiB by
+     default: SeaweedFS's default 30 GB volume limit cut so that one 1
+     GB-block row and 2 GiB of 1 MB-block rows still run; the time to make
+     it on its own line) encoded with write_ec_files +
      write_sorted_file_from_idx, every slice's parity checked against the
      plain version on the card, then .ec00-.ec03 deleted, rebuilt with
      rebuild_ec_files and checked by sha256.  This phase takes the direct
@@ -41,6 +46,23 @@ Phases, each printing one JSON line:
      twice, a loss set whose decode plan no earlier phase compiled: the
      first rebuild pays its kernel's compile, the second does not (both
      timed, both checked by sha256);
+  4b. ec_reads, on that volume with every shard restored: the .ec00-.ec03
+     decode plan timed at 4, 64 and 256 KiB per shard; 4096 seeded live
+     keys (16 others deleted, into the .ecj) read by the port's EcVolume
+     with 16 threads in four passes: (a) healthy, (b) .ec00-.ec03
+     unmounted on the `cuda` codec, (c) the same on the host SIMD `cpu`
+     codec, (d) a second directory of hard links to .ec04-.ec09, .ecx,
+     .ecj and .vif whose remote_fetch reads .ec10-.ec13 from the first.
+     Each needle equals its .dat record parsed by the port's Needle; each
+     pass prints reads/s, p50/p99 latency, degraded intervals, interval
+     cache hits, launches and compiles, counts zeroed just before it and
+     read just after; (b) and (d) make a launch per degraded interval,
+     (c) none.  The first degraded read, and the first read of a decode
+     plan new to the machine, are timed alone.  effective_codec("cuda")
+     must be ("cuda", ""); get_codec("auto") prints its choice and both
+     round trips.  Last, the second directory rebuilds .ec00-.ec03 from
+     its 6 local and 4 remote shards on the default route, equal by sha256
+     to phase 4's;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -62,8 +84,11 @@ Phases, each printing one JSON line:
      default batch cap), each checked by sha256 and its launches;
   9. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
 
-Exits non-zero, printing no result, without a CUDA card or without the
-package beside this script.  Data comes from --seed; nothing is downloaded.
+`--only-ec-reads` runs phases 1, 4 and 4b alone, at `--volume-gib` (a
+quick check: `--only-ec-reads --volume-gib 0.5`), and prints no kernels
+line.  Exits non-zero, printing no result, without a CUDA card or without
+the package beside this script.  Data comes from --seed; nothing is
+downloaded.
 """
 
 from __future__ import annotations
@@ -270,30 +295,91 @@ def phase_timing(rs_cuda, gf256, gf_network, gen, power: str) -> list[dict]:
 # -- phase 4 -------------------------------------------------------------
 
 
-def make_volume(base: str, size: int, seed: int) -> int:
-    """A synthetic sealed volume: `size` bytes of seeded random needle
-    payloads in `<base>.dat` and one 16-byte .idx entry per needle, keys in
-    shuffled order so the .ecx sort does real work.  -> needle count."""
+# data of one needle: 1 B to 256 KiB, as phase 4 has always drawn them
+NEEDLE_MAX_DATA = 256 * 1024
+_APPEND_AT_NS = 1_700_000_000 * 10**9  # needles' write times start here
+
+
+def _record_size(data_len):
+    """Bytes of a version-3 needle record with `data_len` bytes of data and
+    no name, mime or other optional field (needle.py's layout): header 16,
+    body (data size 4, data, flags 1), checksum 4, append time 8, padding
+    1..8 to the next 8-byte boundary."""
+    used = 16 + (data_len + 5) + 4 + 8
+    return used + 8 - used % 8
+
+
+def _plan_needles(avail: int, rng) -> np.ndarray:
+    """Data lengths of needles whose records fill exactly `avail` bytes
+    (a multiple of 8): seeded lengths of 1 B..256 KiB, then the last
+    records sized to close the volume."""
+    max_rec = int(_record_size(NEEDLE_MAX_DATA))
+    lens = rng.integers(1, NEEDLE_MAX_DATA + 1,
+                        avail // (NEEDLE_MAX_DATA // 2) + 16, dtype=np.int64)
+    used = np.cumsum(_record_size(lens))
+    keep = int(np.searchsorted(used, avail - 2 * max_rec, side="right"))
+    rest = avail - (int(used[keep - 1]) if keep else 0)
+    # the rest as m records of a multiple of 8 bytes each, none above
+    # max_rec; a record of p bytes carries p - 41 bytes of data (padding 8)
+    m = -(-rest // (max_rec - 64)) + 1
+    piece = rest // 8 // m * 8
+    tail = [piece] * (m - 1) + [rest - piece * (m - 1)]
+    return np.concatenate([lens[:keep], np.asarray(tail, np.int64) - 41])
+
+
+def make_volume(base: str, size: int, seed: int, device: str = "cuda") -> int:
+    """A sealed volume of real needle records, `size` bytes of `<base>.dat`:
+    the port's superblock (version 3), then version-3 needles of seeded
+    random data (1 B..256 KiB, drawn on `device`) with the port's native
+    CRC32-C, filling the volume exactly; and one .idx entry per needle, keys
+    in shuffled order so the .ecx sort does real work.  -> needle count."""
+    import struct
+
+    from seaweedfs_tpu_torch.ops import crc32c
+    from seaweedfs_tpu_torch.storage.super_block import SuperBlock
+
     rng = np.random.default_rng(seed)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sb = SuperBlock().to_bytes()
+    lens = _plan_needles(size - len(sb), rng)
+    recs = _record_size(lens)
+    offsets = len(sb) + np.concatenate([[0], np.cumsum(recs)[:-1]])
+    if offsets[-1] + recs[-1] != size or lens.min() < 1 \
+            or lens.max() > NEEDLE_MAX_DATA:
+        raise AssertionError("needle plan does not fill the volume")
+    n = len(lens)
+    keys = rng.permutation(np.arange(1, n + 1, dtype=np.uint64)
+                           * np.uint64(7919))
+    cookies = rng.integers(0, 2**32, n, dtype=np.uint64)
+    head = struct.Struct(">IQII")  # cookie, id, size, data size
+    tail = struct.Struct(">BIQ")  # flags, masked checksum, append time
     with open(base + ".dat", "wb") as f:
-        left = size
-        while left:
-            n = min(left, 256 * MIB)
-            f.write(random_u8((n,), gen).cpu().numpy())
-            left -= n
-    # needles of 1 B..256 KiB, 8-byte aligned, after the 8-byte superblock
-    sizes = rng.integers(1, 256 * 1024, size // (64 * 1024), dtype=np.int64)
-    padded = (sizes + 7) // 8 * 8
-    offsets = 8 + np.concatenate([[0], np.cumsum(padded)[:-1]])
-    keep = offsets + padded <= size
-    sizes, offsets = sizes[keep], offsets[keep]
-    keys = rng.permutation(np.arange(1, len(sizes) + 1, dtype=np.uint64) * np.uint64(7919))
-    entries = np.empty(len(keys), dtype=[("k", ">u8"), ("o", ">u4"),
-                                          ("s", ">u4")])
-    entries["k"], entries["o"], entries["s"] = keys, offsets // 8, sizes
+        f.write(sb)
+        i = 0
+        while i < n:  # ~256 MiB of records per chunk
+            j = int(np.searchsorted(offsets, offsets[i] + 256 * MIB)) or n
+            j = max(j, i + 1)
+            chunk = np.zeros(int(offsets[j - 1] + recs[j - 1] - offsets[i]),
+                             np.uint8)
+            data = torch.randint(0, 256, (int(lens[i:j].sum()),),
+                                 dtype=torch.uint8, device=device,
+                                 generator=gen).cpu().numpy()
+            at = 0
+            for k in range(i, j):
+                ln, o = int(lens[k]), int(offsets[k] - offsets[i])
+                payload = data[at:at + ln]
+                chunk[o:o + 20] = np.frombuffer(head.pack(
+                    int(cookies[k]), int(keys[k]), ln + 5, ln), np.uint8)
+                chunk[o + 20:o + 20 + ln] = payload
+                chunk[o + 20 + ln:o + 33 + ln] = np.frombuffer(tail.pack(
+                    0, crc32c.value(payload), _APPEND_AT_NS + k), np.uint8)
+                at += ln
+            f.write(chunk)
+            i = j
+    entries = np.empty(n, dtype=[("k", ">u8"), ("o", ">u4"), ("s", ">u4")])
+    entries["k"], entries["o"], entries["s"] = keys, offsets // 8, lens + 5
     entries.tofile(base + ".idx")
-    return len(keys)
+    return n
 
 
 def check_ecx(base: str) -> None:
@@ -426,6 +512,8 @@ def phase_end_to_end(rs_cuda, gf256, _build, enc, work: str, size: int,
     t0 = time.perf_counter()
     needles = make_volume(base, size, seed)
     setup_s = time.perf_counter() - t0
+    emit({"phase": "make_volume", "volumes": 1, "volume_bytes": size,
+          "needles": needles, "seconds": setup_s})
     dat_read_GBps = read_rate(base + ".dat")
 
     cache_before = rs_cuda.cache_stats()
@@ -483,7 +571,360 @@ def phase_end_to_end(rs_cuda, gf256, _build, enc, work: str, size: int,
            - cache_before["compiles"], "cache": cache_after,
            "unwarmed_rebuild": unwarmed}
     emit(row)
+    return row, digests
+
+
+# -- phase 4b: ec_reads ----------------------------------------------------
+
+EC_READ_SAMPLE = 4096
+EC_READ_THREADS = 16
+EC_READ_SERIAL = 256  # keys read one at a time, traced, after each pass
+EC_READ_LOSS = (0, 1, 2, 3)  # the worst decode plan: all 4 rows
+# a loss set whose decode plan (data rows 1, 4, 9) no earlier phase
+# compiles: the first degraded read on it holds that plan's NVRTC compile
+COLD_READ_LOSS = (1, 4, 9, 12)
+DEGRADED_WIDTHS = (4 * 1024, 64 * 1024, 256 * 1024)
+
+
+def time_degraded_kernel(rs_cuda, gf256, gf_network, gen, power
+                         ) -> list[dict]:
+    """The .ec00-.ec03 decode plan at degraded-read widths: what one
+    degraded interval of a 4 KiB, 64 KiB or 256 KiB needle launches."""
+    m = rebuild_plan(gf256)
+    rows = []
+    for b in DEGRADED_WIDTHS:
+        data = random_u8((10, b), gen)
+        ms = time_ms(lambda: rs_cuda.gf_apply(m, data))
+        b2b_ms = time_back_to_back_ms(lambda: rs_cuda.gf_apply(m, data))
+        plain_ms = time_ms(lambda: rs_cuda.gf_apply_reference(m, data),
+                           reps=10, warmup=1)
+        bd = bound(gf_network, m, b)
+        row = {"phase": "degraded_kernel_timing", "matrix": "plan[0, 1, 2, 3]",
+               "bytes_per_shard": b, "ms": ms, "back_to_back_ms": b2b_ms,
+               **bd, "share_of_bound": bd["bound_ms"] / ms,
+               "share_of_bound_back_to_back": bd["bound_ms"] / b2b_ms,
+               "plain_ms": plain_ms, "card": power}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def _degraded_keys(ev, keys, lost) -> list[int]:
+    """The keys among `keys` with an interval on a shard in `lost`."""
+    out = []
+    for k in keys:
+        for iv in ev.locate(k)[2]:
+            sid, _ = iv.to_shard_id_and_offset(ev.large_block_size,
+                                               ev.small_block_size)
+            if sid in lost:
+                out.append(k)
+                break
+    return out
+
+
+def _check_needle(got, want, key: int) -> None:
+    if (got.id != key or got.data != want.data or got.cookie != want.cookie
+            or got.checksum != want.checksum):
+        raise AssertionError(f"needle {key:x} read back differs from the "
+                             ".dat record")
+
+
+class _ReadCounters:
+    """Deltas of the read path's counters over one pass: interval cache,
+    single-flight, the cuda codec's reconstruct histogram, kernel builds."""
+
+    def __init__(self, rs_cuda, metrics):
+        self.rs_cuda = rs_cuda
+        self.children = {
+            "hit": metrics.EC_INTERVAL_CACHE.labels("hit"),
+            "miss": metrics.EC_INTERVAL_CACHE.labels("miss"),
+            "leader": metrics.EC_SINGLEFLIGHT.labels("leader"),
+            "coalesced": metrics.EC_SINGLEFLIGHT.labels("coalesced")}
+        self.rec = metrics.EC_OP_HISTOGRAM.labels("reconstruct", "cuda")
+
+    def snapshot(self) -> dict:
+        out = {k: c.value for k, c in self.children.items()}
+        out["reconstruct_cuda"] = self.rec.count
+        out["compiles"] = self.rs_cuda.cache_stats()["compiles"]
+        return out
+
+    def start(self) -> None:
+        self.before = self.snapshot()
+        self.rs_cuda.gf_apply.launches = 0
+        self.rs_cuda.gf_apply_batched.launches = 0
+
+    def read(self) -> dict:
+        after = self.snapshot()
+        d = {k: int(after[k] - self.before[k]) for k in after}
+        return {"degraded_intervals": d["hit"] + d["miss"],
+                "interval_cache_hits": d["hit"], "gathers": d["leader"],
+                "coalesced": d["coalesced"],
+                "launches": self.rs_cuda.gf_apply.launches,
+                "batched_launches": self.rs_cuda.gf_apply_batched.launches,
+                "compiles": d["compiles"],
+                "reconstruct_cuda_calls": d["reconstruct_cuda"],
+                "reconstruct_cuda_count": self.rec.count}
+
+
+def read_pass(ev, name: str, keys: list[int], want: dict,
+              counters: _ReadCounters, serial_keys: list[int]) -> dict:
+    """Every key of `keys` read with EC_READ_THREADS threads through
+    EcVolume.read_needle, each checked against its .dat record; then
+    `serial_keys` read one at a time, each in a trace, for where a read's
+    time goes without contention: the codec's span (`ec.reconstruct` or
+    `ec.reconstruct_one`) and, on the card, its upload, kernel and readback
+    spans, against the whole read."""
+    from seaweedfs_tpu_torch.telemetry import trace
+
+    def one(key: int) -> float:
+        t0 = time.perf_counter()
+        got = ev.read_needle(key)
+        dt = time.perf_counter() - t0
+        _check_needle(got, want[key], key)
+        return dt
+
+    counters.start()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        lat = np.asarray(list(pool.map(one, keys)))
+    wall = time.perf_counter() - t0
+    threaded = counters.read()
+
+    trace.TRACER.clear()
+    counters.start()
+    serial = []
+    for key in serial_keys:
+        with trace.start_span("chip_smoke.read_needle"):
+            serial.append(one(key))
+    ser = counters.read()
+    spans: dict[str, list] = {}
+    for sp in trace.TRACER.spans():
+        spans.setdefault(sp.name, []).append(sp.duration)
+    if len(spans.get("chip_smoke.read_needle", ())) != len(serial_keys):
+        raise AssertionError("the trace ring lost read spans")
+    serial_stats = {"reads": len(serial_keys),
+                "degraded_intervals": ser["degraded_intervals"],
+                "launches": ser["launches"],
+                "read_ms_mean": float(np.mean(serial)) * 1e3,
+                "read_ms_p50": float(np.median(serial)) * 1e3}
+    for sp_name, durs in sorted(spans.items()):
+        if sp_name != "chip_smoke.read_needle":
+            serial_stats[sp_name] = {"count": len(durs),
+                                 "ms_mean": float(np.mean(durs)) * 1e3}
+    row = {"phase": "ec_reads", "pass": name, "codec": ev.codec._impl,
+           "shards_mounted": ev.shard_ids(),
+           "remote_fetch": ev.remote_fetch is not None, "reads": len(keys),
+           "threads": EC_READ_THREADS, "wall_s": wall,
+           "reads_per_s": len(keys) / wall,
+           "data_GBps": sum(len(want[k].data) for k in keys) / wall / 1e9,
+           "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+           "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+           "max_ms": float(lat.max()) * 1e3, **threaded,
+           "serial_traced": serial_stats, "byte_equal": True}
+    emit(row)
     return row
+
+
+def one_read(ev, key: int, want, counters: _ReadCounters, what: str,
+             lost) -> dict:
+    """One degraded read alone: its latency holds whatever the path does
+    the first time, the decode plan's kernel build included."""
+    built = compile_seconds(counters.rs_cuda._build)
+    counters.start()
+    t0 = time.perf_counter()
+    got = ev.read_needle(key)
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_needle(got, want, key)
+    row = {"phase": "ec_reads_first_degraded_read", "what": what,
+           "lost": list(lost), "codec": ev.codec._impl, "key": key,
+           "data_bytes": len(want.data), "ms": ms, **counters.read(),
+           "compile_s": sum(sec for k, sec in compile_seconds(
+               counters.rs_cuda._build).items() if k not in built)}
+    emit(row)
+    return row
+
+
+def phase_ec_reads(rs_cuda, gf256, gf_network, enc, codec_service, metrics,
+                   work: str, base: str, digests: dict, seed: int, gen,
+                   power: str) -> dict:
+    """Needles served from phase 4's EC volume (every shard rebuilt) by the
+    port's EcVolume, in passes of EC_READ_SAMPLE seeded live keys:
+    (a) healthy; (b) .ec00-.ec03 unmounted, decoded on the card; (c) the
+    same on the host SIMD codec; (d) a second directory of hard links to
+    .ec04-.ec09, .ecx, .ecj and .vif whose remote_fetch serves .ec10-.ec13
+    from phase 4's directory.  Then that directory's remote-source rebuild
+    of .ec00-.ec03 on the default route, checked by sha256, and the codec
+    registry's choices."""
+    from seaweedfs_tpu_torch.ops import codec as codec_mod
+    from seaweedfs_tpu_torch.storage.ec.volume import EcVolume, NotFoundError
+    from seaweedfs_tpu_torch.storage.idx import parse_index_arrays
+    from seaweedfs_tpu_torch.storage.needle import Needle, actual_size
+    from seaweedfs_tpu_torch.storage.vif import save_volume_info
+
+    t_phase = time.perf_counter()
+    kernel_rows = time_degraded_kernel(rs_cuda, gf256, gf_network, gen, power)
+    save_volume_info(base + ".vif", 3, "000",
+                     dat_file_size=os.path.getsize(base + ".dat"))
+    keys, offsets, sizes = parse_index_arrays(base + ".idx")
+    # a small quick-check volume holds fewer needles than the sample
+    n_sample = min(EC_READ_SAMPLE, len(keys) - 16 - 64 - EC_READ_SERIAL)
+    if n_sample < EC_READ_THREADS:
+        raise ValueError(f"{len(keys)} needles are too few for ec_reads")
+    reduced = ([] if n_sample == EC_READ_SAMPLE else
+               [f"sample {EC_READ_SAMPLE} -> {n_sample}: {len(keys)} needles"])
+    pick = np.random.default_rng(seed + 3).choice(
+        len(keys), n_sample + 16 + 64 + EC_READ_SERIAL, replace=False)
+    want = {}
+    with open(base + ".dat", "rb") as f:  # the records as written
+        for i in pick:
+            k = int(keys[i])
+            want[k] = Needle.from_bytes(os.pread(
+                f.fileno(), actual_size(int(sizes[i]), 3), int(offsets[i])), 3)
+            if want[k].id != k:
+                raise AssertionError(f".idx entry of {k:x} points elsewhere")
+    sample = [int(keys[i]) for i in pick[:n_sample]]
+    doomed = [int(keys[i]) for i in pick[n_sample:n_sample + 16]]
+    spare = [int(keys[i]) for i in pick[n_sample + 16:n_sample + 80]]
+    serial = [int(keys[i]) for i in pick[n_sample + 80:]]
+    counters = _ReadCounters(rs_cuda, metrics)
+    passes, firsts = [], []
+
+    ev = EcVolume(base, volume_id=1, codec_name="cuda")
+    try:
+        for k in doomed:  # tombstoned in the .ecx, journaled in the .ecj
+            ev.delete_needle(k)
+        for k in doomed[:2]:
+            try:
+                ev.read_needle(k)
+            except NotFoundError:
+                continue
+            raise AssertionError(f"deleted needle {k:x} still reads")
+        passes.append(read_pass(ev, "a_healthy", sample, want, counters, serial))
+        for sid in EC_READ_LOSS:
+            ev.delete_shard(sid)
+        first = _degraded_keys(ev, spare, EC_READ_LOSS)[0]
+        firsts.append(one_read(ev, first, want[first], counters,
+                               "first degraded read of the process",
+                               EC_READ_LOSS))
+        passes.append(read_pass(ev, "b_degraded_cuda", sample, want,
+                                counters, serial))
+    finally:
+        ev.close()
+    ev = EcVolume(base, volume_id=1, codec_name="cpu")
+    try:
+        for sid in EC_READ_LOSS:
+            ev.delete_shard(sid)
+        passes.append(read_pass(ev, "c_degraded_cpu", sample, want, counters,
+                                serial))
+    finally:
+        ev.close()
+
+    remote_dir = os.path.join(work, "remote")
+    os.makedirs(remote_dir)
+    base2 = os.path.join(remote_dir, "1")
+    for ext in [f".ec{i:02d}" for i in range(4, 10)] + [".ecx", ".ecj",
+                                                         ".vif"]:
+        os.link(base + ext, base2 + ext)  # hard links: no extra disk
+    peer = {sid: os.open(base + f".ec{sid:02d}", os.O_RDONLY)
+            for sid in range(10, 14)}
+
+    def remote_fetch(sid: int, off: int, length: int):
+        fd = peer.get(sid)
+        return None if fd is None else os.pread(fd, length, off)
+
+    try:
+        ev = EcVolume(base2, volume_id=1, codec_name="cuda")
+        ev.remote_fetch = remote_fetch
+        try:
+            passes.append(read_pass(ev, "d_remote_cuda", sample, want,
+                                    counters, serial))
+        finally:
+            ev.close()
+        ev = EcVolume(base, volume_id=1, codec_name="cuda")
+        try:
+            for sid in COLD_READ_LOSS:
+                ev.delete_shard(sid)
+            cold = _degraded_keys(ev, spare, (1, 4, 9))[0]
+            firsts.append(one_read(ev, cold, want[cold], counters,
+                                   "first read of a decode plan new to the "
+                                   "machine", COLD_READ_LOSS))
+        finally:
+            ev.close()
+
+        # the codec registry: the card must be the effective codec; `auto`
+        # reports its choice and both round trips, whichever wins
+        effective = codec_mod.effective_codec("cuda")
+        t0 = time.perf_counter()
+        auto = codec_mod.get_codec("auto")._impl
+        choice = {"phase": "codec_choice", "effective_codec_cuda":
+                  list(effective), "auto": auto,
+                  "auto_times": dict(codec_mod.AUTO_TIMES),
+                  "auto_resolve_s": time.perf_counter() - t0}
+        emit(choice)
+
+        saved = os.environ.pop("SEAWEEDFS_TPU_EC_SERVICE", None)
+        try:  # the default route, as a user's call takes it
+            route = ("service" if codec_service.service_for_codec("cuda")
+                     else "direct")
+            shard_size = os.path.getsize(base2 + ".ec04")
+            counters.start()
+            t0 = time.perf_counter()
+            rebuilt = enc.rebuild_ec_files(base2, codec_name="cuda",
+                                           remote_fetch=remote_fetch)
+            rebuild_s = time.perf_counter() - t0
+            rb = counters.read()
+        finally:
+            if saved is not None:
+                os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = saved
+        if rebuilt != list(EC_READ_LOSS):
+            raise AssertionError(f"remote rebuild made {rebuilt}")
+        got = sha256_all([base2 + f".ec{i:02d}" for i in EC_READ_LOSS])
+        if got != [digests[i] for i in EC_READ_LOSS]:
+            raise AssertionError("remote rebuild differs from phase 4's "
+                                 "shards by sha256")
+        remote_rebuild = {
+            "phase": "ec_remote_rebuild", "route": route,
+            "local_shards": list(range(4, 10)),
+            "remote_shards": list(range(10, 14)),
+            "rebuilt": rebuilt, "seconds": rebuild_s,
+            "GBps_read": 10 * shard_size / rebuild_s / 1e9,
+            "launches": rb["launches"],
+            "batched_launches": rb["batched_launches"],
+            "compiles": rb["compiles"], "sha256_equal": True}
+        emit(remote_rebuild)
+    finally:
+        for fd in peer.values():
+            os.close(fd)
+        shutil.rmtree(remote_dir, ignore_errors=True)
+
+    by = {p["pass"]: p for p in passes}
+    b, c, d = by["b_degraded_cuda"], by["c_degraded_cpu"], by["d_remote_cuda"]
+    if by["a_healthy"]["degraded_intervals"] or by["a_healthy"]["launches"]:
+        raise AssertionError("the healthy pass decoded")
+    for p in (b, d, b["serial_traced"], d["serial_traced"]):
+        if not p["degraded_intervals"] or p["launches"] < p["degraded_intervals"]:
+            raise AssertionError(
+                f"pass {p.get('pass', 'serial')}: {p['launches']} launches "
+                f"for {p['degraded_intervals']} degraded intervals")
+    if not c["degraded_intervals"] or c["launches"] or c["batched_launches"] \
+            or c["serial_traced"]["launches"]:
+        raise AssertionError(f"the cpu pass made {c['launches']} launches")
+    if effective != ("cuda", ""):
+        raise AssertionError(f"effective_codec('cuda') = {effective}")
+    if remote_rebuild["launches"] + remote_rebuild["batched_launches"] == 0:
+        raise AssertionError("the remote rebuild launched no kernel")
+    read_launches = sum(p["launches"] + p["serial_traced"]["launches"]
+                        for p in passes) + sum(f["launches"] for f in firsts)
+    row = {"phase": "ec_reads_summary", "sample": n_sample,
+           "reduced": reduced,
+           "deleted": len(doomed), "passes": len(passes),
+           "read_launches": read_launches,
+           "rebuild_launches": remote_rebuild["launches"],
+           "rebuild_batched_launches": remote_rebuild["batched_launches"],
+           "kernel_rows": len(kernel_rows),
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    return {**row, "kernel_rows": kernel_rows}
 
 
 # -- phase 5 -------------------------------------------------------------
@@ -638,9 +1079,12 @@ def phase_service(rs_cuda, gf256, enc, codec_service, metrics, work: str,
     bases = [os.path.join(work, str(i + 1)) for i in range(SERVICE_VOLUMES)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(SERVICE_VOLUMES) as pool:
-        list(pool.map(lambda i: make_volume(bases[i], size, seed + 10 + i),
-                      range(SERVICE_VOLUMES)))
+        needles = sum(pool.map(
+            lambda i: make_volume(bases[i], size, seed + 10 + i),
+            range(SERVICE_VOLUMES)))
     setup_s = time.perf_counter() - t0
+    emit({"phase": "make_volume", "volumes": SERVICE_VOLUMES,
+          "volume_bytes": size, "needles": needles, "seconds": setup_s})
 
     svc = codec_service.CodecService(mode="device")
     stages = {st: metrics.EC_SERVICE_STAGE.labels(st)
@@ -851,13 +1295,13 @@ def time_batched(rs_cuda, gf256, gf_network, gen, power: str) -> dict:
     return row
 
 
-def volume_size(work: str, want: int, count: int = 1
-                ) -> tuple[int, list[str]]:
+def volume_size(work: str, want: int, count: int = 1,
+                per_volume: float = 2.6) -> tuple[int, list[str]]:
     """The size of each of `count` volumes to encode: `want` bytes, cut to
-    what the disk can hold (.dat + 1.4x for shards + margin); -> (bytes,
-    cuts made)."""
+    what the disk can hold (`per_volume` x the .dat: the .dat, 1.4x for
+    shards, and a margin); -> (bytes, cuts made)."""
     free = shutil.disk_usage(work).free
-    fits = int(free / 2.6 / count) // MIB * MIB
+    fits = int(free / per_volume / count) // MIB * MIB
     if fits >= want:
         return want, []
     if fits < min(want, GIB // 4):
@@ -870,6 +1314,8 @@ def main() -> int:
     ap.add_argument("--volume-gib", type=float, default=12.0)
     ap.add_argument("--service-volume-gib", type=float, default=3.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-ec-reads", action="store_true",
+                    help="phases 1-4b only, no kernels line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -911,12 +1357,25 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"  # phase 4: direct route
     try:
-        size, reduced = volume_size(work, int(args.volume_gib * GIB) // MIB * MIB)
-        e2e = phase_end_to_end(rs_cuda, gf256, _build, enc, work, size,
-                               args.seed, reduced, parity16["ms"])
+        # the .dat, its 14 shards and the 4 the ec_reads phase rebuilds
+        size, reduced = volume_size(
+            work, int(args.volume_gib * GIB) // MIB * MIB, per_volume=2.9)
+        e2e, digests = phase_end_to_end(rs_cuda, gf256, _build, enc, work,
+                                        size, args.seed, reduced,
+                                        parity16["ms"])
+        reads = phase_ec_reads(rs_cuda, gf256, gf_network, enc,
+                               codec_service, metrics, work,
+                               os.path.join(work, "1"), digests, args.seed,
+                               gen, power)
     finally:
         del os.environ["SEAWEEDFS_TPU_EC_SERVICE"]
         shutil.rmtree(work, ignore_errors=True)
+    if args.only_ec_reads:
+        emit({"phase": "done", "wall_s": time.perf_counter() - start,
+              "only_ec_reads": True})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -937,15 +1396,31 @@ def main() -> int:
     emit({"kernels": [{
         "name": "gf_matmul", "route": "cuda", "source": source,
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:44",
-        "launches": e2e["encode_launches"] + e2e["rebuild_launches"],
+        "launches": e2e["encode_launches"] + e2e["rebuild_launches"]
+        + reads["read_launches"] + reads["rebuild_launches"],
+        "launches_by_path": {
+            "encode": e2e["encode_launches"],
+            "rebuild": e2e["rebuild_launches"],
+            "ec_reads": reads["read_launches"],
+            "remote_rebuild": reads["rebuild_launches"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
         "bound_by": parity16["bound_by"], "alu_ms": parity16["alu_ms"],
+        "degraded_read_shapes": [
+            {k: r[k] for k in ("matrix", "bytes_per_shard", "ms",
+                               "back_to_back_ms", "plain_ms", "bound_ms",
+                               "bound_by", "alu_ms")}
+            for r in reads["kernel_rows"]],
         "library_ms": None}, {
         "name": "gf_matmul_batched", "route": "cuda", "source": source,
         "replaces": "bench.py:104",
-        "launches": svc["encode_launches"] + svc["rebuild_launches"],
+        "launches": svc["encode_launches"] + svc["rebuild_launches"]
+        + reads["rebuild_batched_launches"],
+        "launches_by_path": {
+            "service_encode": svc["encode_launches"],
+            "service_rebuild": svc["rebuild_launches"],
+            "remote_rebuild": reads["rebuild_batched_launches"]},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],

@@ -24,11 +24,11 @@ compute call:
   the same batching and dispatch on CPU tensors through the kernel's
   plain version (tests only).
 
-* **host mode**: the SAME scheduler runs on the port's ``torch_cpu`` codec
-  (the kernel's plain version), so the batching and fairness properties
-  hold on hosts without a card.  Small jobs coalesce column-wise into one
-  reused slab and one compute call.  (The reference's C++ SIMD host codec
-  is not ported.)
+* **host mode**: the SAME scheduler runs on the port's ``cpu`` codec, the
+  native SIMD library (native/seaweed_native.cc), as the reference's host
+  mode does, so the batching and fairness properties hold on hosts without
+  a card.  Small jobs coalesce column-wise into one reused slab and one
+  native call.
 
 Callers that hold many independent jobs at once use the vectored
 ``submit_*_many`` entries: one lock acquisition and one wakeup for the
@@ -70,7 +70,8 @@ from ..stats.metrics import (
 )
 from . import device_probe, gf256
 from .codec import DEVICE_CODEC_NAMES as _DEVICE_CODECS
-from .rs_cuda import gf_apply_batched, gf_apply_reference
+from ..native import lib as native
+from .rs_cuda import gf_apply_batched
 from .rs_torch import resolve_device
 
 DATA_SHARDS = 10
@@ -137,14 +138,14 @@ class CodecFuture:
 class CodecService:
     """Batched GF(2⁸) dispatch behind a bounded queue.
 
-    ``mode``: ``host`` (the torch_cpu codec), ``device`` (one batched
+    ``mode``: ``host`` (the cpu codec), ``device`` (one batched
     kernel launch per batch on ``device``, a CUDA card unless ``"cpu"`` is
     asked for), or ``auto`` (device iff ``codec_name`` names a device codec
     AND the fast probe reports a reachable card — an unreachable card
     degrades to host in probe-timeout seconds, never minutes).  The
     defaults, ``auto`` with the ``cuda`` codec, run on the card when there
     is one; callers that want the host pass ``mode="host"`` or
-    ``codec_name="torch_cpu"``.
+    ``codec_name="cpu"``.
     """
 
     def __init__(self, mode: str = "auto", codec_name: str = "cuda",
@@ -464,13 +465,14 @@ class CodecService:
 
     def _compute_host(self, batch: list[_Job]) -> None:
         rows = batch[0].rows
-        s = rows.shape[1]
+        r, s = rows.shape
+        mbytes = rows.tobytes()
         try:
             small = (len(batch) > 1
                      and all(j.width <= self.coalesce_bytes for j in batch))
             if small:
                 # column-concatenate into the reused input slab -> ONE
-                # compute call for the whole batch; per-job results are
+                # native call for the whole batch; per-job results are
                 # views of one fresh output
                 with _STAGE_BUILD.time():
                     total = sum(j.width for j in batch)
@@ -485,8 +487,12 @@ class CodecService:
                         self._fill(slab[:, at:at + j.width], j.data, s)
                         at += j.width
                 with _STAGE_COMPUTE.time():
-                    out_slab = gf_apply_reference(
-                        rows, torch.from_numpy(slab[:, :total])).numpy()
+                    out_slab = np.empty((r, total), dtype=np.uint8)
+                    # slab rows are strided by its capacity: pass each
+                    # row's view; the kernel reads `total` bytes of each
+                    native.gf_apply_fast(
+                        mbytes, r, s, [slab[i] for i in range(s)],
+                        [out_slab[i] for i in range(r)], total)
                 at = 0
                 for j in batch:
                     self._deliver(j, out_slab[:, at:at + j.width])
@@ -494,10 +500,12 @@ class CodecService:
                 return
             with _STAGE_COMPUTE.time():
                 for j in batch:
-                    data = (j.data if isinstance(j.data, np.ndarray)
-                            else np.stack(j.data))
-                    self._deliver(j, gf_apply_reference(
-                        rows, torch.from_numpy(data)).numpy())
+                    rows_in = ([j.data[i] for i in range(s)]
+                               if isinstance(j.data, np.ndarray) else j.data)
+                    out = np.empty((r, j.width), dtype=np.uint8)
+                    native.gf_apply_fast(mbytes, r, s, rows_in,
+                                         [out[i] for i in range(r)], j.width)
+                    self._deliver(j, out)
         except Exception as e:
             for j in batch:
                 self._fail(j, e)
@@ -590,7 +598,7 @@ def get_service(codec_name: str = "cuda") -> "CodecService | None":
         svc = _SERVICES.get(key)
         if svc is None or svc.closed:
             svc = CodecService(mode="auto", codec_name=(
-                codec_name if key == "device" else "torch_cpu"))
+                codec_name if key == "device" else "cpu"))
             _SERVICES[key] = svc
         return svc
 
@@ -618,7 +626,7 @@ def service_for_degraded() -> "CodecService | None":
             "SEAWEEDFS_TPU_EC_SERVICE_DEGRADED", "0").lower() in (
             "0", "false", "off", "no"):
         return None
-    return get_service("torch_cpu")
+    return get_service("cpu")
 
 
 def shutdown_all(timeout: "float | None" = 30.0) -> None:

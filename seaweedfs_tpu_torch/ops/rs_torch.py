@@ -6,7 +6,10 @@ for tensors on the card, its plain PyTorch version for tensors on the CPU.
 The numpy-level API (encode / reconstruct / reconstruct_data / verify over
 lists of equal-length uint8 arrays) matches the reference codecs, and
 `encode_device` / `apply_rows_device` take tensors already on the device,
-for the streaming file pipeline.
+for the streaming file pipeline.  Inside an active trace, `parity_of` and
+the reconstructs record the spans ``ec.device_put``, ``ec.device_compute``
+and ``ec.device_get`` as rs_jax.py:192-233 does, so a slow degraded read is
+attributable to the upload, the kernel or the readback.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..telemetry import trace
 from . import gf256
 from .rs_cuda import coefficients, gf_apply
 
@@ -49,6 +53,7 @@ class ReedSolomonTorch:
     def __init__(self, data_shards: int = 10, parity_shards: int = 4,
                  device="cuda"):
         self.device = resolve_device(device)
+        self.impl = "cuda" if self.device.type == "cuda" else "torch_cpu"
         self.data_shards = data_shards
         self.parity_shards = parity_shards
         self.total_shards = data_shards + parity_shards
@@ -67,14 +72,27 @@ class ReedSolomonTorch:
         return gf_apply(rows, inputs)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        arr = np.ascontiguousarray(arr)
+        with trace.child_span("ec.device_put", impl=self.impl,
+                              bytes=int(arr.nbytes)):
+            return torch.from_numpy(arr).to(self.device)
+
+    def _run(self, rows: np.ndarray, inputs: torch.Tensor) -> np.ndarray:
+        """rows x inputs on the device, back as numpy, each hop spanned; the
+        compute span waits for the card so the kernel's time lands in it."""
+        with trace.child_span("ec.device_compute", impl=self.impl):
+            out = self.apply_rows_device(rows, inputs)
+            if out.device.type == "cuda":
+                torch.cuda.current_stream(out.device).synchronize()
+        with trace.child_span("ec.device_get", impl=self.impl):
+            return out.cpu().numpy()
 
     def parity_of(self, data: np.ndarray) -> np.ndarray:
         """(data_shards, B) numpy -> (parity_shards, B) numpy."""
         if data.shape[0] != self.data_shards:
             raise ValueError(
                 f"expected {self.data_shards} data rows, got {data.shape[0]}")
-        return self.encode_device(self._to_device(data)).cpu().numpy()
+        return self._run(self.parity_matrix, self._to_device(data))
 
     # -- numpy convenience (same shapes as rs_cpu) --------------------------
 
@@ -98,7 +116,7 @@ class ReedSolomonTorch:
                 np.stack([shards[i] for i in present[: self.data_shards]]))
             rows = gf256.decode_plan_for(
                 self.matrix, self.data_shards, present, tuple(missing_data))
-            rec = self.apply_rows_device(rows, inputs).cpu().numpy()
+            rec = self._run(rows, inputs)
             for i, r in zip(missing_data, rec):
                 out[i] = r
         if not data_only:
@@ -109,7 +127,7 @@ class ReedSolomonTorch:
                 data = self._to_device(np.stack(
                     [np.asarray(out[i]) for i in range(self.data_shards)]))
                 rows = self.matrix[np.asarray(missing_parity)]
-                par = self.apply_rows_device(rows, data).cpu().numpy()
+                par = self._run(rows, data)
                 for i, p in zip(missing_parity, par):
                     out[i] = p
         return out

@@ -1,11 +1,13 @@
 """A small Prometheus-style registry: counters, gauges and histograms with
 labels — the port's own copy of the registry classes of
-seaweedfs_tpu/stats/metrics.py, and of the families the codec service
-records (names, labels and buckets unchanged, so dashboards built on the
-reference read the port the same way).
+seaweedfs_tpu/stats/metrics.py, and of the families the port's modules
+record: the codec service, the codec registry, the EC read path and its
+caches, the rebuild, and the executors (names, labels and buckets
+unchanged, so dashboards built on the reference read the port the same
+way).
 
-Not carried over: exemplars (the port has no tracing yet), the HTTP
-/metrics endpoint, and every family of the servers.
+Not carried over: exemplars, the HTTP /metrics endpoint, and every family
+of the servers.
 """
 
 from __future__ import annotations
@@ -298,4 +300,75 @@ EC_SERVICE_STAGE = REGISTRY.histogram(
     "seaweedfs_ec_service_stage_seconds",
     "per-batch wall time in each codec-service stage",
     labels=("stage",),  # build | compute | readback
+)
+
+
+# -- EC codec operations (ops/codec.py::InstrumentedCodec) -------------------
+# every blocking codec call through get_codec, by op and by the backend
+# that did the GF work (impl="cuda", "cpu", "torch_cpu")
+
+EC_OP_HISTOGRAM = REGISTRY.histogram(
+    "seaweedfs_ec_op_seconds", "EC codec operation latency",
+    labels=("op", "impl"),
+)
+EC_BYTES_HISTOGRAM = REGISTRY.histogram(
+    "seaweedfs_ec_op_bytes", "bytes processed per EC codec operation",
+    labels=("op", "impl"), buckets=_EC_BYTE_BUCKETS,
+)
+
+# -- EC repair data plane (storage/ec/encoder.py::rebuild_ec_files) -----------
+
+EC_REBUILD_SECONDS = REGISTRY.histogram(
+    "seaweedfs_ec_rebuild_seconds", "wall time per EC shard rebuild",
+    labels=("impl",), buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0),
+)
+EC_REBUILD_BYTES = REGISTRY.counter(
+    "seaweedfs_ec_rebuild_bytes_total",
+    "source bytes consumed by EC shard rebuilds, by origin locality",
+    labels=("source",),  # local (this node) | rack (same rack) | dc (beyond)
+)
+EC_REBUILD_SHARDS = REGISTRY.counter(
+    "seaweedfs_ec_rebuild_shards_total", "shard files reconstructed",
+)
+EC_REBUILD_RESULT = REGISTRY.counter(
+    "seaweedfs_ec_rebuild_total", "rebuild attempts by outcome",
+    labels=("result",),  # ok | error
+)
+
+# -- EC degraded reads (storage/ec/volume.py) ---------------------------------
+# reconstructed-interval LRU, single-flight coalescing, and the batched
+# preadv of a needle's contiguous shard runs
+
+EC_INTERVAL_CACHE = REGISTRY.counter(
+    "seaweedfs_ec_interval_cache_total",
+    "reconstructed-interval cache lookups and evictions by result",
+    labels=("result",),  # hit | miss | evict
+)
+EC_SINGLEFLIGHT = REGISTRY.counter(
+    "seaweedfs_ec_singleflight_total",
+    "degraded-read interval reconstructions by single-flight role",
+    labels=("result",),  # leader | coalesced
+)
+EC_PREADV_BATCHES = REGISTRY.counter(
+    "seaweedfs_ec_preadv_batches_total",
+    "contiguous EC shard interval runs gathered with one preadv",
+)
+
+# -- executors (util/executors.py::MeteredThreadPoolExecutor) -----------------
+# saturation is `active == max and queue_depth > 0`
+
+EXECUTOR_QUEUE_DEPTH = REGISTRY.gauge(
+    "seaweedfs_executor_queue_depth",
+    "tasks submitted to a pool but not yet started",
+    labels=("executor",),
+)
+EXECUTOR_ACTIVE = REGISTRY.gauge(
+    "seaweedfs_executor_active_workers",
+    "pool tasks currently executing",
+    labels=("executor",),
+)
+EXECUTOR_MAX = REGISTRY.gauge(
+    "seaweedfs_executor_max_workers",
+    "pool worker capacity (saturation = active / max)",
+    labels=("executor",),
 )

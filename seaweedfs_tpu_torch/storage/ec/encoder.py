@@ -23,7 +23,8 @@ Encode and rebuild share one streaming pipeline (_stream_apply):
       the card and launches the GF kernel on a compute stream; a second
       stream copies the result back into page-locked memory behind a CUDA
       event, so slice k's readback overlaps slice k+1's upload and kernel;
-    - inline on the host, for the torch_cpu codec without a service;
+    - inline on the host, for the host codecs (cpu, torch_cpu) without a
+      service;
   * a writer thread appends the shard rows and recycles the buffers.
 The bytes written are the same on every route.
 """
@@ -33,14 +34,21 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ...ops import codec_service, gf256
 from ...ops.codec import get_codec
+from ...stats.metrics import (
+    EC_REBUILD_BYTES,
+    EC_REBUILD_RESULT,
+    EC_REBUILD_SECONDS,
+    EC_REBUILD_SHARDS,
+)
+from ...util.executors import MeteredThreadPoolExecutor
 from ..needle_map import NeedleMap
 from .constants import (
     DATA_SHARDS,
@@ -223,8 +231,10 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
     and propagates."""
     n_in, n_out = matrix.shape[1], matrix.shape[0]
     # page-locked slices upload as DMA on either route; the direct route
-    # drives the card's streams itself, the service drives its own
-    pinned = codec.device.type == "cuda"
+    # drives the card's streams itself, the service drives its own.  The
+    # cpu codec has no torch device: it runs inline on the host.
+    device = getattr(codec, "device", None)
+    pinned = device is not None and device.type == "cuda"
     on_card = submit is None and pinned
     max_pending = 1 if submit is None else 2
     stop = threading.Event()
@@ -297,6 +307,11 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
         if submit is not None:
             return submit(host_in.numpy())
         host_out = _HostBuffers.view(obuf, n_out, width)
+        if device is None:  # the native SIMD codec
+            res = codec.apply_rows(matrix, list(host_in.numpy()))
+            for dst, row in zip(host_out.numpy(), res):
+                dst[:] = row
+            return None
         if not on_card:
             host_out.copy_(codec.apply_rows_device(matrix, host_in))
             return None
@@ -398,69 +413,138 @@ def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
         None if service is None else service.submit_parity)
 
 
+def _pick_rebuild_sources(local: list[int], remote_fetch
+                          ) -> tuple[list[int], set[int], set[int]]:
+    """-> (DATA_SHARDS source ids, local first; the remote ones among them;
+    every shard a peer can serve).
+
+    Each shard not held locally is probed with a 1-byte read through the
+    same `remote_fetch` hook the stream uses.  Every non-local shard is
+    covered, so the caller rebuilds only GLOBALLY missing shards: a local
+    copy of a shard that is healthy on a peer would double the repair
+    traffic and register a duplicate holder."""
+    sources = list(local[:DATA_SHARDS])
+    remote: set[int] = set()
+    remote_available: set[int] = set()
+    if remote_fetch is not None:
+        for sid in range(TOTAL_SHARDS):
+            if sid in local:
+                continue
+            try:
+                probe = remote_fetch(sid, 0, 1)
+            except Exception:
+                probe = None
+            if probe:
+                remote_available.add(sid)
+                if len(sources) < DATA_SHARDS:
+                    sources.append(sid)
+                    remote.add(sid)
+    if len(sources) < DATA_SHARDS:
+        raise ValueError(
+            f"cannot rebuild: only {len(sources)} of {TOTAL_SHARDS} shards "
+            f"reachable ({len(local)} local), need {DATA_SHARDS}")
+    return sources, remote, remote_available
+
+
 def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
-                     slice_size: int = DEFAULT_SLICE,
+                     slice_size: int = DEFAULT_SLICE, progress=None,
+                     remote_fetch=None, shard_size: "int | None" = None,
                      service=None) -> list[int]:
-    """Regenerate whichever .ecNN files are missing (ec_encoder.go:61-62)
-    from DATA_SHARDS local source shards; -> the rebuilt shard ids.
+    """Regenerate the globally missing .ecNN files (ec_encoder.go:61-62);
+    -> the rebuilt shard ids.
 
     The cached decode plan for this loss pattern runs through the same
     pipeline as the encode, on the same routes (`service` as for
     generate_ec_files); the DATA_SHARDS sources of each slice are read in
-    parallel.  On any error the partial .ecNN outputs are REMOVED — a
-    failed rebuild leaves no truncated shard for a later mount to trust.
+    parallel.  `remote_fetch(shard_id, offset, length) -> bytes | None`
+    (EcVolume.remote_fetch's contract) lets a node with fewer than
+    DATA_SHARDS local shards stream source intervals from its peers; a
+    shard a peer still holds is not rebuilt here.  `shard_size` must be
+    given when no shard is local.  `progress(shard_bytes_done)` fires
+    after each slice's rows are written.  On any error the partial .ecNN
+    outputs are REMOVED — a failed rebuild leaves no truncated shard for a
+    later mount to trust.
     """
     codec = get_codec(codec_name)
     local = [i for i in range(TOTAL_SHARDS)
              if os.path.exists(base_name + to_ext(i))]
-    missing = [i for i in range(TOTAL_SHARDS) if i not in local]
+    if len(local) == TOTAL_SHARDS:
+        return []
+    sources, remote, remote_available = _pick_rebuild_sources(
+        local, remote_fetch)
+    missing = [i for i in range(TOTAL_SHARDS)
+               if i not in local and i not in remote_available]
     if not missing:
         return []
-    if len(local) < DATA_SHARDS:
+    if local:
+        shard_size = os.path.getsize(base_name + to_ext(local[0]))
+    elif shard_size is None:
         raise ValueError(
-            f"cannot rebuild: only {len(local)} of {TOTAL_SHARDS} shards "
-            f"present, need {DATA_SHARDS}")
+            "cannot rebuild: no local shard and no shard_size given")
     if service is None:
         service = codec_service.service_for_codec(codec_name)
-    sources = local[:DATA_SHARDS]
-    shard_size = os.path.getsize(base_name + to_ext(sources[0]))
     rows = gf256.decode_plan_for(
         codec.matrix, DATA_SHARDS, sources, tuple(missing))
+    local_bytes = EC_REBUILD_BYTES.labels("local")
+    # the hook carries no topology: remote bytes count as beyond the rack
+    remote_bytes = EC_REBUILD_BYTES.labels("dc")
+
+    def read_source(sid: int, off: int, dest: np.ndarray) -> None:
+        if sid in remote:
+            buf = remote_fetch(sid, off, len(dest))
+            if buf is None or len(buf) != len(dest):
+                raise IOError(f"remote shard {sid} unavailable during rebuild")
+            dest[:] = np.frombuffer(buf, dtype=np.uint8)
+            remote_bytes.inc(len(dest))
+        else:
+            _pread_into(ins[sid].fileno(), dest, off)
+            local_bytes.inc(len(dest))
 
     ins: dict[int, object] = {}
     outs: dict[int, object] = {}
+    pool = None
+    t_start = time.perf_counter()
     ok = False
     try:
         for i in sources:
-            ins[i] = open(base_name + to_ext(i), "rb")
+            if i not in remote:
+                ins[i] = open(base_name + to_ext(i), "rb")
         for i in missing:
             outs[i] = open(base_name + to_ext(i), "wb")
-        with ThreadPoolExecutor(max_workers=DATA_SHARDS,
-                                thread_name_prefix="ec-rebuild-read") as pool:
+        pool = MeteredThreadPoolExecutor(
+            max_workers=DATA_SHARDS, name="ec_rebuild_read",
+            thread_name_prefix="ec-rebuild-read")
 
-            def read_into(off: int, dest: np.ndarray) -> None:
-                list(pool.map(
-                    lambda j: _pread_into(ins[sources[j]].fileno(), dest[j],
-                                          off),
-                    range(DATA_SHARDS)))
+        def read_into(off: int, dest: np.ndarray) -> None:
+            list(pool.map(lambda j: read_source(sources[j], off, dest[j]),
+                          range(DATA_SHARDS)))
 
-            def write_out(off: int, _src, rebuilt: np.ndarray) -> None:
-                for row, sid in zip(rebuilt, missing):
-                    outs[sid].write(row)
+        def write_out(off: int, _src, rebuilt: np.ndarray) -> None:
+            for row, sid in zip(rebuilt, missing):
+                outs[sid].write(row)
+            if progress is not None:
+                progress(off + len(rebuilt[0]))
 
-            _stream_apply(
-                codec, rows, range(0, shard_size, slice_size),
-                lambda off: min(slice_size, shard_size - off),
-                read_into, write_out, slice_size,
-                None if service is None
-                else lambda data: service.submit_apply(rows, data))
+        _stream_apply(
+            codec, rows, range(0, shard_size, slice_size),
+            lambda off: min(slice_size, shard_size - off),
+            read_into, write_out, slice_size,
+            None if service is None
+            else lambda data: service.submit_apply(rows, data))
         ok = True
     finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
         for h in ins.values():
             h.close()
         for h in outs.values():
             h.close()
-        if not ok:
+        EC_REBUILD_SECONDS.labels(codec_name).observe(
+            time.perf_counter() - t_start)
+        EC_REBUILD_RESULT.labels("ok" if ok else "error").inc()
+        if ok:
+            EC_REBUILD_SHARDS.inc(len(missing))
+        else:
             for sid in missing:
                 try:
                     os.remove(base_name + to_ext(sid))

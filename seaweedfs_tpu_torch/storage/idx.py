@@ -9,10 +9,18 @@ ignored.
 from __future__ import annotations
 
 import os
+from typing import Iterator
 
 import numpy as np
 
 from . import types as t
+
+
+def walk_index_blob(blob: bytes) -> Iterator[tuple[int, int, int]]:
+    """Yield (key, actual_offset, size) for every whole 16-byte entry."""
+    n = len(blob) - (len(blob) % t.NEEDLE_MAP_ENTRY_SIZE)
+    for i in range(0, n, t.NEEDLE_MAP_ENTRY_SIZE):
+        yield t.unpack_index_entry(blob[i: i + t.NEEDLE_MAP_ENTRY_SIZE])
 
 
 def parse_index_arrays(path: "str | os.PathLike"):

@@ -8,6 +8,7 @@ import stat
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,3 +100,53 @@ def test_cuobjdump_report_carries_the_tool_error(tmp_path, monkeypatch):
     _fake_cuobjdump(tmp_path, "echo 'no device code' >&2; exit 1\n")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     assert chip_ab.cuobjdump("x.so") == {"error": "no device code"}
+
+
+@pytest.mark.parametrize("size", [1 << 20, (3 << 20) + 8 * 37, 40 << 20],
+                         ids=["1MiB", "3MiB-ragged", "40MiB"])
+def test_make_volume_writes_real_needles(tmp_path, size):
+    """chip_smoke.py's volume (data drawn on the CPU here) is a volume the
+    reference's own loader serves: every .idx entry a version-3 needle
+    whose CRC checks, records packed from the superblock to exactly
+    `size` bytes; encoded by the port, the port's EcVolume reads each
+    needle as the reference parses it."""
+    import chip_smoke
+    from seaweedfs_tpu.storage.needle import Needle as RefNeedle
+    from seaweedfs_tpu.storage.volume import Volume
+    from seaweedfs_tpu_torch.storage.ec import encoder as penc
+    from seaweedfs_tpu_torch.storage.ec.volume import EcVolume
+
+    base = str(tmp_path / "1")
+    n = chip_smoke.make_volume(base, size, seed=5, device="cpu")
+    assert os.path.getsize(base + ".dat") == size
+    raw = np.fromfile(base + ".idx", dtype=[("k", ">u8"), ("o", ">u4"),
+                                            ("s", ">u4")])
+    assert len(raw) == n and len(set(raw["k"].tolist())) == n
+    assert not np.array_equal(raw["k"], np.sort(raw["k"]))  # shuffled keys
+    ordered = np.sort(raw, order="o")
+    ends = ordered["o"].astype(np.int64) * 8 + [
+        chip_smoke._record_size(int(s) - 5) for s in ordered["s"]]
+    assert ordered["o"][0] * 8 == 8 and ends[-1] == size
+    assert np.array_equal(ordered["o"][1:].astype(np.int64) * 8, ends[:-1])
+    assert 1 <= int(raw["s"].min()) - 5 \
+        and int(raw["s"].max()) - 5 <= chip_smoke.NEEDLE_MAX_DATA
+    vol = Volume(str(tmp_path), "", 1)
+    try:
+        want = {int(k): vol.read_needle(int(k)) for k in raw["k"]}
+    finally:
+        vol.close()
+    assert os.path.getsize(base + ".dat") == size  # nothing healed away
+    penc.write_ec_files(base, codec_name="cpu")
+    penc.write_sorted_file_from_idx(base)
+    ev = EcVolume(base, volume_id=1, codec_name="cpu")
+    try:
+        for sid in (0, 1, 2, 3):
+            ev.delete_shard(sid)
+        for k, w in want.items():
+            got = ev.read_needle(k)
+            assert (got.id, got.cookie, got.data, got.checksum,
+                    got.append_at_ns) == (w.id, w.cookie, w.data,
+                                          w.checksum, w.append_at_ns)
+            assert isinstance(w, RefNeedle)
+    finally:
+        ev.close()

@@ -1,8 +1,7 @@
 """The port's codec service and device probe held against the JAX package,
 on the CPU.
 
-One test for each of tests/test_codec_service.py's, but the degraded-read
-one (the port has no EcVolume yet).  The same seeded numpy inputs go
+One test for each of tests/test_codec_service.py's.  The same seeded numpy inputs go
 through the reference CodecService (host mode, and device mode on the
 virtual cpu-jax mesh as its own tests run it) and through the port's
 service in host mode and in device mode on CPU tensors
@@ -720,3 +719,44 @@ def test_generate_device_mode_service_with_ecx(tmp_path):
         for i in range(TOTAL_SHARDS):
             assert _read(base + to_ext(i)) == _read(jbase + to_ext(i)), i
         assert _read(base + ".ecx") == _read(jbase + ".ecx")
+
+
+def test_degraded_read_via_service(tmp_path, monkeypatch):
+    """With SEAWEEDFS_TPU_EC_SERVICE_DEGRADED=1 the port's EcVolume decodes
+    each lost interval as an apply job of the shared host-mode service (the
+    native cpu codec), and the needles read back whole."""
+    from seaweedfs_tpu.storage.needle import FLAG_HAS_NAME, Needle
+    from seaweedfs_tpu.storage.super_block import SuperBlock
+    from seaweedfs_tpu.storage.volume import Volume
+    from seaweedfs_tpu_torch.stats.metrics import EC_SERVICE_JOBS
+    from seaweedfs_tpu_torch.storage.ec.volume import EcVolume
+
+    rng = np.random.default_rng(14)
+    vol = Volume(str(tmp_path), "", 1, super_block=SuperBlock())
+    payloads = {}
+    for i in range(1, 21):
+        n = Needle(cookie=int(rng.integers(0, 2**32)), id=i,
+                   data=rng.integers(0, 256, 4096, dtype=np.uint8).tobytes())
+        n.set(FLAG_HAS_NAME)
+        n.name = f"svc-{i}.bin".encode()
+        payloads[i] = n.data
+        vol.append_needle(n)
+    base = vol.file_name()
+    vol.close()
+    tenc.generate_ec_files(base, codec_name="cpu")
+    tenc.write_sorted_file_from_idx(base)
+    for sid in (0, 1, 2, 3):
+        os.remove(base + to_ext(sid))
+
+    monkeypatch.setenv("SEAWEEDFS_TPU_EC_SERVICE_DEGRADED", "1")
+    monkeypatch.setenv("SEAWEEDFS_TPU_EC_INTERVAL_CACHE_MB", "0")
+    codec_service.shutdown_all()
+    jobs = EC_SERVICE_JOBS.labels("apply", "ok")
+    before = jobs.value
+    ev = EcVolume(base, volume_id=1, codec_name="cpu")
+    try:
+        for i in (1, 5, 9, 20):
+            assert ev.read_needle(i).data == payloads[i]
+    finally:
+        ev.close()
+    assert jobs.value > before

@@ -1,14 +1,17 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3] [--seed 0]
-                          [--only-ec-reads]
+    python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3]
+                          [--store-volume-gib 12] [--seed 0]
+                          [--only-ec-reads | --only-store]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
-volume.  A full volume `.dat` of needle records is striped into the
-RS(10,4) shards `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are
-lost, the lost ones are rebuilt, and needles are read back, lost intervals
-decoded on the fly.  All GF(2^8) work goes through one hand-written CUDA
+volume, and the whole lifecycle of a volume through the store that owns
+it (write, encode, serve, rebuild, scrub, `ec.decode`).  A full volume
+`.dat` of needle records is striped into the RS(10,4) shards
+`.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
+ones are rebuilt, and needles are read back, lost intervals decoded on
+the fly.  All GF(2^8) work goes through one hand-written CUDA
 kernel design, the bit-sliced XOR network of
 `seaweedfs_tpu_torch/ops/csrc/gf_bitslice.cu`, compiled with NVRTC for each
 matrix at its first use: one volume at a time and each degraded read
@@ -63,6 +66,24 @@ Phases, each printing one JSON line:
      round trips.  Last, the second directory rebuilds .ec00-.ec03 from
      its 6 local and 4 remote shards on the default route, equal by sha256
      to phase 4's;
+  4c. store_lifecycle, in a fresh directory after 4b's is removed: one
+     Store([dir]) on the default `cuda` codec and service settings, a
+     volume of --store-volume-gib (12 by default, the source of phase 4)
+     written through Store.write_needle (seeded needles of 1 B..256 KiB,
+     each needle's length and CRC kept) and sealed; generate_ec_shards on
+     the default route (.ecx = key-sorted .idx, sampled slices' parity =
+     the plain version's on the card), delete_volume and mount_ec_shards;
+     4096 seeded keys read by 16 threads through Store.read_needle healthy
+     and with .ec00-.ec03 unmounted and deleted (a gf_matmul launch per
+     degraded interval); rebuild_ec_shards (equal by sha256, remounted);
+     Scrubber(store, rate_mbps=0).scrub_volume on the `cuda` store (one
+     launch per 256 KiB interval) and on a second `cpu` Store over the
+     directory (none), both clean; a flipped byte in .ec02 found by a scan
+     resumed at its interval's cursor (exactly one finding: shard 2, that
+     interval, quarantined), repaired by rebuild_ec_shards, cleared by the
+     remount and clean on a rescan; ec_shards_to_volume (the .dat equal by
+     sha256, the volume mounts, the keys read back).  Launch counts are
+     zeroed just before each step and read just after;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -86,8 +107,10 @@ Phases, each printing one JSON line:
 
 `--only-ec-reads` runs phases 1, 4 and 4b alone, at `--volume-gib` (a
 quick check: `--only-ec-reads --volume-gib 0.5`), and prints no kernels
-line.  Exits non-zero, printing no result, without a CUDA card or without
-the package beside this script.  Data comes from --seed; nothing is
+line; `--only-store` runs phases 1-3 and 4c alone, at
+`--store-volume-gib` (a quick check: `--only-store --store-volume-gib
+0.5`), and prints no kernels line.  Exits non-zero, printing no result,
+without a CUDA card or without the package beside this script.  Data comes from --seed; nothing is
 downloaded.
 """
 
@@ -422,9 +445,9 @@ def check_layout(base: str, dat_size: int, rng, enc) -> None:
 
 
 def check_parity(base: str, rs_cuda, gf256, slice_size: int,
-                 offsets=None) -> int:
+                 offsets=None, device: str = "cuda") -> int:
     """Every encode slice's parity shards (or those at `offsets`) against
-    the plain version on the card; -> slices checked."""
+    the plain version on `device`; -> slices checked."""
     m = gf256.rs_parity_matrix(10, 4)
     shard_size = os.path.getsize(base + ".ec00")
     n = 0
@@ -434,9 +457,9 @@ def check_parity(base: str, rs_cuda, gf256, slice_size: int,
         w = min(slice_size, shard_size - off)
         rows = [np.fromfile(base + f".ec{i:02d}", dtype=np.uint8, count=w,
                             offset=off) for i in range(14)]
-        data = torch.from_numpy(np.stack(rows[:10])).cuda()
+        data = torch.from_numpy(np.stack(rows[:10])).to(device)
         want = rs_cuda.gf_apply_reference(m, data)
-        got = torch.from_numpy(np.stack(rows[10:])).cuda()
+        got = torch.from_numpy(np.stack(rows[10:])).to(device)
         if max_abs_err(got, want):
             raise AssertionError(f"parity mismatch in slice at {off}")
         n += 1
@@ -927,6 +950,389 @@ def phase_ec_reads(rs_cuda, gf256, gf_network, enc, codec_service, metrics,
     return {**row, "kernel_rows": kernel_rows}
 
 
+# -- phase store_lifecycle ---------------------------------------------------
+
+STORE_READ_LOSS = (0, 1, 2, 3)
+STORE_CORRUPT_SHARD = 2
+# the flipped byte lies in one of the last this-many scrub intervals, and
+# the scan that must find it resumes at its interval (the scrubber's
+# persisted cursor), so it costs no third full pass
+STORE_CORRUPT_TAIL = 16
+
+
+def _zero_launches(rs_cuda) -> None:
+    rs_cuda.gf_apply.launches = 0
+    rs_cuda.gf_apply_batched.launches = 0
+
+
+def _launches(rs_cuda) -> dict:
+    return {"gf_matmul": rs_cuda.gf_apply.launches,
+            "gf_matmul_batched": rs_cuda.gf_apply_batched.launches}
+
+
+def store_write(store, size: int, seed: int, device: str) -> tuple:
+    """Volume 1 filled to `size` bytes through Store.write_needle: needles
+    of seeded random data (1 B..256 KiB, drawn on `device` in chunks of
+    ~256 MiB), keys shuffled, write times from the seed.  -> ({key: (data
+    length, CRC32-C, cookie)}, the row to print)."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    rng = np.random.default_rng(seed + 11)
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    v = store.find_volume(1)
+    lens = _plan_needles(size - v.content_size, rng)
+    n = len(lens)
+    keys = rng.permutation(np.arange(1, n + 1, dtype=np.uint64)
+                           * np.uint64(7919))
+    cookies = rng.integers(0, 2**32, n, dtype=np.uint64)
+    ends = np.cumsum(lens)
+    written: dict[int, tuple] = {}
+    gen_s = write_s = 0.0
+    i = 0
+    while i < n:
+        j = max(int(np.searchsorted(ends, ends[i] + 256 * MIB)), i + 1)
+        j = min(j, n)
+        t0 = time.perf_counter()
+        data = torch.randint(0, 256, (int(lens[i:j].sum()),),
+                             dtype=torch.uint8, device=device,
+                             generator=gen).cpu().numpy()
+        cuts = np.concatenate([[0], np.cumsum(lens[i:j])])
+        payloads = [data[cuts[k]:cuts[k + 1]].tobytes()
+                    for k in range(j - i)]
+        del data
+        t1 = time.perf_counter()
+        for k, payload in zip(range(i, j), payloads):
+            nd = Needle(cookie=int(cookies[k]), id=int(keys[k]),
+                        data=payload, append_at_ns=_APPEND_AT_NS + k)
+            store.write_needle(1, nd)
+            written[int(keys[k])] = (len(payload), nd.checksum,
+                                     int(cookies[k]))
+        write_s += time.perf_counter() - t1
+        gen_s += t1 - t0
+        i = j
+    if v.content_size != size or len(v.needle_map) != n:
+        raise AssertionError(f"volume holds {v.content_size} bytes and "
+                             f"{len(v.needle_map)} needles, not {size} and {n}")
+    row = {"needles": n, "volume_bytes": size, "write_s": write_s,
+           "data_gen_s": gen_s, "GBps": size / write_s / 1e9,
+           "needles_per_s": n / write_s}
+    return written, row
+
+
+def _check_written(got, key: int, want: tuple) -> None:
+    length, crc, cookie = want
+    if (got.id != key or got.cookie != cookie or len(got.data) != length
+            or got.checksum != crc):
+        raise AssertionError(f"needle {key:x} read back differs from what "
+                             "was written")
+
+
+def store_read_pass(store, name: str, keys: list[int], written: dict,
+                    counters) -> dict:
+    """Every key of `keys` read with EC_READ_THREADS threads through
+    Store.read_needle (the store's needle cache emptied first, so every
+    read goes to the volume), each checked against what was written: id,
+    cookie, length and CRC32-C, which the needle parser verifies against
+    the data."""
+
+    def one(key: int) -> float:
+        t0 = time.perf_counter()
+        got = store.read_needle(1, key)
+        dt = time.perf_counter() - t0
+        _check_written(got, key, written[key])
+        return dt
+
+    if store.needle_cache is not None:
+        store.needle_cache.clear()
+    counters.start()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        lat = np.asarray(list(pool.map(one, keys)))
+    wall = time.perf_counter() - t0
+    c = counters.read()
+    return {"pass": name, "reads": len(keys), "threads": EC_READ_THREADS,
+            "wall_s": wall, "reads_per_s": len(keys) / wall,
+            "data_GBps": sum(written[k][0] for k in keys) / wall / 1e9,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "degraded_intervals": c["degraded_intervals"],
+            "interval_cache_hits": c["interval_cache_hits"],
+            "launches": c["launches"],
+            "batched_launches": c["batched_launches"],
+            "compiles": c["compiles"], "byte_equal": True}
+
+
+def _scrub_row(r: dict, seconds: float, rs_cuda, codec: str) -> dict:
+    return {"codec": codec, "intervals": r["scanned"], "bytes": r["bytes"],
+            "corrupt_shards": r["corrupt_shards"], "seconds": seconds,
+            "bytes_per_s": r["bytes"] / seconds,
+            "ms_per_interval": seconds / max(r["scanned"], 1) * 1e3,
+            **_launches(rs_cuda)}
+
+
+def _stage_seconds(metrics) -> dict:
+    """The codec service's seconds so far in each stage of its batches
+    (build: the uploads; compute: the launch; readback: the wait for the
+    kernel and the copy back)."""
+    return {st: metrics.EC_SERVICE_STAGE.labels(st).total
+            for st in ("build", "compute", "readback")}
+
+
+def _scrub_from(store, scrub, directory: str, offset: int):
+    """A scrubber over `store` whose EC cursor for volume 1 is `offset`,
+    set as a restart finds it (the cursor file), and its scrub_once:
+    the scan resumes there and runs to the shard's end."""
+    with open(os.path.join(directory, scrub.CURSOR_FILE), "w") as f:
+        json.dump({"volume": {}, "ec": {"1": offset}}, f)
+    scrubber = scrub.Scrubber(store, rate_mbps=0)
+    return scrubber, scrubber.scrub_once()
+
+
+def _check_route(route: str, launches: dict, jobs: int, what: str,
+                 exact: bool) -> None:
+    """The kernel a step must have launched: on the service route batched
+    launches only, one per job when `exact` (jobs that arrive one at a
+    time), else 1..jobs (the service may coalesce); on the direct route
+    one gf_matmul launch per job."""
+    batched, direct = launches["gf_matmul_batched"], launches["gf_matmul"]
+    if route == "service":
+        ok = not direct and (batched == jobs if exact
+                             else 1 <= batched <= jobs)
+    else:
+        ok = not batched and direct == jobs
+    if not ok:
+        raise AssertionError(f"{what} on the {route} route: {launches} "
+                             f"for {jobs} jobs")
+
+
+def phase_store_lifecycle(rs_cuda, gf256, enc, codec_service, metrics,
+                          work: str, size: int, seed: int,
+                          reduced: list[str], device: str = "cuda") -> dict:
+    """An operator's volume lifecycle through the port's Store on the
+    `cuda` codec with the default service settings, every step on one
+    Store([work]): write needles, seal, `ec.encode`, delete the volume and
+    mount its shards, serve reads healthy and degraded, `ec.rebuild`,
+    scrub (on `cuda`, then on a second `cpu` Store over the directory,
+    then after a flipped byte in .ec02, localized, quarantined and
+    repaired), and `ec.decode` back to a volume read again.  Launch counts
+    are zeroed just before each step and read just after.  -> the steps'
+    launches by kernel, and the rows."""
+    from seaweedfs_tpu_torch.storage import scrub
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    t_phase = time.perf_counter()
+    store = Store([work])
+    base = os.path.join(work, "1")
+    steps: dict[str, dict] = {}
+    try:
+        store.add_volume(1, "")
+        written, row = store_write(store, size, seed, device)
+        store.mark_readonly(1)
+        store.find_volume(1).sync()
+        dat_sha = sha256_of(base + ".dat")
+        emit({"phase": "store_write", **row, "reduced": reduced})
+        steps["store_write"] = row
+
+        # ec.encode on the default route, as a user's call takes it
+        route = ("service" if codec_service.service_for_codec(
+            store.codec_name) else "direct")
+        slices = len(list(enc._slice_tasks(
+            size, enc.LARGE_BLOCK_SIZE, enc.SMALL_BLOCK_SIZE,
+            enc.DEFAULT_SLICE)))
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        store.generate_ec_shards(1, "")
+        encode_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        _check_route(route, launches, slices, "encode", exact=False)
+        check_ecx(base)
+        shard_size = os.path.getsize(base + ".ec00")
+        offs = list(range(0, shard_size, enc.DEFAULT_SLICE))
+        sampled = sorted(np.random.default_rng(seed + 12).choice(
+            len(offs), min(8, len(offs)), replace=False).tolist())
+        checked = check_parity(base, rs_cuda, gf256, enc.DEFAULT_SLICE,
+                               [offs[i] for i in sampled], device)
+        store.delete_volume(1)
+        if os.path.exists(base + ".dat"):
+            raise AssertionError("delete_volume left the .dat")
+        store.mount_ec_shards(1, "", list(range(14)))
+        row = {"route": route, "seconds": encode_s,
+               "GBps": size / encode_s / 1e9, "slices": slices,
+               "launches": launches, "shard_bytes": shard_size,
+               "ecx_sorted": True, "parity_slices_checked": checked}
+        emit({"phase": "store_ec_encode", **row})
+        steps["store_encode"] = row
+
+        # reads, healthy then with .ec00-.ec03 lost
+        counters = _ReadCounters(rs_cuda, metrics)
+        sample = [int(k) for k in np.random.default_rng(seed + 13).choice(
+            np.fromiter(written, np.uint64), min(EC_READ_SAMPLE,
+                                                  len(written)),
+            replace=False)]
+        healthy = store_read_pass(store, "healthy", sample, written,
+                                  counters)
+        lost = list(STORE_READ_LOSS)
+        digests = dict(zip(lost, sha256_all(
+            [base + f".ec{i:02d}" for i in lost])))
+        store.delete_ec_shards(1, "", lost)
+        degraded = store_read_pass(store, "degraded_ec00_ec03", sample,
+                                   written, counters)
+        if healthy["degraded_intervals"] or healthy["launches"] \
+                or healthy["batched_launches"]:
+            raise AssertionError(f"the healthy pass decoded: {healthy}")
+        if not degraded["degraded_intervals"] \
+                or degraded["launches"] < degraded["degraded_intervals"]:
+            raise AssertionError(
+                f"{degraded['launches']} launches for "
+                f"{degraded['degraded_intervals']} degraded intervals")
+        emit({"phase": "store_reads", "passes": [healthy, degraded]})
+        steps["store_reads"] = {"launches": {
+            "gf_matmul": healthy["launches"] + degraded["launches"],
+            "gf_matmul_batched": healthy["batched_launches"]
+            + degraded["batched_launches"]}}
+
+        # ec.rebuild of the lost shards, on the default route
+        rebuild_slices = -(-shard_size // enc.DEFAULT_SLICE)
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        rebuilt = store.rebuild_ec_shards(1, "")
+        rebuild_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        if rebuilt != lost:
+            raise AssertionError(f"rebuilt {rebuilt}, expected {lost}")
+        if sha256_all([base + f".ec{i:02d}" for i in lost]) != \
+                [digests[i] for i in lost]:
+            raise AssertionError("rebuilt shards differ by sha256")
+        _check_route(route, launches, rebuild_slices, "rebuild", exact=False)
+        store.mount_ec_shards(1, "", lost)
+        row = {"route": route, "rebuilt": rebuilt, "seconds": rebuild_s,
+               "GBps_read": 10 * shard_size / rebuild_s / 1e9,
+               "slices": rebuild_slices, "launches": launches,
+               "sha256_equal": True}
+        emit({"phase": "store_rebuild", **row})
+        steps["store_rebuild"] = row
+
+        # scrub: a full pass on the cuda store, then on a cpu store
+        scrubber = scrub.Scrubber(store, rate_mbps=0)
+        store.scrubber = scrubber
+        stages = _stage_seconds(metrics)
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        r = scrubber.scrub_volume(1)
+        cuda_scrub = _scrub_row(r, time.perf_counter() - t0, rs_cuda,
+                                store.codec_name)
+        cuda_scrub["service_stage_ms_per_interval"] = {
+            st: (sec - stages[st]) / max(r["scanned"], 1) * 1e3
+            for st, sec in _stage_seconds(metrics).items()}
+        if r["corrupt_shards"] or scrubber.outstanding_findings():
+            raise AssertionError(f"the cuda scrub found {r}")
+        intervals = -(-shard_size // scrubber.ec_interval)
+        if r["scanned"] != intervals:
+            raise AssertionError(f"scrubbed {r['scanned']} of {intervals} "
+                                 "intervals")
+        _check_route(route, _launches(rs_cuda), intervals, "scrub",
+                     exact=True)
+        cpu_store = Store([work], codec_name="cpu")
+        try:
+            cpu_scrubber = scrub.Scrubber(cpu_store, rate_mbps=0)
+            _zero_launches(rs_cuda)
+            t0 = time.perf_counter()
+            r = cpu_scrubber.scrub_volume(1)
+            cpu_scrub = _scrub_row(r, time.perf_counter() - t0, rs_cuda,
+                                   cpu_store.codec_name)
+        finally:
+            cpu_store.close()
+        if r["corrupt_shards"] or cpu_scrubber.outstanding_findings() \
+                or r["scanned"] != intervals:
+            raise AssertionError(f"the cpu scrub found {r}")
+        if any(_launches(rs_cuda).values()):
+            raise AssertionError(f"the cpu scrub launched {_launches(rs_cuda)}")
+
+        # one flipped byte in .ec02: exactly one finding, localized
+        rng = np.random.default_rng(seed + 14)
+        tail = min(STORE_CORRUPT_TAIL * scrubber.ec_interval, shard_size)
+        pos = shard_size - 1 - int(rng.integers(0, tail))
+        at = pos // scrubber.ec_interval * scrubber.ec_interval
+        width = min(scrubber.ec_interval, shard_size - at)
+        path = base + f".ec{STORE_CORRUPT_SHARD:02d}"
+        fd = os.open(path, os.O_RDWR)
+        try:
+            byte = os.pread(fd, 1, pos)
+            os.pwrite(fd, bytes([byte[0] ^ 0xFF]), pos)
+        finally:
+            os.close(fd)
+        _zero_launches(rs_cuda)
+        found, summary = _scrub_from(store, scrub, work, at)
+        corrupt_launches = _launches(rs_cuda)
+        findings = found.outstanding_findings()
+        want = {"volume_id": 1, "kind": "ec_shard",
+                "shard_id": STORE_CORRUPT_SHARD, "needle_id": 0,
+                "detail": f"parity mismatch at {at}+{width}"}
+        if summary["corrupt_shards"] != 1 or len(findings) != 1 or {
+                k: findings[0][k] for k in want} != want:
+            raise AssertionError(f"flipped byte at {pos}: {summary}, "
+                                 f"{findings}")
+        quarantined = found.quarantine.status()["shards"]
+        if quarantined != {"1": [STORE_CORRUPT_SHARD]}:
+            raise AssertionError(f"quarantine holds {quarantined}")
+        # repair: the rotten shard deleted and rebuilt, then remounted
+        store.scrubber = found
+        store.delete_ec_shards(1, "", [STORE_CORRUPT_SHARD])
+        rebuilt = store.rebuild_ec_shards(1, "")
+        if rebuilt != [STORE_CORRUPT_SHARD] or sha256_of(path) != \
+                digests[STORE_CORRUPT_SHARD]:
+            raise AssertionError(f"repair rebuilt {rebuilt}")
+        store.mount_ec_shards(1, "", [STORE_CORRUPT_SHARD])
+        if found.outstanding_findings() or \
+                found.quarantine.status()["shards"]:
+            raise AssertionError("the remount left the finding standing")
+        rescan, summary = _scrub_from(store, scrub, work, at)
+        if summary["corrupt_shards"] or rescan.outstanding_findings():
+            raise AssertionError(f"the repaired interval scrubs {summary}")
+        row = {"cuda": cuda_scrub, "cpu": cpu_scrub,
+               "interval_bytes": scrubber.ec_interval,
+               "corrupt": {"shard": STORE_CORRUPT_SHARD, "byte": pos,
+                           "interval": at, "width": width,
+                           "scanned_from_cursor": summary["scanned_bytes"],
+                           "launches": corrupt_launches,
+                           "finding": want["detail"],
+                           "quarantined_then_cleared": True,
+                           "repair_sha256_equal": True},
+               "launches": {k: cuda_scrub[k] for k in
+                            ("gf_matmul", "gf_matmul_batched")}}
+        emit({"phase": "store_scrub", **row})
+        steps["store_scrub"] = row
+
+        # ec.decode back to a normal volume, read again
+        t0 = time.perf_counter()
+        store.ec_shards_to_volume(1, "")
+        decode_s = time.perf_counter() - t0
+        if store.find_volume(1) is None or store.find_ec_volume(1):
+            raise AssertionError(f"after ec.decode: {store.status()}")
+        if sha256_of(base + ".dat") != dat_sha:
+            raise AssertionError("decoded .dat differs by sha256")
+        again = store_read_pass(store, "decoded_volume", sample, written,
+                                counters)
+        if again["launches"] or again["batched_launches"]:
+            raise AssertionError("reads of the decoded volume launched")
+        row = {"seconds": decode_s, "GBps": size / decode_s / 1e9,
+               "dat_sha256_equal": True, "reads": again}
+        emit({"phase": "store_ec_decode", **row})
+        steps["store_decode"] = row
+    finally:
+        store.close()
+    by_kernel: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+    for path in ("store_encode", "store_reads", "store_rebuild",
+                 "store_scrub"):
+        for kernel, n in steps[path]["launches"].items():
+            if n:
+                by_kernel[kernel][path] = n
+    emit({"phase": "store_lifecycle_summary", "route": route,
+          "launches_by_path": by_kernel, "reduced": reduced,
+          "wall_s": time.perf_counter() - t_phase})
+    return {"launches_by_path": by_kernel, "steps": steps}
+
+
 # -- phase 5 -------------------------------------------------------------
 
 
@@ -1275,6 +1681,32 @@ def phase_default_route(rs_cuda, enc, codec_service, base: str,
     return row
 
 
+def time_scrub_kernel(rs_cuda, gf256, gf_network, gen, power: str) -> dict:
+    """The scrubber's job on the card: RS(10,4) parity of one 256 KiB
+    interval per shard, one entry of gf_apply_batched, as the service
+    launches it for each interval."""
+    m = gf256.rs_parity_matrix(10, 4)
+    data = random_u8((1, 10, 256 * 1024), gen)
+    ms = time_ms(lambda: rs_cuda.gf_apply_batched(m, data))
+    b2b_ms = time_back_to_back_ms(lambda: rs_cuda.gf_apply_batched(m, data))
+    plain_ms = time_ms(lambda: rs_cuda.gf_apply_batched_reference(m, data),
+                       reps=10, warmup=1)
+    err = max_abs_err(rs_cuda.gf_apply_batched(m, data),
+                      rs_cuda.gf_apply_batched_reference(m, data))
+    if err:
+        raise AssertionError("scrub-shape parity differs from the plain "
+                             "version")
+    bd = bound(gf_network, m, 256 * 1024)
+    row = {"phase": "scrub_kernel_timing", "matrix": "parity",
+           "entries": 1, "bytes_per_shard": 256 * 1024, "ms": ms,
+           "back_to_back_ms": b2b_ms, **bd,
+           "share_of_bound": bd["bound_ms"] / ms,
+           "share_of_bound_back_to_back": bd["bound_ms"] / b2b_ms,
+           "plain_ms": plain_ms, "max_abs_err": err, "card": power}
+    emit(row)
+    return row
+
+
 def time_batched(rs_cuda, gf256, gf_network, gen, power: str) -> dict:
     """gf_apply_batched at the service's batch shape: 4 parity jobs of
     16 MiB per shard in one launch."""
@@ -1314,8 +1746,12 @@ def main() -> int:
     ap.add_argument("--volume-gib", type=float, default=12.0)
     ap.add_argument("--service-volume-gib", type=float, default=3.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--store-volume-gib", type=float, default=12.0)
     ap.add_argument("--only-ec-reads", action="store_true",
                     help="phases 1-4b only, no kernels line (a quick check)")
+    ap.add_argument("--only-store", action="store_true",
+                    help="phases 1-3 and store_lifecycle only, no kernels "
+                    "line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1354,28 +1790,50 @@ def main() -> int:
 
     parity16 = next(r for r in timing if r["matrix"] == "parity"
                     and r["bytes_per_shard"] == 16 * MIB)
-    work = tempfile.mkdtemp(prefix="chip_smoke_")
-    os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"  # phase 4: direct route
-    try:
-        # the .dat, its 14 shards and the 4 the ec_reads phase rebuilds
-        size, reduced = volume_size(
-            work, int(args.volume_gib * GIB) // MIB * MIB, per_volume=2.9)
-        e2e, digests = phase_end_to_end(rs_cuda, gf256, _build, enc, work,
-                                        size, args.seed, reduced,
-                                        parity16["ms"])
-        reads = phase_ec_reads(rs_cuda, gf256, gf_network, enc,
-                               codec_service, metrics, work,
-                               os.path.join(work, "1"), digests, args.seed,
-                               gen, power)
-    finally:
-        del os.environ["SEAWEEDFS_TPU_EC_SERVICE"]
-        shutil.rmtree(work, ignore_errors=True)
+    if not args.only_store:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"  # phase 4: direct route
+        try:
+            # the .dat, its 14 shards and the 4 the ec_reads phase rebuilds
+            size, reduced = volume_size(
+                work, int(args.volume_gib * GIB) // MIB * MIB,
+                per_volume=2.9)
+            e2e, digests = phase_end_to_end(rs_cuda, gf256, _build, enc,
+                                            work, size, args.seed, reduced,
+                                            parity16["ms"])
+            reads = phase_ec_reads(rs_cuda, gf256, gf_network, enc,
+                                   codec_service, metrics, work,
+                                   os.path.join(work, "1"), digests,
+                                   args.seed, gen, power)
+        finally:
+            del os.environ["SEAWEEDFS_TPU_EC_SERVICE"]
+            shutil.rmtree(work, ignore_errors=True)
     if args.only_ec_reads:
         emit({"phase": "done", "wall_s": time.perf_counter() - start,
               "only_ec_reads": True})
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                      "count": torch.cuda.device_count()}})
         return 0
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # the .dat and its 14 shards, then the decoded .dat beside them
+        size, reduced = volume_size(
+            work, int(args.store_volume_gib * GIB) // MIB * MIB,
+            per_volume=2.6)
+        stored = phase_store_lifecycle(rs_cuda, gf256, enc, codec_service,
+                                       metrics, work, size, args.seed,
+                                       reduced)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    scrub_kernel = time_scrub_kernel(rs_cuda, gf256, gf_network, gen, power)
+    if args.only_store:
+        emit({"phase": "done", "wall_s": time.perf_counter() - start,
+              "only_store": True})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    store_paths = stored["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -1397,12 +1855,14 @@ def main() -> int:
         "name": "gf_matmul", "route": "cuda", "source": source,
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:44",
         "launches": e2e["encode_launches"] + e2e["rebuild_launches"]
-        + reads["read_launches"] + reads["rebuild_launches"],
+        + reads["read_launches"] + reads["rebuild_launches"]
+        + sum(store_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
             "ec_reads": reads["read_launches"],
-            "remote_rebuild": reads["rebuild_launches"]},
+            "remote_rebuild": reads["rebuild_launches"],
+            **store_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -1416,15 +1876,20 @@ def main() -> int:
         "name": "gf_matmul_batched", "route": "cuda", "source": source,
         "replaces": "bench.py:104",
         "launches": svc["encode_launches"] + svc["rebuild_launches"]
-        + reads["rebuild_batched_launches"],
+        + reads["rebuild_batched_launches"]
+        + sum(store_paths["gf_matmul_batched"].values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
             "service_rebuild": svc["rebuild_launches"],
-            "remote_rebuild": reads["rebuild_batched_launches"]},
+            "remote_rebuild": reads["rebuild_batched_launches"],
+            **store_paths["gf_matmul_batched"]},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],
         "bound_by": batched["bound_by"], "alu_ms": batched["alu_ms"],
+        "scrub_shape": {k: scrub_kernel[k] for k in (
+            "entries", "bytes_per_shard", "ms", "back_to_back_ms",
+            "plain_ms", "bound_ms", "bound_by", "alu_ms")},
         "library_ms": None}]})
     emit({"phase": "done", "wall_s": time.perf_counter() - start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,9 @@ The JAX package `seaweedfs_tpu` stays the reference; this package imports
 none of it and keeps its own copies of what it needs.  Its entry points run
 on the card (device "cuda") unless the caller asks for the CPU.
 
-Ported (erasure coding of a sealed volume, `ec.encode` + `ec.rebuild`, and
-needle reads from the EC volume):
+Ported (the volume store and the full EC lifecycle of a volume: needle
+writes, `ec.encode`, reads from the EC volume, `ec.rebuild`, the scrub of
+EC parity and `ec.decode`):
   * ops/gf256.py — GF(2^8) tables, RS generator matrix, decode-plan LRU.
   * ops/csrc/gf_bitslice.cu + ops/gf_network.py + ops/rs_cuda.py — the
     hand-written CUDA GF(2^8) matrix-apply kernel for sm_90a, a bit-sliced
@@ -42,19 +43,39 @@ needle reads from the EC volume):
   * storage/ec/locate.py, volume.py — EcVolume: needle reads with
     degraded reads decoded on the volume's codec, single-flight, the
     interval cache, .ecj deletes, remote fetches on a shared pool.
+  * storage/store.py — Store: disk locations, the volume lifecycle, needle
+    writes/reads/deletes with the hot-needle cache, compaction, disk
+    health, and generate/rebuild/mount/unmount/delete of EC shards and
+    ec_shards_to_volume, on the `cuda` codec by default (no switch to the
+    host); disk_location.py, volume.py (write path, index, torn-tail
+    repair), backend.py (DiskFile), disk_health.py, group_commit.py,
+    vacuum.py, disk_needle_map.py, and idx.py's IndexWriter.
+  * storage/ec/decoder.py, shard_bits.py — `ec.decode` back to a volume.
+  * storage/scrub.py — the Scrubber: token bucket, quarantine, volume and
+    EC scans with cursors, confirms, index repair (tools/offline.py's
+    fix_index); EC parity verified on the store's codec (a batched launch
+    per interval through the service on a card).
+  * util/glog.py, util/faultpoint.py, util/chunk_cache.py (NeedleCache).
 
 Checks: `JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py` holds
 every module against the reference on the CPU (no card, nvcc or triton;
 g++ for native/); `python3 chip_smoke.py` runs the whole path on a card,
 and `python3 chip_smoke.py --only-ec-reads --volume-gib 0.5` the EC read
-phase alone at a quick-check size.  storage/vif.py reads and writes the
+phase alone at a quick-check size (`--only-store --store-volume-gib 0.5`
+the store's lifecycle).  storage/vif.py reads and writes the
 .vif without generated protobuf code on purpose: a second
 `volume_info.proto` in protobuf's default descriptor pool collides with
 the reference's when the tests import both packages into one process.
 
-Not ported yet: the partial-sum protocol (storage/ec/partial.py, and
-EcVolume.partial_client); decoder.py; scrub.py; parallel/ (multi-GPU);
-the servers and the CLI; the cuda_xor / cuda_bitplane impls; spans and
-stage metrics inside the encode pipeline; 5-byte offsets.
+The store keeps its heartbeat deltas as small records of its own, with
+master.proto's field names, for the same reason.
+
+Not ported yet: the volume server and the store's heartbeat
+(collect_heartbeat, drain_deltas), with the partial-sum protocol
+(storage/ec/partial.py, EcVolume.partial_client) and the port's protobuf
+messages; remote tiers (backend_s3.py, Volume.tier_to_remote /
+tier_to_local); parallel/ (multi-GPU); the other servers and the CLI; the
+cuda_xor / cuda_bitplane impls; spans and stage metrics inside the encode
+pipeline; 5-byte offsets.
 util/jaxenv.py works around a JAX-only hang and has no counterpart here.
 """

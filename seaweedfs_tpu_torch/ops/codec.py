@@ -220,14 +220,22 @@ def _resolve_auto(probe_mb: int = 4, timeout_s: float = 75.0) -> str:
     return choice
 
 
+def resolve_codec_name(name: str) -> str:
+    """The concrete codec `name` stands for: ``auto`` becomes the choice
+    `_resolve_auto` made for this process (made on the first call), every
+    other name itself."""
+    if name != "auto":
+        return name
+    if not _AUTO_CHOICE:
+        _AUTO_CHOICE.append(_resolve_auto())
+    return _AUTO_CHOICE[0]
+
+
 def get_codec(name: str = "cuda", data_shards: int = DATA_SHARDS,
               parity_shards: int = PARITY_SHARDS) -> InstrumentedCodec:
     """Return a codec with encode/reconstruct/reconstruct_data/verify,
     wrapped in InstrumentedCodec.  ``cuda`` raises without a usable card."""
-    if name == "auto":
-        if not _AUTO_CHOICE:
-            _AUTO_CHOICE.append(_resolve_auto())
-        name = _AUTO_CHOICE[0]
+    name = resolve_codec_name(name)
     if name == "cpu":
         return InstrumentedCodec(ReedSolomon(data_shards, parity_shards), "cpu")
     if name not in _TORCH_DEVICES:

@@ -2,7 +2,8 @@
 labels — the port's own copy of the registry classes of
 seaweedfs_tpu/stats/metrics.py, and of the families the port's modules
 record: the codec service, the codec registry, the EC read path and its
-caches, the rebuild, and the executors (names, labels and buckets
+caches, the rebuild, the executors, fault injection, disk health, the
+needle cache, the scrubber and group commit (names, labels and buckets
 unchanged, so dashboards built on the reference read the port the same
 way).
 
@@ -371,4 +372,91 @@ EXECUTOR_MAX = REGISTRY.gauge(
     "seaweedfs_executor_max_workers",
     "pool worker capacity (saturation = active / max)",
     labels=("executor",),
+)
+
+# -- fault injection (util/faultpoint.py) -------------------------------------
+
+FAULT_COUNTER = REGISTRY.counter(
+    "seaweedfs_fault_injected_total",
+    "faults injected by point name",
+    labels=("point",),
+)
+
+# -- disk-fault survival plane (storage/disk_health.py) -----------------------
+# per data directory: free/total bytes and the state machine's verdict
+# (0 healthy, 1 low_space, 2 full, 3 failing)
+
+DISK_FREE_GAUGE = REGISTRY.gauge(
+    "seaweedfs_disk_free_bytes", "free bytes on a data directory's filesystem",
+    labels=("dir",),
+)
+DISK_TOTAL_GAUGE = REGISTRY.gauge(
+    "seaweedfs_disk_total_bytes",
+    "total bytes on a data directory's filesystem",
+    labels=("dir",),
+)
+DISK_STATE_GAUGE = REGISTRY.gauge(
+    "seaweedfs_disk_state",
+    "disk health state (0=healthy 1=low_space 2=full 3=failing)",
+    labels=("dir",),
+)
+DISK_WRITE_ERROR = REGISTRY.counter(
+    "seaweedfs_disk_write_errors_total",
+    "classified storage-write failures by kind",
+    labels=("kind",),  # enospc | eio | short | other
+)
+
+# -- hot-needle cache (util/chunk_cache.py::NeedleCache) ---------------------
+
+NEEDLE_CACHE_HIT = REGISTRY.counter(
+    "seaweedfs_needle_cache_hit_total", "needle reads served from cache",
+)
+NEEDLE_CACHE_MISS = REGISTRY.counter(
+    "seaweedfs_needle_cache_miss_total", "needle reads that missed the cache",
+)
+NEEDLE_CACHE_EVICT = REGISTRY.counter(
+    "seaweedfs_needle_cache_evict_total",
+    "needles evicted from the cache by the byte bound",
+)
+
+# -- scrubber (storage/scrub.py) and vacuum's corrupt-needle skips ------------
+
+SCRUB_BYTES = REGISTRY.counter(
+    "seaweedfs_scrub_bytes_total",
+    "bytes read and verified by the scrubber, by target kind",
+    labels=("kind",),  # volume | ec
+)
+SCRUB_NEEDLES = REGISTRY.counter(
+    "seaweedfs_scrub_needles_total",
+    "records verified by the scrubber, by kind and result",
+    labels=("kind", "result"),  # volume|ec x ok|corrupt|skipped
+)
+SCRUB_ERRORS = REGISTRY.counter(
+    "seaweedfs_scrub_errors_total",
+    "corruption findings by origin",
+    labels=("kind",),  # needle | shard | index | vacuum | read_path
+)
+SCRUB_REPAIRS = REGISTRY.counter(
+    "seaweedfs_scrub_repairs_total",
+    "self-healing repair attempts by kind and outcome",
+    labels=("kind", "result"),  # replica|ec_shard|index x ok|error
+)
+
+# -- group commit (storage/group_commit.py) -----------------------------------
+# one fsync pair acks a whole batch of appends, so commits_total <<
+# writes_total is the win being measured
+
+FSYNC_BATCH_COMMITS = REGISTRY.counter(
+    "seaweedfs_fsync_batch_commits_total",
+    "group-commit flush barriers executed (one fsync pair per commit)",
+)
+FSYNC_BATCH_WRITES = REGISTRY.counter(
+    "seaweedfs_fsync_batch_writes_total",
+    "volume mutations acked through a group-commit flush barrier",
+)
+_FSYNC_BATCH_BUCKETS = tuple(float(2 ** k) for k in range(0, 9))  # 1..256
+FSYNC_BATCH_SIZE = REGISTRY.histogram(
+    "seaweedfs_fsync_batch_size",
+    "mutations committed per flush barrier",
+    buckets=_FSYNC_BATCH_BUCKETS,
 )

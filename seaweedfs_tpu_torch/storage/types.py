@@ -24,6 +24,7 @@ NEEDLE_MAP_ENTRY_SIZE = NEEDLE_ID_SIZE + OFFSET_SIZE + SIZE_SIZE  # 16
 NEEDLE_PADDING_SIZE = 8
 NEEDLE_CHECKSUM_SIZE = 4
 TOMBSTONE_FILE_SIZE = -1
+MAX_POSSIBLE_VOLUME_SIZE = 4 * 1024 * 1024 * 1024 * 8  # 32GB
 
 _U64 = struct.Struct(">Q")
 _U32 = struct.Struct(">I")

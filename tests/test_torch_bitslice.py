@@ -24,6 +24,8 @@ from seaweedfs_tpu.ops import gf256 as jgf
 from seaweedfs_tpu.ops.rs_pallas import make_apply_pallas
 from seaweedfs_tpu_torch.ops import _build, gf256, gf_network, rs_cuda
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 WIDTHS = (1, 31, 32, 33, 100, 513, 4097)
 LOSSES = ((0,), (2, 3), (0, 1, 2, 3), (10, 11, 12, 13), (2, 3, 11, 12))
 

@@ -150,3 +150,57 @@ def test_make_volume_writes_real_needles(tmp_path, size):
             assert isinstance(w, RefNeedle)
     finally:
         ev.close()
+
+
+def test_store_lifecycle_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
+                                                     capsys):
+    """chip_smoke.py's store_lifecycle phase at 16 MiB on this host, the
+    `cuda` codec monkeypatched to the kernel's plain version (`torch_cpu`)
+    behind a wrapper that counts each call as the kernel's wrapper counts
+    a launch: every check of the phase passes, and the launches are
+    counted per path.  Without a card the encode, rebuild and scrub take
+    the direct route, so every path launches `gf_matmul`."""
+    import chip_smoke
+    from seaweedfs_tpu_torch.ops import codec as pcodec
+    from seaweedfs_tpu_torch.ops import codec_service, gf256, rs_cuda, rs_torch
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+    plain = rs_torch.gf_apply
+
+    def counted(matrix, data):
+        out = plain(matrix, data)
+        rs_cuda.gf_apply.launches += 1
+        return out
+
+    monkeypatch.setitem(pcodec._TORCH_DEVICES, "cuda", "cpu")
+    monkeypatch.setattr(rs_torch, "gf_apply", counted)
+    monkeypatch.setattr(rs_cuda.gf_apply, "launches", 0)
+    monkeypatch.setattr(rs_cuda.gf_apply_batched, "launches", 0)
+    work = tmp_path / "work"
+    work.mkdir()
+    out = chip_smoke.phase_store_lifecycle(
+        rs_cuda, gf256, enc, codec_service, metrics, str(work), 16 << 20,
+        seed=0, reduced=[], device="cpu")
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {"store_write", "store_ec_encode", "store_reads",
+                         "store_rebuild", "store_scrub", "store_ec_decode",
+                         "store_lifecycle_summary"}
+    paths = out["launches_by_path"]
+    assert set(paths["gf_matmul"]) == {"store_encode", "store_reads",
+                                       "store_rebuild", "store_scrub"}
+    assert paths["gf_matmul_batched"] == {}
+    assert rows["store_lifecycle_summary"]["route"] == "direct"
+    scrub = rows["store_scrub"]
+    assert paths["gf_matmul"]["store_scrub"] == scrub["cuda"]["intervals"] \
+        == scrub["cpu"]["intervals"] > 0
+    assert scrub["cpu"]["gf_matmul"] == 0
+    assert scrub["corrupt"]["finding"].startswith(
+        f"parity mismatch at {scrub['corrupt']['interval']}+")
+    degraded = rows["store_reads"]["passes"][1]
+    assert paths["gf_matmul"]["store_reads"] == degraded["launches"] \
+        == degraded["degraded_intervals"] > 0
+    assert rows["store_ec_decode"]["dat_sha256_equal"]

@@ -33,6 +33,7 @@ from seaweedfs_tpu_torch.stats.metrics import (
 from seaweedfs_tpu_torch.telemetry import trace
 
 from test_rs_known_answers import KAT_AFFINE_PARITY
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOST_CODECS = ("cpu", "torch_cpu")
 no_card = pytest.mark.skipif(torch.cuda.is_available(),

@@ -38,6 +38,7 @@ from seaweedfs_tpu_torch.storage.ec import encoder as tenc
 from seaweedfs_tpu_torch.storage.ec.constants import TOTAL_SHARDS, to_ext
 
 from helpers import make_volume
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the port's service: host mode, and device mode on CPU tensors
 MODES = [pytest.param(("host", None), id="host"),

@@ -20,6 +20,7 @@ from seaweedfs_tpu_torch.storage.ec.constants import TOTAL_SHARDS, to_ext
 from seaweedfs_tpu_torch.storage.needle_map import NeedleMap
 
 from helpers import make_volume
+from torch_threads import one_torch_thread  # noqa: F401
 
 LARGE = 10000
 SMALL = 100

@@ -42,6 +42,7 @@ from seaweedfs_tpu_torch.storage.ec.locate import locate_data
 from seaweedfs_tpu_torch.storage.ec.volume import EcVolume, NotFoundError
 
 from helpers import make_volume
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOST_CODECS = ("cpu", "torch_cpu")
 # block sizes: the needle volume stripes over large rows and then small

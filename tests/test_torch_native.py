@@ -23,6 +23,8 @@ from seaweedfs_tpu_torch.native import lib as native
 from seaweedfs_tpu_torch.ops import crc32c, gf256
 from seaweedfs_tpu_torch.ops.rs_cpu import ReedSolomon
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 WIDTHS = (0, 1, 31, 32, 33, 64, 4096 + 7)
 
 

@@ -20,6 +20,8 @@ from seaweedfs_tpu_torch.ops import rs_cuda
 from seaweedfs_tpu_torch.ops.codec import get_codec
 from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch, matrix_from_numpy
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 WIDTHS = (1, 100, 511, 513, 1000, 4096)
 # the loss sets chip_smoke.py also runs: one data shard, two data shards,
 # all four leading data shards (worst case), all parity, and mixed

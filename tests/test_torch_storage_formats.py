@@ -34,6 +34,7 @@ from seaweedfs_tpu_torch.storage import vif as pvif
 from seaweedfs_tpu_torch.storage.ec import locate as ploc
 
 from helpers import make_volume
+from torch_threads import one_torch_thread  # noqa: F401
 
 VERSIONS = (1, 2, 3)
 LARGE, SMALL = 10000, 100  # the reference ec_test.go's scaled block sizes

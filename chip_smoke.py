@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3]
                           [--store-volume-gib 12] [--seed 0]
-                          [--only-ec-reads | --only-store]
+                          [--only-ec-reads | --only-store |
+                           --only-volume-server]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
-volume, and the whole lifecycle of a volume through the store that owns
-it (write, encode, serve, rebuild, scrub, `ec.decode`).  A full volume
+volume, the whole lifecycle of a volume through the store that owns it
+(write, encode, serve, rebuild, scrub, `ec.decode`), and the same
+lifecycle driven over gRPC through the volume server's rpcs.  A full volume
 `.dat` of needle records is striped into the RS(10,4) shards
 `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
 ones are rebuilt, and needles are read back, lost intervals decoded on
@@ -84,6 +86,34 @@ Phases, each printing one JSON line:
      remount and clean on a rescan; ec_shards_to_volume (the .dat equal by
      sha256, the volume mounts, the keys read back).  Launch counts are
      zeroed just before each step and read just after;
+  4d. volume_server, on 4c's directory and its decoded volume: two port
+     VolumeServers on their default `cuda` codec, A over that directory
+     and B over a fresh one, heartbeating to MiniMaster (a master servicer
+     from the port's own rpc declarations that records heartbeats and
+     answers LookupEcVolume from them), every step an rpc: (1)
+     VolumeMarkReadonly and VolumeEcShardsGenerate (.ecx = key-sorted
+     .idx, sampled slices' parity = the plain version's on the card);
+     (2) VolumeEcShardsMount of all 14, seen by the master with
+     ec_index_bits 0x3fff, then VolumeDelete of the .dat; (3) the
+     intervals of 4096 seeded needles read by VolumeEcShardRead from 16
+     client threads, equal by sha256 to the .dat records; (4) .ec00-.ec03
+     unmounted and deleted, the needles read by VolumeNeedleStatus (A
+     decodes each lost interval on the card; size, cookie and CRC equal
+     the .dat record's); (5) VolumeEcShardsRebuild of the 4, equal by
+     sha256; (6) .ec00-.ec04 copied to B (VolumeEcShardsCopy) and
+     mounted there, .ec00-.ec04 and .ec10-.ec13 dropped on A, and
+     .ec10-.ec13 rebuilt on A from its 5 shards and B's partial sums
+     (VolumeEcShardPartialApply; equal by sha256, 4 shards' bytes in
+     against 5 for a full fetch, no fallback); (6b) the same 4 rebuilt
+     again with B's VolumeEcShardPartialApply failing (fault point
+     ec.partial.apply): one fallback to full fetches from B, whose share
+     of the decode runs on A's codec (the card), not once on the host
+     codec, equal by sha256; then .ec00-.ec04 copied back; (7) VolumeScrub clean, then one flipped byte of .ec11 found
+     exactly once, in its 256 KiB interval; (8) VolumeEcShardsToVolume,
+     the .dat equal by sha256.  Each step prints its rate (GB/s, or
+     reads/s with p50/p99) beside the card's name and power limit, and
+     its launches, counts zeroed just before it and read just after; on
+     the card the phase must launch both kernels;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -109,7 +139,10 @@ Phases, each printing one JSON line:
 quick check: `--only-ec-reads --volume-gib 0.5`), and prints no kernels
 line; `--only-store` runs phases 1-3 and 4c alone, at
 `--store-volume-gib` (a quick check: `--only-store --store-volume-gib
-0.5`), and prints no kernels line.  Exits non-zero, printing no result,
+0.5`), and prints no kernels line; `--only-volume-server` runs phases 1-2
+and 4d alone, on a volume of `--store-volume-gib` written for it (a
+quick check: `--only-volume-server --store-volume-gib 0.5`), and prints
+no kernels line.  Exits non-zero, printing no result,
 without a CUDA card or without the package beside this script.  Data comes from --seed; nothing is
 downloaded.
 """
@@ -1333,6 +1366,534 @@ def phase_store_lifecycle(rs_cuda, gf256, enc, codec_service, metrics,
     return {"launches_by_path": by_kernel, "steps": steps}
 
 
+# -- phase 4d: volume_server -----------------------------------------------
+
+VS_PARTIAL_COPY = (0, 1, 2, 3, 4)  # shards moved to server B
+VS_PARTIAL_LOST = (10, 11, 12, 13)  # lost everywhere, rebuilt from partials
+VS_CORRUPT_SHARD = 11  # a parity shard: the decode reads data shards only
+VS_RPC_TIMEOUT = 1800.0
+
+
+def free_port_pair() -> int:
+    """A port p whose gRPC sibling p + 10000 (the servers' convention) was
+    free a moment ago; the servers bind only the sibling."""
+    import socket
+
+    for _ in range(64):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            grpc_port = s.getsockname()[1]
+        if grpc_port > 10000 + 1024:
+            return grpc_port - 10000
+    raise RuntimeError("no free port above 11024")
+
+
+class MiniMaster:
+    """A master servicer built from the port's own rpc declarations, just
+    enough for volume servers: `SendHeartbeat` records every beat and keeps
+    each node's EC shard bits (full beats replace them, deltas add and
+    remove), and `LookupEcVolume` answers from them, as the reference
+    master's topology does.  Every other master rpc answers
+    UNIMPLEMENTED."""
+
+    def __init__(self, rpclib, master_pb2, grpc_port: int):
+        import threading
+
+        self.address = f"127.0.0.1:{grpc_port}"  # what volume servers dial
+        self._pb = master_pb2
+        self._cond = threading.Condition()
+        self.beats: list = []
+        self.nodes: dict[str, dict] = {}  # url -> {"rack", "dc", "ec"}
+        self._server = rpclib.serve([(rpclib.MASTER, self)], grpc_port,
+                                    host="127.0.0.1")
+
+    def stop(self) -> None:
+        self._server.stop(grace=0.5).wait()
+
+    def SendHeartbeat(self, request_iterator, context):
+        for hb in request_iterator:
+            url = f"{hb.ip}:{hb.port}"
+            with self._cond:
+                self.beats.append(hb)
+                node = self.nodes.setdefault(
+                    url, {"rack": "", "dc": "", "ec": {}})
+                if hb.ec_shards or hb.has_no_ec_shards:  # a full beat
+                    node["rack"], node["dc"] = hb.rack, hb.data_center
+                    node["ec"] = {e.id: e.ec_index_bits
+                                  for e in hb.ec_shards}
+                for e in hb.new_ec_shards:
+                    node["ec"][e.id] = node["ec"].get(e.id, 0) \
+                        | e.ec_index_bits
+                for e in hb.deleted_ec_shards:
+                    node["ec"][e.id] = node["ec"].get(e.id, 0) \
+                        & ~e.ec_index_bits
+                self._cond.notify_all()
+            yield self._pb.HeartbeatResponse()
+
+    def LookupEcVolume(self, request, context):
+        import grpc
+
+        vid = request.volume_id
+        resp = self._pb.LookupEcVolumeResponse(volume_id=vid)
+        with self._cond:
+            nodes = sorted(self.nodes.items())
+        for sid in range(14):
+            held = [(url, n) for url, n in nodes
+                    if n["ec"].get(vid, 0) >> sid & 1]
+            if held:
+                e = resp.shard_id_locations.add(shard_id=sid)
+                for url, n in held:
+                    e.locations.add(url=url, public_url=url,
+                                    data_center=n["dc"], rack=n["rack"])
+        if not resp.shard_id_locations:
+            context.abort(grpc.StatusCode.NOT_FOUND,
+                          f"ec volume {vid} not found")
+        return resp
+
+    def wait_for(self, pred, what: str, timeout: float = 60.0) -> None:
+        """Block until pred(self) holds (re-checked on every beat)."""
+        with self._cond:
+            if not self._cond.wait_for(lambda: pred(self), timeout):
+                raise AssertionError(f"master never saw {what}")
+
+    def bits(self, url: str, vid: int) -> int:
+        return self.nodes.get(url, {"ec": {}})["ec"].get(vid, 0)
+
+
+def _bits_of(shards) -> int:
+    return sum(1 << s for s in shards)
+
+
+def _needle_records(base: str, seed: int) -> tuple[int, dict]:
+    """EC_READ_SAMPLE seeded keys of the volume's .idx, each with its .dat
+    record's offset, length, sha256, cookie, data length and CRC (the port's
+    needle parser verifies that CRC) — what the reads over the wire are held
+    against once the .dat is gone.  -> (.dat size, {key: record})."""
+    from seaweedfs_tpu_torch.storage.needle import Needle, actual_size
+
+    raw = np.fromfile(base + ".idx", dtype=[("k", ">u8"), ("o", ">u4"),
+                                            ("s", ">u4")])
+    live = raw[(raw["o"] > 0) & (raw["s"] > 0)
+               & (raw["s"] != np.uint32(0xFFFFFFFF))]
+    pick = np.random.default_rng(seed + 15).choice(
+        len(live), min(EC_READ_SAMPLE, len(live)), replace=False)
+    out = {}
+    with open(base + ".dat", "rb") as f:
+        for e in live[np.sort(pick)]:
+            off, n = int(e["o"]) * 8, actual_size(int(e["s"]), 3)
+            f.seek(off)
+            rec = f.read(n)
+            nd = Needle.from_bytes(rec, 3)
+            out[int(e["k"])] = {
+                "offset": off, "length": n,
+                "sha256": hashlib.sha256(rec).hexdigest(),
+                "cookie": nd.cookie, "size": len(nd.data),
+                "crc": nd.checksum & 0xFFFFFFFF}
+    return os.path.getsize(base + ".dat"), out
+
+
+def _parallel_sha256(paths: list[str]) -> list[str]:
+    with ThreadPoolExecutor(len(paths)) as pool:
+        return list(pool.map(sha256_of, paths))
+
+
+def _latency_row(name: str, lat: list, wall: float, **extra) -> dict:
+    lat = np.asarray(lat)
+    return {"pass": name, "reads": len(lat), "threads": EC_READ_THREADS,
+            "wall_s": wall, "reads_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3, **extra}
+
+
+def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
+                        power: str, reduced: list[str],
+                        device: str = "cuda",
+                        free_port=free_port_pair) -> dict:
+    """The volume server's gRPC side on the card: two port VolumeServers,
+    A over `work` (a directory holding sealed volume 1's .dat/.idx, as
+    phase 4c leaves it) and B over a fresh directory, both on the servers'
+    default codec (`cuda`), and a MiniMaster; every step an rpc a shell or master
+    sends, in the order an operator runs them: generate, mount and
+    heartbeat, healthy interval reads, degraded needle reads, rebuild,
+    partial-sum repair through B, the same repair falling back to full
+    fetches from B, scrub, decode.  Launch counts are zeroed
+    just before each step and read just after.  -> launches by kernel and
+    step, and the rows.  `free_port()` names each server's port p (its
+    gRPC port is p + 10000); a test suite passes its own, so that no two
+    servers of one process ever get the same port."""
+    from seaweedfs_tpu_torch.ops import codec_service
+    from seaweedfs_tpu_torch.pb import master_pb2
+    from seaweedfs_tpu_torch.pb import rpc as rpclib
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs
+    from seaweedfs_tpu_torch.storage.ec.locate import locate_data
+    from seaweedfs_tpu_torch.util import faultpoint
+    from seaweedfs_tpu_torch.volume.server import VolumeServer
+
+    t_phase = time.perf_counter()
+    base = os.path.join(work, "1")
+    for name in os.listdir(work):  # an earlier run's EC files
+        if name.startswith("1.ec") or name == "scrub.cursor.json":
+            os.remove(os.path.join(work, name))
+    dat_size, records = _needle_records(base, seed)
+    work_b = os.path.join(work, "server_b")
+    os.makedirs(work_b, exist_ok=True)
+    master = MiniMaster(rpclib, master_pb2, free_port() + 10000)
+    servers = []
+    steps: dict[str, dict] = {}
+    # the scrub daemons off and on-demand scans unthrottled, as phase 4c's
+    # Scrubber(rate_mbps=0): only the VolumeScrub rpcs below read shards
+    scrub_rate = os.environ.get("SEAWEEDFS_TPU_SCRUB_RATE_MBPS")
+    os.environ["SEAWEEDFS_TPU_SCRUB_RATE_MBPS"] = "0"
+    try:
+        for d in (work, work_b):
+            srv = VolumeServer([d], [master.address], ip="127.0.0.1",
+                               port=free_port(), pulse_seconds=1.0)
+            srv.start()
+            servers.append(srv)
+        a, b = servers
+        route = ("service" if codec_service.service_for_codec(
+            a.store.codec_name) else "direct")
+        url_a, url_b = f"127.0.0.1:{a.port}", f"127.0.0.1:{b.port}"
+        stub_a = rpclib.volume_server_stub(f"127.0.0.1:{a.grpc_port}",
+                                           timeout=VS_RPC_TIMEOUT)
+        stub_b = rpclib.volume_server_stub(f"127.0.0.1:{b.grpc_port}",
+                                           timeout=VS_RPC_TIMEOUT)
+
+        def step(name: str, row: dict) -> None:
+            row = {"phase": f"volume_server_{name}", **row,
+                   "nvidia_smi": power}
+            emit(row)
+            steps[name] = row
+
+        # 1. generate, as `ec.encode` drives it: readonly, then generate
+        # on the server's default codec
+        dat_sha = sha256_of(base + ".dat")
+        stub_a.VolumeMarkReadonly(vs.VolumeMarkReadonlyRequest(volume_id=1))
+        slices = len(list(enc._slice_tasks(
+            dat_size, enc.LARGE_BLOCK_SIZE, enc.SMALL_BLOCK_SIZE,
+            enc.DEFAULT_SLICE)))
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        stub_a.VolumeEcShardsGenerate(
+            vs.VolumeEcShardsGenerateRequest(volume_id=1))
+        gen_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        if not 1 <= sum(launches.values()) <= slices:
+            raise AssertionError(f"generate launched {launches} for "
+                                 f"{slices} slices")
+        check_ecx(base)
+        shard_size = os.path.getsize(base + ".ec00")
+        offs = list(range(0, shard_size, enc.DEFAULT_SLICE))
+        sampled = sorted(np.random.default_rng(seed + 16).choice(
+            len(offs), min(8, len(offs)), replace=False).tolist())
+        checked = check_parity(base, rs_cuda, gf256, enc.DEFAULT_SLICE,
+                               [offs[i] for i in sampled], device)
+        watched = sorted(set(EC_READ_LOSS) | set(VS_PARTIAL_LOST))
+        digests = dict(zip(watched, _parallel_sha256(
+            [base + f".ec{i:02d}" for i in watched])))
+        step("generate", {"codec": a.store.codec_name, "seconds": gen_s,
+                          "GBps": dat_size / gen_s / 1e9, "slices": slices,
+                          "launches": launches, "shard_bytes": shard_size,
+                          "ecx_sorted": True,
+                          "parity_slices_checked": checked,
+                          "reduced": reduced})
+
+        # 2. mount; the master hears of all 14 shards; the .dat goes
+        _zero_launches(rs_cuda)
+        stub_a.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=1, shard_ids=list(range(14))))
+        master.wait_for(lambda m: m.bits(url_a, 1) == 0x3FFF,
+                        "volume 1 with ec_index_bits 0x3fff from A")
+        beat = next(hb for hb in reversed(master.beats)
+                    if f"{hb.ip}:{hb.port}" == url_a and any(
+                        e.id == 1 and e.ec_index_bits == 0x3FFF
+                        for e in list(hb.ec_shards) + list(hb.new_ec_shards)))
+        stub_a.VolumeDelete(vs.VolumeDeleteRequest(volume_id=1))
+        if os.path.exists(base + ".dat"):
+            raise AssertionError("VolumeDelete left the .dat")
+        step("mount_heartbeat", {
+            "beats": len(master.beats),
+            "carried_by": "new_ec_shards" if len(beat.new_ec_shards)
+            else "ec_shards", "ec_index_bits": "0x3fff",
+            "launches": _launches(rs_cuda)})
+
+        # 3. healthy reads: every interval of each needle by
+        # VolumeEcShardRead, 16 client threads
+        def read_intervals(key: int) -> float:
+            r = records[key]
+            t0 = time.perf_counter()
+            got = []
+            for iv in locate_data(enc.LARGE_BLOCK_SIZE, enc.SMALL_BLOCK_SIZE,
+                                  dat_size, r["offset"], r["length"]):
+                sid, off = iv.to_shard_id_and_offset(enc.LARGE_BLOCK_SIZE,
+                                                     enc.SMALL_BLOCK_SIZE)
+                got.extend(x.data for x in stub_a.VolumeEcShardRead(
+                    vs.VolumeEcShardReadRequest(
+                        volume_id=1, shard_id=sid, offset=off,
+                        size=iv.size)))
+            dt = time.perf_counter() - t0
+            if hashlib.sha256(b"".join(got)).hexdigest() != r["sha256"]:
+                raise AssertionError(f"needle {key:x}: intervals differ "
+                                     "from the .dat record")
+            return dt
+
+        keys = list(records)
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+            lat = list(pool.map(read_intervals, keys))
+        healthy = _latency_row("healthy_VolumeEcShardRead", lat,
+                               time.perf_counter() - t0,
+                               launches=_launches(rs_cuda),
+                               byte_equal=True)
+        if any(healthy["launches"].values()):
+            raise AssertionError(f"healthy reads launched {healthy}")
+
+        # 4. degraded reads: 4 shards dropped, each needle read whole
+        # through VolumeNeedleStatus, A decoding lost intervals on its codec
+        lost = list(EC_READ_LOSS)
+        stub_a.VolumeEcShardsUnmount(vs.VolumeEcShardsUnmountRequest(
+            volume_id=1, shard_ids=lost))
+        stub_a.VolumeEcShardsDelete(vs.VolumeEcShardsDeleteRequest(
+            volume_id=1, shard_ids=lost))
+        if a.store.needle_cache is not None:
+            a.store.needle_cache.clear()
+
+        def read_needle(key: int) -> float:
+            r = records[key]
+            t0 = time.perf_counter()
+            got = stub_a.VolumeNeedleStatus(vs.VolumeNeedleStatusRequest(
+                volume_id=1, needle_id=key))
+            dt = time.perf_counter() - t0
+            if (got.needle_id, got.cookie, got.size, got.crc) != (
+                    key, r["cookie"], r["size"], r["crc"]):
+                raise AssertionError(f"needle {key:x}: status {got} differs "
+                                     "from the .dat record")
+            return dt
+
+        counters = _ReadCounters(rs_cuda, metrics)
+        counters.start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+            lat = list(pool.map(read_needle, keys))
+        wall = time.perf_counter() - t0
+        c = counters.read()
+        degraded = _latency_row(
+            "degraded_VolumeNeedleStatus", lat, wall,
+            degraded_intervals=c["degraded_intervals"],
+            launches={"gf_matmul": c["launches"],
+                      "gf_matmul_batched": c["batched_launches"]},
+            compiles=c["compiles"], crc_equal=True)
+        if not c["degraded_intervals"] or c["launches"] < c["gathers"]:
+            raise AssertionError(f"degraded reads: {c}")
+        step("reads", {"passes": [healthy, degraded],
+                       "launches": {k: healthy["launches"][k]
+                                    + degraded["launches"][k]
+                                    for k in healthy["launches"]}})
+
+        # 5. rebuild of the 4, then remount
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        got = stub_a.VolumeEcShardsRebuild(
+            vs.VolumeEcShardsRebuildRequest(volume_id=1))
+        rebuild_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        if list(got.rebuilt_shard_ids) != lost or _parallel_sha256(
+                [base + f".ec{i:02d}" for i in lost]) != [
+                digests[i] for i in lost]:
+            raise AssertionError(f"rebuilt {list(got.rebuilt_shard_ids)}, "
+                                 "or they differ by sha256")
+        if not sum(launches.values()):
+            raise AssertionError("the rebuild launched no kernel")
+        stub_a.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=1, shard_ids=lost))
+        step("rebuild", {"rebuilt": lost, "seconds": rebuild_s,
+                         "GBps_read": 10 * shard_size / rebuild_s / 1e9,
+                         "launches": launches, "sha256_equal": True})
+
+        # 6. partial-sum repair: 5 shards moved to B, 4 lost everywhere,
+        # rebuilt on A from its 5 and B's partial sums
+        moved, gone = list(VS_PARTIAL_COPY), list(VS_PARTIAL_LOST)
+        t0 = time.perf_counter()
+        stub_b.VolumeEcShardsCopy(vs.VolumeEcShardsCopyRequest(
+            volume_id=1, shard_ids=moved, copy_ecx_file=True,
+            copy_vif_file=True, copy_from_data_node=(
+                f"127.0.0.1:{a.grpc_port}")))
+        copy_s = time.perf_counter() - t0
+        stub_b.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=1, shard_ids=moved))
+        stub_a.VolumeEcShardsUnmount(vs.VolumeEcShardsUnmountRequest(
+            volume_id=1, shard_ids=moved + gone))
+        stub_a.VolumeEcShardsDelete(vs.VolumeEcShardsDeleteRequest(
+            volume_id=1, shard_ids=moved + gone))
+        master.wait_for(
+            lambda m: m.bits(url_b, 1) == _bits_of(moved)
+            and m.bits(url_a, 1) == 0x3FFF & ~_bits_of(moved + gone),
+            "shards 0-4 on B and 5-9 on A")
+        recv = metrics.EC_PARTIAL_BYTES.labels("recv")
+        served = metrics.GRPC_BYTES.labels(
+            "volumeServerGrpc", "VolumeEcShardPartialApply", "tx")
+        fallback = metrics.EC_PARTIAL_FALLBACK.labels("rebuild")
+        before = (recv.value, served.value, fallback.value)
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        got = stub_a.VolumeEcShardsRebuild(
+            vs.VolumeEcShardsRebuildRequest(volume_id=1))
+        partial_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        recv_b, served_b, fell = (recv.value - before[0],
+                                  served.value - before[1],
+                                  fallback.value - before[2])
+        full_fetch = len(moved) * shard_size
+        if list(got.rebuilt_shard_ids) != gone or _parallel_sha256(
+                [base + f".ec{i:02d}" for i in gone]) != [
+                digests[i] for i in gone]:
+            raise AssertionError(f"partial rebuild made "
+                                 f"{list(got.rebuilt_shard_ids)}, or they "
+                                 "differ by sha256")
+        if fell or recv_b != len(gone) * shard_size \
+                or not recv_b < full_fetch or served_b < recv_b:
+            raise AssertionError(
+                f"partial wire: {recv_b} bytes in, {served_b} served, "
+                f"{fell} fallbacks; a full fetch is {full_fetch}")
+        if not sum(launches.values()):
+            raise AssertionError("the partial rebuild launched no kernel")
+        partial_row = {
+            "moved_to_b": moved, "rebuilt": gone, "seconds": partial_s,
+            "GBps_read": 10 * shard_size / partial_s / 1e9,
+            "bytes_in": recv_b, "bytes_served_by_b": served_b,
+            "full_fetch_bytes": full_fetch, "fallbacks": fell,
+            "launches": launches, "sha256_equal": True}
+
+        # 6b. the same repair with B's partial source failing on its first
+        # slice: the rebuild falls back to full fetches from B, and their
+        # share of the decode runs on A's own codec, never the host's
+        for sid in gone:
+            os.remove(base + f".ec{sid:02d}")
+        host = metrics.EC_OP_HISTOGRAM.labels("apply_rows", "cpu")
+        before = (host.count, fallback.value)
+        faultpoint.set_fault("ec.partial.apply", "error")
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        try:
+            got = stub_a.VolumeEcShardsRebuild(
+                vs.VolumeEcShardsRebuildRequest(volume_id=1))
+        finally:
+            faultpoint.clear_fault("ec.partial.apply")
+        fallback_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        on_host, fell = host.count - before[0], fallback.value - before[1]
+        if list(got.rebuilt_shard_ids) != gone or _parallel_sha256(
+                [base + f".ec{i:02d}" for i in gone]) != [
+                digests[i] for i in gone]:
+            raise AssertionError(f"the fallback rebuild made "
+                                 f"{list(got.rebuilt_shard_ids)}, or they "
+                                 "differ by sha256")
+        if fell != 1 or on_host or not sum(launches.values()):
+            raise AssertionError(
+                f"fallback rebuild: {fell} fallbacks, {on_host} host "
+                f"apply_rows, launches {launches}")
+        step("partial_fallback", {
+            "rebuilt": gone, "seconds": fallback_s,
+            "GBps_read": 10 * shard_size / fallback_s / 1e9,
+            "fallbacks": fell, "host_apply_rows": on_host,
+            "launches": launches, "sha256_equal": True})
+        stub_a.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=1, shard_ids=gone))
+        # the moved shards come back to A (as ec.balance moves them)
+        t0 = time.perf_counter()
+        stub_a.VolumeEcShardsCopy(vs.VolumeEcShardsCopyRequest(
+            volume_id=1, shard_ids=moved,
+            copy_from_data_node=f"127.0.0.1:{b.grpc_port}"))
+        back_s = time.perf_counter() - t0
+        stub_b.VolumeEcShardsUnmount(vs.VolumeEcShardsUnmountRequest(
+            volume_id=1, shard_ids=moved))
+        stub_b.VolumeEcShardsDelete(vs.VolumeEcShardsDeleteRequest(
+            volume_id=1, shard_ids=moved))
+        stub_a.VolumeEcShardsMount(vs.VolumeEcShardsMountRequest(
+            volume_id=1, shard_ids=moved))
+        step("partial_rebuild", {
+            **partial_row,
+            "copy_to_b_GBps": len(moved) * shard_size / copy_s / 1e9,
+            "copy_back_GBps": len(moved) * shard_size / back_s / 1e9})
+
+        # 7. scrub: clean, then one flipped byte found once, in its interval
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        scrub = vs.VolumeScrubRequest(volume_id=1)  # unthrottled: rate 0
+        clean = stub_a.VolumeScrub(scrub)
+        scrub_s = time.perf_counter() - t0
+        launches = _launches(rs_cuda)
+        if clean.corrupt_shards or clean.corrupt_needles or clean.findings:
+            raise AssertionError(f"the scrub of a sound volume found {clean}")
+        interval = a.scrubber.ec_interval
+        rng = np.random.default_rng(seed + 17)
+        pos = int(rng.integers(0, shard_size))
+        at = pos // interval * interval
+        width = min(interval, shard_size - at)
+        path = base + f".ec{VS_CORRUPT_SHARD:02d}"
+        fd = os.open(path, os.O_RDWR)
+        try:
+            byte = os.pread(fd, 1, pos)
+            os.pwrite(fd, bytes([byte[0] ^ 0xFF]), pos)
+            found = stub_a.VolumeScrub(scrub)
+        finally:
+            os.pwrite(fd, byte, pos)  # the decode below reads it sound
+            os.close(fd)
+        want = (f"vol=1 kind=ec_shard shard={VS_CORRUPT_SHARD} needle=0 "
+                f"parity mismatch at {at}+{width}")
+        if found.corrupt_shards != 1 or list(found.findings) != [want]:
+            raise AssertionError(f"flipped byte at {pos}: {found}")
+        step("scrub", {"seconds": scrub_s,
+                       "GBps": clean.scanned_bytes / scrub_s / 1e9,
+                       "scanned": clean.scanned,
+                       "scanned_bytes": clean.scanned_bytes,
+                       "launches": launches,
+                       "corrupt": {"shard": VS_CORRUPT_SHARD, "byte": pos,
+                                   "finding": want}})
+
+        # 8. decode back to a volume
+        _zero_launches(rs_cuda)
+        t0 = time.perf_counter()
+        stub_a.VolumeEcShardsToVolume(vs.VolumeEcShardsToVolumeRequest(
+            volume_id=1))
+        decode_s = time.perf_counter() - t0
+        if sha256_of(base + ".dat") != dat_sha:
+            raise AssertionError("decoded .dat differs by sha256")
+        status = stub_a.VolumeStatus(vs.VolumeStatusRequest(volume_id=1))
+        step("decode", {"seconds": decode_s,
+                        "GBps": dat_size / decode_s / 1e9,
+                        "dat_sha256_equal": True,
+                        "mounted_read_only": status.is_read_only,
+                        "launches": _launches(rs_cuda)})
+    finally:
+        for srv in servers:
+            srv.stop()
+        master.stop()
+        if scrub_rate is None:
+            del os.environ["SEAWEEDFS_TPU_SCRUB_RATE_MBPS"]
+        else:
+            os.environ["SEAWEEDFS_TPU_SCRUB_RATE_MBPS"] = scrub_rate
+        shutil.rmtree(work_b, ignore_errors=True)
+    by_kernel: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+    for name, row in steps.items():
+        for kernel, n in row.get("launches", {}).items():
+            if n:
+                by_kernel[kernel][f"volume_server_{name}"] = n
+    # on a card the bulk rpcs take the codec service's batched launch and
+    # degraded reads the direct one; without a card every path is direct
+    want = (("gf_matmul", "gf_matmul_batched") if route == "service"
+            else ("gf_matmul",))
+    if not all(by_kernel[k] for k in want):
+        raise AssertionError(f"the rpcs launched {by_kernel} on the {route} "
+                             "route")
+    emit({"phase": "volume_server_summary", "route": route,
+          "launches_by_path": by_kernel,
+          "reduced": reduced, "wall_s": time.perf_counter() - t_phase,
+          "nvidia_smi": power})
+    return {"launches_by_path": by_kernel, "steps": steps}
+
+
 # -- phase 5 -------------------------------------------------------------
 
 
@@ -1752,6 +2313,10 @@ def main() -> int:
     ap.add_argument("--only-store", action="store_true",
                     help="phases 1-3 and store_lifecycle only, no kernels "
                     "line (a quick check)")
+    ap.add_argument("--only-volume-server", action="store_true",
+                    help="phases 1-2 and volume_server only, on a volume "
+                    "of --store-volume-gib written for it, no kernels line "
+                    "(a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1786,6 +2351,22 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     err = phase_correctness(rs_cuda, gf256, _build, gen)
+    if args.only_volume_server:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            size, reduced = volume_size(
+                work, int(args.store_volume_gib * GIB) // MIB * MIB,
+                per_volume=2.6)
+            make_volume(os.path.join(work, "1"), size, args.seed)
+            phase_volume_server(rs_cuda, gf256, enc, metrics, work,
+                                args.seed, power, reduced)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        emit({"phase": "done", "wall_s": time.perf_counter() - start,
+              "only_volume_server": True})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     timing = phase_timing(rs_cuda, gf256, gf_network, gen, power)
 
     parity16 = next(r for r in timing if r["matrix"] == "parity"
@@ -1824,6 +2405,9 @@ def main() -> int:
         stored = phase_store_lifecycle(rs_cuda, gf256, enc, codec_service,
                                        metrics, work, size, args.seed,
                                        reduced)
+        # the same volume, now served over gRPC
+        served = (None if args.only_store else phase_volume_server(
+            rs_cuda, gf256, enc, metrics, work, args.seed, power, reduced))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     scrub_kernel = time_scrub_kernel(rs_cuda, gf256, gf_network, gen, power)
@@ -1834,6 +2418,7 @@ def main() -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
     store_paths = stored["launches_by_path"]
+    server_paths = served["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -1856,13 +2441,14 @@ def main() -> int:
         "replaces": "seaweedfs_tpu/ops/rs_pallas.py:44",
         "launches": e2e["encode_launches"] + e2e["rebuild_launches"]
         + reads["read_launches"] + reads["rebuild_launches"]
-        + sum(store_paths["gf_matmul"].values()),
+        + sum(store_paths["gf_matmul"].values())
+        + sum(server_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
             "ec_reads": reads["read_launches"],
             "remote_rebuild": reads["rebuild_launches"],
-            **store_paths["gf_matmul"]},
+            **store_paths["gf_matmul"], **server_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -1877,12 +2463,14 @@ def main() -> int:
         "replaces": "bench.py:104",
         "launches": svc["encode_launches"] + svc["rebuild_launches"]
         + reads["rebuild_batched_launches"]
-        + sum(store_paths["gf_matmul_batched"].values()),
+        + sum(store_paths["gf_matmul_batched"].values())
+        + sum(server_paths["gf_matmul_batched"].values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
             "service_rebuild": svc["rebuild_launches"],
             "remote_rebuild": reads["rebuild_batched_launches"],
-            **store_paths["gf_matmul_batched"]},
+            **store_paths["gf_matmul_batched"],
+            **server_paths["gf_matmul_batched"]},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],

@@ -56,26 +56,39 @@ EC parity and `ec.decode`):
     fix_index); EC parity verified on the store's codec (a batched launch
     per interval through the service on a card).
   * util/glog.py, util/faultpoint.py, util/chunk_cache.py (NeedleCache).
+  * pb/ — master.proto, volume_server.proto and volume_info.proto messages
+    in a private DescriptorPool (pb.POOL), the reference's package names
+    and wire bytes; pb/rpc.py — the master and volume-server services,
+    generic handlers (UNIMPLEMENTED for missing methods), serve, stubs
+    over the port's own channel cache.  util/failsafe.py (retries,
+    deadlines, breakers), telemetry/middleware.py (record_op),
+    storage/file_id.py, topology/placement.py (EC source locality, order,
+    rack groups), wdclient/location_cache.py.
+  * storage/ec/partial.py — partial-sum repair: serve_partial (partials on
+    the host codec), PartialRepairClient, MassPartialSession,
+    BatchedPartialClient; EcVolume's partial degraded read and
+    rebuild_ec_files(partial=...); the store's heartbeat
+    (collect_heartbeat, drain_deltas) and partial_client_factory; the
+    scrubber's shared background budget.
+  * volume/server.py, volume/grpc_handlers.py — the volume server's gRPC
+    side on the `cuda` codec by default: the EC, admin, copy, tail,
+    vacuum, scrub and status rpcs and the master heartbeat.
 
 Checks: `JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py` holds
 every module against the reference on the CPU (no card, nvcc or triton;
 g++ for native/); `python3 chip_smoke.py` runs the whole path on a card,
 and `python3 chip_smoke.py --only-ec-reads --volume-gib 0.5` the EC read
 phase alone at a quick-check size (`--only-store --store-volume-gib 0.5`
-the store's lifecycle).  storage/vif.py reads and writes the
-.vif without generated protobuf code on purpose: a second
-`volume_info.proto` in protobuf's default descriptor pool collides with
-the reference's when the tests import both packages into one process.
+the store's lifecycle, `--only-volume-server --store-volume-gib 0.5` the
+volume server's).  Every protobuf message of the port lives in pb.POOL,
+never in protobuf's default pool, where the reference registers the same
+file names: a process importing both packages would fail.
 
-The store keeps its heartbeat deltas as small records of its own, with
-master.proto's field names, for the same reason.
-
-Not ported yet: the volume server and the store's heartbeat
-(collect_heartbeat, drain_deltas), with the partial-sum protocol
-(storage/ec/partial.py, EcVolume.partial_client) and the port's protobuf
-messages; remote tiers (backend_s3.py, Volume.tier_to_remote /
-tier_to_local); parallel/ (multi-GPU); the other servers and the CLI; the
-cuda_xor / cuda_bitplane impls; spans and stage metrics inside the encode
-pipeline; 5-byte offsets.
+Not ported yet: the volume server's HTTP and TCP planes, the `Query` rpc
+(query/) and the tier moves (backend_s3.py, Volume.tier_to_remote /
+tier_to_local), which answer UNIMPLEMENTED; parallel/ (multi-GPU); the
+master, the other servers and the CLI; the cuda_xor / cuda_bitplane
+impls; spans and stage metrics inside the encode pipeline; 5-byte
+offsets.
 util/jaxenv.py works around a JAX-only hang and has no counterpart here.
 """

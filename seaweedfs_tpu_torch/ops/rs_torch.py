@@ -87,6 +87,11 @@ class ReedSolomonTorch:
         with trace.child_span("ec.device_get", impl=self.impl):
             return out.cpu().numpy()
 
+    def apply_rows(self, rows: np.ndarray, inputs) -> list[np.ndarray]:
+        """rows (R, S) x S numpy input rows -> R numpy rows, on the device
+        (the same shapes as rs_cpu's)."""
+        return list(self._run(rows, self._to_device(np.stack(inputs))))
+
     def parity_of(self, data: np.ndarray) -> np.ndarray:
         """(data_shards, B) numpy -> (parity_shards, B) numpy."""
         if data.shape[0] != self.data_shards:

@@ -1,0 +1,6 @@
+"""The messages of master.proto (package `master_pb`), from the port's
+private DescriptorPool (see seaweedfs_tpu_torch/pb/__init__.py)."""
+
+from . import message_classes
+
+globals().update(message_classes("master.proto"))

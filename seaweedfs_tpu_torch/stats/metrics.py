@@ -7,8 +7,13 @@ needle cache, the scrubber and group commit (names, labels and buckets
 unchanged, so dashboards built on the reference read the port the same
 way).
 
-Not carried over: exemplars, the HTTP /metrics endpoint, and every family
-of the servers.
+The volume server's gRPC side adds the request, volume and gRPC-byte
+families, the partial-sum repair families, the retry and circuit-breaker
+families of util/failsafe.py and the heartbeat's compact snapshot
+(`Registry.snapshot_samples`).
+
+Not carried over: exemplars, the HTTP /metrics endpoint, and the families
+of the master, the filer and the gateways.
 """
 
 from __future__ import annotations
@@ -21,6 +26,20 @@ _DEFAULT_BUCKETS = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
 _EC_BYTE_BUCKETS = tuple(float(4 ** k) for k in range(5, 16))  # 1KB..1GB
+
+
+# families whose label cardinality scales with the environment (one child
+# per peer / data dir / hot key) — emitted LAST from snapshot_samples so
+# they can never crowd the fixed-cardinality families out of the
+# 512-sample heartbeat snapshot
+SNAPSHOT_DENY_PREFIXES = (
+    "seaweedfs_connpool_in_use",
+    "seaweedfs_connpool_idle",
+    "seaweedfs_disk_free_bytes",
+    "seaweedfs_disk_total_bytes",
+    "seaweedfs_disk_state",
+    "seaweedfs_hotkey_",
+)
 
 
 def escape_label_value(v: str) -> str:
@@ -253,8 +272,97 @@ class Registry:
             lines.extend(m.render())
         return "\n".join(lines) + "\n"
 
+    def snapshot_samples(self, max_samples: int = 512) -> list:
+        """-> [(exposition sample name incl. labels, float value)] for
+        every counter and gauge child — the compact stats snapshot a full
+        heartbeat carries to the master.  Histograms are skipped, and the
+        high-cardinality families (SNAPSHOT_DENY_PREFIXES) come last."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        metrics.sort(key=lambda m: (
+            1 if m.name.startswith(SNAPSHOT_DENY_PREFIXES) else 0))
+        out = []
+        for m in metrics:
+            if m.kind not in ("counter", "gauge"):
+                continue
+            with m._lock:
+                items = list(m._children.items())
+            for key, child in items:
+                out.append((f"{m.name}{m._label_str(key)}",
+                            float(child.value)))
+                if len(out) >= max_samples:
+                    return out
+        return out
+
 
 REGISTRY = Registry()
+
+# -- requests and volumes (stats/metrics.go:25-123) --------------------------
+REQUEST_COUNTER = REGISTRY.counter(
+    "seaweedfs_request_total", "requests by server type and operation",
+    labels=("type", "op"),
+)
+REQUEST_HISTOGRAM = REGISTRY.histogram(
+    "seaweedfs_request_seconds", "request latency", labels=("type", "op"),
+)
+VOLUME_GAUGE = REGISTRY.gauge(
+    "seaweedfs_volumes", "volumes hosted, by collection and kind",
+    labels=("collection", "type"),
+)
+DISK_SIZE_GAUGE = REGISTRY.gauge(
+    "seaweedfs_disk_size_bytes", "stored bytes by collection and kind",
+    labels=("collection", "type"),
+)
+GRPC_BYTES = REGISTRY.counter(
+    "seaweedfs_grpc_bytes_total",
+    "serialized gRPC message bytes through this server, by rpc and "
+    "direction — the exact wire payload (sans HTTP/2 framing)",
+    labels=("type", "op", "direction"),  # rx | tx
+)
+STALE_EPOCH_REJECTED = REGISTRY.counter(
+    "seaweedfs_stale_epoch_rejected_total",
+    "volume-server rpcs refused because they carried a deposed leader's "
+    "epoch, by rpc method",
+    labels=("method",),
+)
+
+# -- fault-tolerance layer (util/failsafe.py) --------------------------------
+RETRY_COUNTER = REGISTRY.counter(
+    "seaweedfs_retry_total",
+    "retried failures by caller type, operation and failure reason",
+    labels=("type", "op", "reason"),
+)
+CIRCUIT_STATE = REGISTRY.gauge(
+    "seaweedfs_circuit_state",
+    "per-peer circuit breaker state (0 closed, 1 open, 2 half-open)",
+    labels=("peer",),
+)
+CIRCUIT_TRANSITIONS = REGISTRY.counter(
+    "seaweedfs_circuit_transitions_total",
+    "circuit breaker state transitions by peer and target state",
+    labels=("peer", "to"),
+)
+
+# -- partial-sum repair protocol (storage/ec/partial.py) ---------------------
+# sources stream coefficient-weighted GF(2^8) sums instead of raw shard
+# intervals; `serve` counts bytes a source computed and streamed out,
+# `recv` the aggregated partial bytes a rebuilder pulled in, `req` the
+# request bytes (coefficients) it sent
+EC_PARTIAL_BYTES = REGISTRY.counter(
+    "seaweedfs_ec_partial_bytes_total",
+    "partial-sum repair bytes by direction",
+    labels=("op",),  # serve | recv | req
+)
+EC_PARTIAL_JOBS = REGISTRY.counter(
+    "seaweedfs_ec_partial_jobs_total",
+    "partial-sum repair requests by role and outcome",
+    labels=("kind", "result"),  # kind: serve|fetch; result: ok|error
+)
+EC_PARTIAL_FALLBACK = REGISTRY.counter(
+    "seaweedfs_ec_partial_fallback_total",
+    "partial-sum repairs that degraded to the full-shard fetch path",
+    labels=("path",),  # rebuild | degraded
+)
 
 
 # -- EC codec service (ops/codec_service.py) --------------------------------

@@ -43,6 +43,7 @@ import torch
 from ...ops import codec_service, gf256
 from ...ops.codec import get_codec
 from ...stats.metrics import (
+    EC_PARTIAL_FALLBACK,
     EC_REBUILD_BYTES,
     EC_REBUILD_RESULT,
     EC_REBUILD_SECONDS,
@@ -413,20 +414,43 @@ def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
         None if service is None else service.submit_parity)
 
 
-def _pick_rebuild_sources(local: list[int], remote_fetch
+def _pick_rebuild_sources(local: list[int], remote_fetch, partial=None
                           ) -> tuple[list[int], set[int], set[int]]:
     """-> (DATA_SHARDS source ids, local first; the remote ones among them;
     every shard a peer can serve).
 
-    Each shard not held locally is probed with a 1-byte read through the
-    same `remote_fetch` hook the stream uses.  Every non-local shard is
-    covered, so the caller rebuilds only GLOBALLY missing shards: a local
-    copy of a shard that is healthy on a peer would double the repair
-    traffic and register a duplicate holder."""
+    With a partial-repair client, remote availability and ORDER come from
+    its holder map: same-rack sources are drawn before cross-rack ones
+    (topology.placement.order_ec_sources), so the expensive links carry
+    as few partials as possible, and each chosen source is probed with a
+    1-byte read through `remote_fetch` (when there is one, and the client
+    does not `trust_holders`), so a dead holder still listed in the map
+    is passed over for a live one.  Without a client each shard not held
+    locally is probed that way.  Every non-local shard is covered, so the
+    caller rebuilds only GLOBALLY missing shards: a local copy of a shard
+    that is healthy on a peer would double the repair traffic and register
+    a duplicate holder."""
     sources = list(local[:DATA_SHARDS])
     remote: set[int] = set()
     remote_available: set[int] = set()
-    if remote_fetch is not None:
+    if partial is not None:
+        holders = {sid: h for sid, h in partial.remote_shards().items()
+                   if sid not in local}
+        remote_available = set(holders)
+        probe = (remote_fetch is not None
+                 and not getattr(partial, "trust_holders", False))
+        for sid in partial.order(holders):
+            if len(sources) >= DATA_SHARDS:
+                break
+            if probe:
+                try:
+                    if not remote_fetch(sid, 0, 1):
+                        continue
+                except Exception:
+                    continue
+            sources.append(sid)
+            remote.add(sid)
+    elif remote_fetch is not None:
         for sid in range(TOTAL_SHARDS):
             if sid in local:
                 continue
@@ -449,7 +473,7 @@ def _pick_rebuild_sources(local: list[int], remote_fetch
 def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
                      slice_size: int = DEFAULT_SLICE, progress=None,
                      remote_fetch=None, shard_size: "int | None" = None,
-                     service=None) -> list[int]:
+                     service=None, partial=None) -> list[int]:
     """Regenerate the globally missing .ecNN files (ec_encoder.go:61-62);
     -> the rebuilt shard ids.
 
@@ -460,18 +484,40 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
     (EcVolume.remote_fetch's contract) lets a node with fewer than
     DATA_SHARDS local shards stream source intervals from its peers; a
     shard a peer still holds is not rebuilt here.  `shard_size` must be
-    given when no shard is local.  `progress(shard_bytes_done)` fires
-    after each slice's rows are written.  On any error the partial .ecNN
-    outputs are REMOVED — a failed rebuild leaves no truncated shard for a
-    later mount to trust.
+    given when no shard is local (a partial client's probe can answer it
+    too).  `progress(shard_bytes_done)` fires after each slice's rows are
+    written.  On any error the partial .ecNN outputs are REMOVED — a
+    failed rebuild leaves no truncated shard for a later mount to trust.
+
+    `partial` (a storage.ec.partial.PartialRepairClient) switches remote
+    sourcing to the partial-sum protocol: the remote sources multiply
+    their intervals by their decode-plan columns and this node pulls ONE
+    aggregated (missing x width) partial per rack instead of every raw
+    interval.  The slice on the codec is then the local source rows
+    followed by the partial's rows, under the plan's local columns
+    followed by an identity block: local_plan x local + partial, the full
+    decode by GF linearity, so the bytes are the same.  A partial failure
+    degrades for the rest of the rebuild to full fetches
+    (seaweedfs_ec_partial_fallback_total{path="rebuild"}), whose remote
+    term is then computed on the rebuild's codec into the same rows.
     """
     codec = get_codec(codec_name)
     local = [i for i in range(TOTAL_SHARDS)
              if os.path.exists(base_name + to_ext(i))]
     if len(local) == TOTAL_SHARDS:
         return []
-    sources, remote, remote_available = _pick_rebuild_sources(
-        local, remote_fetch)
+    picked = None
+    if partial is not None:
+        try:
+            picked = _pick_rebuild_sources(local, remote_fetch, partial)
+        except ValueError:
+            # the holder map cannot supply 10 sources (stale locations):
+            # let the probing path have a try before giving up
+            EC_PARTIAL_FALLBACK.labels("rebuild").inc()
+            partial = None
+    if picked is None:
+        picked = _pick_rebuild_sources(local, remote_fetch)
+    sources, remote, remote_available = picked
     missing = [i for i in range(TOTAL_SHARDS)
                if i not in local and i not in remote_available]
     if not missing:
@@ -479,15 +525,39 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
     if local:
         shard_size = os.path.getsize(base_name + to_ext(local[0]))
     elif shard_size is None:
-        raise ValueError(
-            "cannot rebuild: no local shard and no shard_size given")
+        if partial is not None:
+            shard_size = partial.shard_size() or None
+        if shard_size is None:
+            raise ValueError(
+                "cannot rebuild: no local shard and no shard_size given")
     if service is None:
         service = codec_service.service_for_codec(codec_name)
     rows = gf256.decode_plan_for(
         codec.matrix, DATA_SHARDS, sources, tuple(missing))
+    use_partial = partial is not None and bool(remote)
+    if use_partial and remote_fetch is not None:
+        # the protocol pulls racks x missing x width; when that exceeds
+        # the plain sources x width (many lost shards, few remote
+        # sources), full fetch IS the bandwidth-optimal path.  Without
+        # a full-fetch transport the partial path stays on regardless —
+        # it is the only remote sourcing available.
+        try:
+            use_partial = partial.ingress_advantage(
+                remote, len(missing)) >= 1.0
+        except Exception:  # noqa: BLE001 — fetch failures fall back anyway
+            pass
     local_bytes = EC_REBUILD_BYTES.labels("local")
-    # the hook carries no topology: remote bytes count as beyond the rack
-    remote_bytes = EC_REBUILD_BYTES.labels("dc")
+    # ingress labels for full fetches: the holder the fetcher actually
+    # read from, when it can say, else beyond the rack
+    loc_of = getattr(remote_fetch, "locality_of", None)
+    if loc_of is None and partial is not None:
+        loc_of = partial.locality_of
+
+    def remote_label(sid: int) -> str:
+        try:
+            return loc_of(sid) if loc_of is not None else "dc"
+        except Exception:  # noqa: BLE001 — labels must never fail a read
+            return "dc"
 
     def read_source(sid: int, off: int, dest: np.ndarray) -> None:
         if sid in remote:
@@ -495,10 +565,46 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
             if buf is None or len(buf) != len(dest):
                 raise IOError(f"remote shard {sid} unavailable during rebuild")
             dest[:] = np.frombuffer(buf, dtype=np.uint8)
-            remote_bytes.inc(len(dest))
+            EC_REBUILD_BYTES.labels(remote_label(sid)).inc(len(dest))
         else:
             _pread_into(ins[sid].fileno(), dest, off)
             local_bytes.inc(len(dest))
+
+    if use_partial:
+        local_srcs = [s for s in sources if s not in remote]
+        remote_srcs = [s for s in sources if s in remote]
+        col = {s: i for i, s in enumerate(sources)}
+        coef_by_shard = {s: rows[:, col[s]] for s in remote_srcs}
+        remote_plan = np.ascontiguousarray(
+            rows[:, [col[s] for s in remote_srcs]])
+        matrix = np.ascontiguousarray(np.concatenate(
+            [rows[:, [col[s] for s in local_srcs]],
+             np.eye(len(missing), dtype=np.uint8)], axis=1))
+    else:
+        local_srcs, matrix = sources, rows
+    part_on = [use_partial]  # sticky: one failure drops to full fetch
+
+    def remote_term(off: int, dest: np.ndarray) -> None:
+        """dest (missing, width) = the remote sources' share of the
+        decode: one aggregated partial, or after a clean, PERMANENT
+        fallback, full fetches combined on the rebuild's own codec (its
+        service when it has one), never quietly on the host."""
+        if part_on[0]:
+            try:
+                dest[:] = partial.fetch(coef_by_shard, len(missing), off,
+                                        dest.shape[1])
+                return
+            except Exception:
+                if remote_fetch is None:
+                    raise  # no fallback transport: surface the clean error
+                part_on[0] = False
+                EC_PARTIAL_FALLBACK.labels("rebuild").inc()
+        got = np.empty((len(remote_srcs), dest.shape[1]), dtype=np.uint8)
+        list(pool.map(lambda j: read_source(remote_srcs[j], off, got[j]),
+                      range(len(remote_srcs))))
+        term = (codec.apply_rows(remote_plan, list(got)) if service is None
+                else service.submit_apply(remote_plan, list(got)).result())
+        dest[:] = np.asarray(term, dtype=np.uint8).reshape(dest.shape)
 
     ins: dict[int, object] = {}
     outs: dict[int, object] = {}
@@ -516,8 +622,10 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
             thread_name_prefix="ec-rebuild-read")
 
         def read_into(off: int, dest: np.ndarray) -> None:
-            list(pool.map(lambda j: read_source(sources[j], off, dest[j]),
-                          range(DATA_SHARDS)))
+            list(pool.map(lambda j: read_source(local_srcs[j], off, dest[j]),
+                          range(len(local_srcs))))
+            if use_partial:
+                remote_term(off, dest[len(local_srcs):])
 
         def write_out(off: int, _src, rebuilt: np.ndarray) -> None:
             for row, sid in zip(rebuilt, missing):
@@ -526,11 +634,11 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
                 progress(off + len(rebuilt[0]))
 
         _stream_apply(
-            codec, rows, range(0, shard_size, slice_size),
+            codec, matrix, range(0, shard_size, slice_size),
             lambda off: min(slice_size, shard_size - off),
             read_into, write_out, slice_size,
             None if service is None
-            else lambda data: service.submit_apply(rows, data))
+            else lambda data: service.submit_apply(matrix, data))
         ok = True
     finally:
         if pool is not None:

@@ -12,9 +12,11 @@ remote interval is decoded on the card by the hand-written kernel
 (ReedSolomonTorch.reconstruct, one launch of the loss set's decode plan at
 the interval's width).  ``codec_name="cpu"`` decodes on the host SIMD codec,
 and with ``SEAWEEDFS_TPU_EC_SERVICE_DEGRADED=1`` concurrent decodes share
-the host-mode codec service, which runs the same ``cpu`` codec.  Not
-ported yet: the partial-sum degraded read (`partial_client`, reference
-volume.py:774-818), which needs storage/ec/partial.py.
+the host-mode codec service, which runs the same ``cpu`` codec.  With a
+`partial_client` (storage/ec/partial.py, set by a volume server) an
+interval with fewer than DATA_SHARDS local siblings is decoded from one
+pre-combined partial per rack, its local term on the host SIMD codec as in
+the reference; any failure falls back to the gather above.
 """
 
 from __future__ import annotations
@@ -29,7 +31,11 @@ import numpy as np
 
 from ...ops import codec_service, gf256
 from ...ops.codec import get_codec
-from ...stats.metrics import EC_PREADV_BATCHES, EC_SINGLEFLIGHT
+from ...stats.metrics import (
+    EC_PARTIAL_FALLBACK,
+    EC_PREADV_BATCHES,
+    EC_SINGLEFLIGHT,
+)
 from ...util.chunk_cache import IntervalCache
 from .. import idx as idx_mod
 from .. import types as t
@@ -157,6 +163,19 @@ class EcVolumeShard:
 # fetch_fn(shard_id, offset, length) -> bytes | None  (e.g. a gRPC client)
 FetchFn = Callable[[int, int, int], "bytes | None"]
 
+_HOST_CODEC = None
+
+
+def _host_codec():
+    """Shared host SIMD codec for the partial-decode local term — the
+    volume's own codec may run on the card, and a per-needle degraded
+    read must never pay a device dispatch."""
+    global _HOST_CODEC
+    if _HOST_CODEC is None:
+        _HOST_CODEC = get_codec("cpu")
+    return _HOST_CODEC
+
+
 _SF_LEADER = EC_SINGLEFLIGHT.labels("leader")
 _SF_COALESCED = EC_SINGLEFLIGHT.labels("coalesced")
 
@@ -232,6 +251,11 @@ class EcVolume:
         # older layout must never be served
         self.mount_seq = 0
         self.remote_fetch: FetchFn | None = None
+        # partial-sum repair client (storage.ec.partial): degraded reads
+        # pull ONE coefficient-weighted partial per rack from the
+        # surviving holders instead of every raw sibling interval; any
+        # failure falls back to the remote_fetch gather
+        self.partial_client = None
         # corruption_hook(volume_id, shard_id): the read path calls it
         # when a needle CRC failure is traced to a local shard interval
         # (the scrubber's quarantine + confirm queue on a volume server)
@@ -711,6 +735,15 @@ class EcVolume:
             for sid in range(TOTAL_SHARDS)
             if sid != shard_id and shards[sid] is None
         ]
+        if have < DATA_SHARDS and self.partial_client is not None:
+            # partial-sum degraded read: remote survivors send their
+            # coefficient-weighted rows pre-XOR'd per rack (one 1 x W
+            # partial per rack in) instead of 10 raw intervals
+            try:
+                return self._partial_decode(
+                    shard_id, offset, length, shards), token
+            except Exception:  # noqa: BLE001 — optimization, never a 5xx
+                EC_PARTIAL_FALLBACK.labels("degraded").inc()
         if have < DATA_SHARDS and self.remote_fetch is not None and missing:
             def fetch(sid: int) -> "bytes | None":
                 try:
@@ -750,3 +783,48 @@ class EcVolume:
         # a codec on the card: one launch of the loss set's decode plan
         rebuilt = self.codec.reconstruct(shards)
         return np.asarray(rebuilt[shard_id], dtype=np.uint8).tobytes(), token
+
+    def _partial_decode(
+        self, shard_id: int, offset: int, length: int, shards: list
+    ) -> bytes:
+        """Reconstruct one lost interval via the partial-sum protocol:
+        the decode-plan row for `shard_id` splits by source locality —
+        local shards' columns are applied here on the host codec (a
+        per-needle read must never pay a device dispatch), remote columns
+        ship to the holders and return as one pre-XOR'd partial per
+        rack.  GF linearity makes the bytes identical to the gathered
+        decode; any failure raises and the caller falls back to it."""
+        client = self.partial_client
+        local_rows = {sid: row for sid, row in enumerate(shards)
+                      if row is not None}
+        holders = {sid: h for sid, h in client.remote_shards().items()
+                   if sid != shard_id and sid not in local_rows}
+        need = DATA_SHARDS - len(local_rows)
+        order = client.order(holders)
+        if len(order) < need:
+            raise IOError(
+                f"shard {shard_id} interval: only "
+                f"{len(local_rows) + len(order)} sources for partial decode")
+        remote_srcs = order[:need]
+        local_srcs = sorted(local_rows)
+        sources = local_srcs + remote_srcs
+        plan = gf256.decode_plan_for(
+            np.asarray(self.codec.matrix), DATA_SHARDS, sources, (shard_id,))
+        coef = {s: plan[:, len(local_srcs) + j]
+                for j, s in enumerate(remote_srcs)}
+        part = client.fetch(coef, 1, offset, length)
+        if local_srcs:
+            local_plan = np.ascontiguousarray(plan[:, :len(local_srcs)])
+            rows_in = [np.asarray(local_rows[s], dtype=np.uint8)
+                       for s in local_srcs]
+            svc = codec_service.service_for_degraded()
+            if svc is not None:
+                out = np.asarray(
+                    svc.submit_apply(local_plan, rows_in).result(),
+                    dtype=np.uint8)
+            else:
+                out = np.asarray(
+                    _host_codec().apply_rows(local_plan, rows_in),
+                    dtype=np.uint8)
+            part = np.bitwise_xor(part, out.reshape(part.shape))
+        return part[0].tobytes()

@@ -28,9 +28,10 @@ Findings are quarantined (bounded per-volume suspect sets the read path
 also feeds) and ride the next heartbeat to the master, whose maintenance
 repair pass re-copies corrupt replicas / rebuilds corrupt shards.
 
-Not ported yet: the master-pushed cluster background budget
-(`set_shared_rate`, `throttle_background`), which arrives with the volume
-server's heartbeat.
+A volume server feeds the master-pushed cluster background budget
+(HeartbeatResponse.lifecycle_rate_mbps) to `set_shared_rate`, and charges
+the partial-repair bytes it serves to the same bucket through
+`throttle_background`.
 
 One difference from the reference, on purpose: its parity check runs on
 the host SIMD codec whenever `service_for_codec` answers None, which
@@ -217,6 +218,13 @@ class Scrubber:
         # unthrottled (a 1-byte/s floor would wedge them instead)
         self._default_rate = (rate_mbps * (1 << 20) if rate_mbps > 0
                               else float(1 << 40))
+        # the node's own configured rate, kept so a withdrawn cluster
+        # budget (master push of 0) can restore it
+        self._local_rate = self._default_rate
+        # flips True while the master pushes a cluster background budget
+        # (HeartbeatResponse.lifecycle_rate_mbps); gates whether other
+        # background traffic charges the shared bucket
+        self._shared_budget = False
         self.bucket = TokenBucket(self._default_rate)
         self.quarantine = Quarantine()
         self._stop = threading.Event()
@@ -248,6 +256,41 @@ class Scrubber:
     @property
     def enabled(self) -> bool:
         return self.rate_mbps > 0
+
+    def set_shared_rate(self, rate_mbps: float) -> None:
+        """Adopt (or drop) the master-pushed cluster background-I/O
+        budget (HeartbeatResponse.lifecycle_rate_mbps): scrub reads AND
+        other background traffic drain this ONE bucket, so their combined
+        rate on a node stays within the budget.  Overrides the local
+        SEAWEEDFS_TPU_SCRUB_RATE_MBPS default while pushed; a push of 0
+        (master unthrottled / flag removed) restores the local default
+        instead of latching the stale budget forever."""
+        if rate_mbps <= 0:
+            if self._shared_budget:
+                glog.info("scrub: cluster background budget withdrawn; "
+                          "restoring local default %.1f MB/s",
+                          self._local_rate / (1 << 20))
+                self._shared_budget = False
+                self._default_rate = self._local_rate
+                self.bucket.set_rate(self._local_rate)
+            return
+        rate = rate_mbps * (1 << 20)
+        if rate == self._default_rate and self._shared_budget:
+            return
+        glog.info("scrub: adopting cluster background budget %.1f MB/s "
+                  "(was %.1f)", rate_mbps, self._default_rate / (1 << 20))
+        self._default_rate = rate
+        self._shared_budget = True
+        self.bucket.set_rate(rate)
+
+    def throttle_background(self, n: int) -> None:
+        """Charge `n` bytes of non-scrub background I/O (partial-repair
+        serving, tier uploads) to the shared bucket — only once the
+        master has pushed an explicit cluster budget; without one they
+        stay unthrottled (the scrub default rate is sized for scrub
+        reads, not for moving whole volumes)."""
+        if n > 0 and self._shared_budget:
+            self.bucket.consume(n, stop=self._stop)
 
     def start(self) -> None:
         if not self.enabled or self._thread is not None:

@@ -1,9 +1,11 @@
 """Store: the per-volume-server aggregate over disk locations — the port's
 copy of seaweedfs_tpu/storage/store.py.
 
-Routes needle operations by volume id, manages EC volumes/shards, and keeps
-the incremental (delta) volume and EC registrations a volume server sends
-its master.  Reference: weed/storage/store.go + store_ec.go.
+Routes needle operations by volume id, manages EC volumes/shards, and builds
+master heartbeats with full + incremental (delta) volume and EC
+registrations, as master.proto messages from the port's private descriptor
+pool (seaweedfs_tpu_torch/pb).  Reference: weed/storage/store.go +
+store_ec.go.
 
 Differences from the reference, on purpose:
   * the codec defaults to ``cuda``, and a ``cuda`` store works only on the
@@ -12,23 +14,19 @@ Differences from the reference, on purpose:
     `effective_codec`, logs "codec unreachable" and goes on, and its
     codec then switches itself to the host).  ``auto`` is resolved once,
     when the store is made, and the choice is logged;
-  * the delta lists hold the port's own small records, with the field
-    names of master.proto's VolumeShortInformationMessage and
-    VolumeEcShardInformationMessage: a generated master_pb2 in this
-    package would register `master.proto` a second time in protobuf's
-    default pool, next to the reference's.  The heartbeat itself
-    (`collect_heartbeat`, `drain_deltas`) belongs to the volume-server
-    slice, which gives the port's messages a private DescriptorPool;
-  * no partial-sum repair client (storage/ec/partial.py is not ported).
+  * `rebuild_ec_shards` drops the cached holder map of the volume's
+    fetcher as well as the partial client's (the reference drops only the
+    latter, and a map an earlier degraded read negative-cached can then
+    hide a holder that mounted since).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from dataclasses import dataclass
 
 from ..ops.codec import resolve_codec_name
+from ..pb import master_pb2
 from ..util import glog
 from .disk_location import DiskLocation
 from .ec import constants as ecc
@@ -52,40 +50,6 @@ from .super_block import CURRENT_VERSION, SuperBlock
 from .ttl import TTL
 from .vacuum import commit_compact, compact
 from .vif import save_volume_info
-
-
-@dataclass
-class VolumeShortInformationMessage:
-    """A volume registered or removed since the last heartbeat."""
-
-    id: int
-    collection: str = ""
-    replica_placement: int = 0
-    version: int = 0
-    ttl: int = 0
-    disk_type: str = ""
-
-    @classmethod
-    def of(cls, v) -> "VolumeShortInformationMessage":
-        return cls(
-            id=v.volume_id,
-            collection=v.collection,
-            replica_placement=v.super_block.replica_placement.to_byte(),
-            version=v.version,
-            ttl=v.super_block.ttl.to_uint32(),
-            disk_type=getattr(v, "disk_type", ""),
-        )
-
-
-@dataclass
-class VolumeEcShardInformationMessage:
-    """EC shards mounted or unmounted since the last heartbeat."""
-
-    id: int
-    collection: str = ""
-    ec_index_bits: int = 0
-    disk_type: str = ""
-    shard_size: int = 0
 
 
 class Store:
@@ -128,14 +92,18 @@ class Store:
         self.max_volume_counts = max_volume_counts
         self._lock = threading.RLock()
         # delta channels to the master (drained into heartbeats)
-        self.new_volumes: list[VolumeShortInformationMessage] = []
-        self.deleted_volumes: list[VolumeShortInformationMessage] = []
-        self.new_ec_shards: list[VolumeEcShardInformationMessage] = []
-        self.deleted_ec_shards: list[VolumeEcShardInformationMessage] = []
+        self.new_volumes: list[master_pb2.VolumeShortInformationMessage] = []
+        self.deleted_volumes: list[master_pb2.VolumeShortInformationMessage] = []
+        self.new_ec_shards: list[master_pb2.VolumeEcShardInformationMessage] = []
+        self.deleted_ec_shards: list[master_pb2.VolumeEcShardInformationMessage] = []
         self.volume_size_limit = 30 * 1024 * 1024 * 1024
         # vid -> FetchFn factory, injected by the volume server so EcVolumes
         # can read remote shards (store_ec.go's readRemoteEcShardInterval)
         self.ec_fetcher_factory = None
+        # vid -> PartialRepairClient factory (storage/ec/partial.py):
+        # rebuilds and degraded reads pull coefficient-weighted partial
+        # sums from the sources instead of raw shard intervals
+        self.partial_client_factory = None
         # self-healing integrity plane (storage/scrub.py): the volume
         # server installs its Scrubber here; the read path feeds CRC
         # failures into its quarantine + confirm queue
@@ -215,14 +183,14 @@ class Store:
             )
             v = loc.add_volume(vid, collection, super_block=sb)
             save_volume_info(v.file_name() + ".vif", v.version)
-            self.new_volumes.append(VolumeShortInformationMessage.of(v))
+            self.new_volumes.append(self._short_info(v))
 
     def delete_volume(self, vid: int) -> bool:
         with self._lock:
             for loc in self.locations:
                 v = loc.volumes.get(vid)
                 if v is not None:
-                    info = VolumeShortInformationMessage.of(v)
+                    info = self._short_info(v)
                     if loc.delete_volume(vid):
                         if self.needle_cache is not None:
                             self.needle_cache.drop_volume(vid)
@@ -237,7 +205,7 @@ class Store:
             for loc in self.locations:
                 v = loc.volumes.get(vid)
                 if v is not None:
-                    info = VolumeShortInformationMessage.of(v)
+                    info = self._short_info(v)
                     if loc.unmount_volume(vid):
                         if self.needle_cache is not None:
                             self.needle_cache.drop_volume(vid)
@@ -262,8 +230,7 @@ class Store:
                         continue
                     if fvid == vid:
                         v = loc.add_volume(vid, collection)
-                        self.new_volumes.append(
-                            VolumeShortInformationMessage.of(v))
+                        self.new_volumes.append(self._short_info(v))
                         if self.scrubber is not None:
                             # a (re)mount replaced the volume's bytes —
                             # a repair's VolumeCopy lands here; stale
@@ -527,28 +494,49 @@ class Store:
 
     def rebuild_ec_shards(self, vid: int, collection: str,
                           codec_name: str | None = None,
+                          partial=None,
                           shard_size: int | None = None) -> list[int]:
         """Rebuild locally-missing shard files.  A node holding fewer
         than DATA_SHARDS local shards streams the missing SOURCE
-        intervals from peers through the same shard-read fetcher the
-        degraded-read path uses, instead of failing.  `shard_size`
-        overrides the volume's own (the size hint of a master's plan).
-        Runs on the codec asked for, or raises."""
+        intervals from peers through the same gRPC shard-read fetcher
+        the degraded-read path uses, instead of failing, or pulls
+        partial sums through its partial-repair client.
+        `partial`/`shard_size` override the per-volume defaults — a mass
+        rebuild hands every volume a BatchedPartialClient on one shared
+        session plus the size hint from the master's plan.  Runs on the
+        codec asked for, or raises."""
         base = self._ec_base(vid, collection)
         remote_fetch = None
         ev = self.find_ec_volume(vid)
         if ev is not None:
             remote_fetch = ev.remote_fetch
+            if partial is None:
+                partial = ev.partial_client
             if shard_size is None:
                 try:
                     shard_size = ev.shard_size or None
                 except (OSError, IOError):
                     shard_size = None
-        elif self.ec_fetcher_factory is not None:
-            remote_fetch = self.ec_fetcher_factory(vid)
+        else:
+            if self.ec_fetcher_factory is not None:
+                remote_fetch = self.ec_fetcher_factory(vid)
+            if partial is None and self.partial_client_factory is not None:
+                partial = self.partial_client_factory(vid)
+        # a rebuild decides which shards are GLOBALLY missing from the
+        # holder map — it must never trust a TTL-cached view that
+        # predates the loss (or the repair becomes a no-op), nor probe
+        # sources through a fetcher whose map is a stale negative entry
+        # (an empty lookup a degraded read cached moments before a
+        # holder mounted would sink the rebuild; the reference drops
+        # only the partial client's map)
+        for hook in (partial, remote_fetch):
+            invalidate = getattr(hook, "invalidate", None)
+            if invalidate is not None:
+                invalidate()
         return rebuild_ec_files(
             base, codec_name=codec_name or self.codec_name,
-            remote_fetch=remote_fetch, shard_size=shard_size)
+            remote_fetch=remote_fetch, shard_size=shard_size,
+            partial=partial)
 
     def _ec_base(self, vid: int, collection: str = "") -> str:
         for loc in self.locations:
@@ -563,6 +551,18 @@ class Store:
                 return base
         raise KeyError(f"ec volume {vid} not found")
 
+    def ec_base_for_rebuild(self, vid: int, collection: str = "") -> str:
+        """Base path for a mass-rebuild target: the existing EC base when
+        this node already holds any piece of the volume, else a fresh
+        base on the freest location (a spread rebuild target may hold
+        NOTHING of the volume yet — the caller pulls .ecx/.ecj/.vif from
+        a surviving holder before decoding into it)."""
+        try:
+            return self._ec_base(vid, collection)
+        except KeyError:
+            loc = self.has_free_location() or self.locations[0]
+            return loc.base_name(vid, collection)
+
     def mount_ec_shards(self, vid: int, collection: str,
                         shard_ids: list[int]) -> None:
         with self._lock:
@@ -573,6 +573,8 @@ class Store:
                 ev.collection = collection
                 if self.ec_fetcher_factory is not None:
                     ev.remote_fetch = self.ec_fetcher_factory(vid)
+                if self.partial_client_factory is not None:
+                    ev.partial_client = self.partial_client_factory(vid)
                 if self.scrubber is not None:
                     ev.corruption_hook = self.scrubber.suspect_shard
                 # keep only the requested shards mounted
@@ -592,7 +594,7 @@ class Store:
             except (OSError, IOError):
                 shard_size = 0
             self.new_ec_shards.append(
-                VolumeEcShardInformationMessage(
+                master_pb2.VolumeEcShardInformationMessage(
                     id=vid,
                     collection=collection,
                     ec_index_bits=int(_bits(shard_ids)),
@@ -615,7 +617,7 @@ class Store:
             for sid in shard_ids:
                 ev.delete_shard(sid)
             self.deleted_ec_shards.append(
-                VolumeEcShardInformationMessage(
+                master_pb2.VolumeEcShardInformationMessage(
                     id=vid,
                     collection=getattr(ev, "collection", ""),
                     ec_index_bits=int(_bits(shard_ids)),
@@ -663,6 +665,96 @@ class Store:
         if ev is not None:
             self.unmount_ec_shards(vid, list(ev.shards))
         self.mount_volume(vid)
+
+    # -- heartbeat --------------------------------------------------------
+
+    def _short_info(self, v) -> master_pb2.VolumeShortInformationMessage:
+        return master_pb2.VolumeShortInformationMessage(
+            id=v.volume_id,
+            collection=v.collection,
+            replica_placement=v.super_block.replica_placement.to_byte(),
+            version=v.version,
+            ttl=v.super_block.ttl.to_uint32(),
+            disk_type=getattr(v, "disk_type", ""),
+        )
+
+    def collect_heartbeat(self) -> master_pb2.Heartbeat:
+        # reconcile writability with the watermarks FIRST, so this
+        # beat's read_only bits already reflect a just-filled disk
+        disk_snaps = self.apply_disk_health()
+        hb = master_pb2.Heartbeat(
+            ip=self.ip,
+            port=self.port,
+            public_url=self.public_url,
+            data_center=self.data_center,
+            rack=self.rack,
+        )
+        max_key = 0
+        for loc in self.locations:
+            for v in loc.volumes.values():
+                max_key = max(max_key, v.needle_map.maximum_key)
+                hb.volumes.add(
+                    id=v.volume_id,
+                    size=v.content_size,
+                    collection=v.collection,
+                    file_count=v.file_count(),
+                    delete_count=v.needle_map.deleted_count,
+                    deleted_byte_count=v.needle_map.deleted_bytes,
+                    read_only=v.read_only,
+                    replica_placement=v.super_block.replica_placement.to_byte(),
+                    version=v.version,
+                    ttl=v.super_block.ttl.to_uint32(),
+                    compact_revision=v.super_block.compaction_revision,
+                    modified_at_second=v.last_modified_second,
+                    disk_type=loc.disk_type,
+                )
+            for vid, ev in loc.ec_volumes.items():
+                try:
+                    shard_size = ev.shard_size
+                except (OSError, IOError):
+                    shard_size = 0
+                hb.ec_shards.add(
+                    id=vid,
+                    collection=getattr(ev, "collection", ""),
+                    ec_index_bits=int(_bits(ev.shard_ids())),
+                    # bytes-at-risk hint: the master's mass-repair
+                    # orchestrator ranks exposure ties by size and sizes
+                    # rebuild streams without per-volume probe rpcs
+                    shard_size=shard_size,
+                )
+        hb.max_file_key = max_key
+        # per-disk health rides every full beat: free/total bytes + the
+        # state machine verdict — the master gates assignment, triggers
+        # emergency vacuum (low_space) and proactive evacuation (failing)
+        for snap in disk_snaps:
+            hb.disk_health.add(
+                dir=snap["dir"],
+                state=snap["state"],
+                free_bytes=snap["free_bytes"],
+                total_bytes=snap["total_bytes"],
+            )
+        for k, c in self.max_volume_counts.items():
+            hb.max_volume_counts[k] = c
+        if not hb.volumes:
+            hb.has_no_volumes = True
+        if not hb.ec_shards:
+            hb.has_no_ec_shards = True
+        return hb
+
+    def drain_deltas(self):
+        """Pop pending incremental registrations for the heartbeat stream."""
+        with self._lock:
+            out = (
+                self.new_volumes,
+                self.deleted_volumes,
+                self.new_ec_shards,
+                self.deleted_ec_shards,
+            )
+            self.new_volumes = []
+            self.deleted_volumes = []
+            self.new_ec_shards = []
+            self.deleted_ec_shards = []
+            return out
 
     # -- status -----------------------------------------------------------
 

@@ -10,9 +10,11 @@ Usage:
         ...  # recorded only inside an active trace
 
 Spans carry the same names and attributes as the reference's, so a trace
-of the port reads like one of the reference.  Not ported: W3C traceparent
-propagation, the /debug/traces rendering and the log lines' trace ids
-(the reference's glog context provider); they belong to the servers.
+of the port reads like one of the reference.  W3C `traceparent`
+propagation (`traceparent_header`, `remote_context`) carries a caller's
+context across the gRPC hops of pb/rpc.py.  Not ported: the
+/debug/traces rendering and the log lines' trace ids (the reference's
+glog context provider); they belong to the HTTP side.
 """
 
 from __future__ import annotations
@@ -141,3 +143,65 @@ def child_span(name: str, tracer: Tracer = TRACER, **attrs):
         return
     with start_span(name, tracer=tracer, **attrs) as span:
         yield span
+
+
+# -- W3C traceparent ---------------------------------------------------------
+
+TRACEPARENT = "traceparent"
+
+
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    return f"00-{trace_id}-{span_id}-01"
+
+
+def traceparent_header() -> "str | None":
+    """Header value for the active context, or None outside any span."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    return format_traceparent(*ctx)
+
+
+_HEX = frozenset("0123456789abcdef")
+
+
+def _is_hex(s: str) -> bool:
+    # strict per-character check: int(s, 16) would admit '+', '-' and
+    # '_' separators and re-propagate a spec-invalid id downstream
+    return bool(s) and set(s) <= _HEX
+
+
+def parse_traceparent(value: "str | None") -> "tuple[str, str] | None":
+    """-> (trace_id, span_id) or None on anything malformed."""
+    if not value:
+        return None
+    parts = value.strip().lower().split("-")
+    if len(parts) < 4 or len(parts[0]) != 2 or len(parts[1]) != 32 \
+            or len(parts[2]) != 16:
+        return None
+    version, trace_id, span_id = parts[0], parts[1], parts[2]
+    if not (_is_hex(version) and _is_hex(trace_id) and _is_hex(span_id)):
+        return None
+    if version == "ff":  # forbidden version per spec
+        return None
+    if set(trace_id) == {"0"} or set(span_id) == {"0"}:
+        return None  # all-zero ids are invalid per spec
+    return trace_id, span_id
+
+
+@contextmanager
+def remote_context(traceparent: "str | None"):
+    """Adopt a remote caller's context for the duration of the block.
+
+    With a malformed/absent header this is a no-op: spans opened inside
+    start a fresh trace, exactly like an edge request."""
+    parsed = parse_traceparent(traceparent)
+    if parsed is None:
+        yield None
+        return
+    stack = _stack()
+    stack.append(parsed)
+    try:
+        yield parsed
+    finally:
+        stack.pop()

@@ -1,10 +1,11 @@
 """Offline volume tools: operate on `.dat`/`.idx` without a server — the
 port's copy of `fix_index` from seaweedfs_tpu/tools/offline.py, which the
-scrubber's index repair calls.
+scrubber's index repair calls, and of `tail_watermark_ns`, which the
+volume server's tail receiver calls.
 
 Reference: `weed fix` rebuilds a corrupted `.idx` by scanning the `.dat`
-(weed/command/fix.go:22).  Not ported yet: `export_volume` and
-`tail_watermark_ns` (they belong to the CLI and the servers).
+(weed/command/fix.go:22).  Not ported yet: `export_volume` (it belongs to
+the CLI).
 """
 
 from __future__ import annotations
@@ -75,3 +76,13 @@ def fix_index(directory: str, volume_id: int, collection: str = "") -> int:
     w.close()
     os.replace(tmp, idx)
     return len(entries)
+
+
+def tail_watermark_ns(dat_path: str) -> int:
+    """Max append_at_ns across a .dat (incl. tombstones) — the since_ns
+    resume point for tail subscriptions."""
+    last = 0
+    if os.path.exists(dat_path):
+        for _off, n in scan_dat_file(dat_path):
+            last = max(last, n.append_at_ns)
+    return last

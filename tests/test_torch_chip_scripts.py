@@ -204,3 +204,61 @@ def test_store_lifecycle_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
     assert paths["gf_matmul"]["store_reads"] == degraded["launches"] \
         == degraded["degraded_intervals"] > 0
     assert rows["store_ec_decode"]["dat_sha256_equal"]
+
+
+def test_volume_server_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
+                                                   capsys):
+    """chip_smoke.py's volume_server phase on a 16 MiB volume on this host:
+    two port VolumeServers on the `cuda` codec, monkeypatched to the
+    kernel's plain version (`torch_cpu`) behind a wrapper that counts each
+    call as a launch, and the script's MiniMaster.  Every check of the
+    phase passes; degraded reads, the rebuild, the partial rebuild and its
+    fallback launch, healthy reads and the decode do not."""
+    import chip_smoke
+    from helpers import free_port
+    from seaweedfs_tpu_torch.ops import codec as pcodec
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda, rs_torch
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+    plain = rs_torch.gf_apply
+
+    def counted(matrix, data):
+        out = plain(matrix, data)
+        rs_cuda.gf_apply.launches += 1
+        return out
+
+    monkeypatch.setitem(pcodec._TORCH_DEVICES, "cuda", "cpu")
+    monkeypatch.setattr(rs_torch, "gf_apply", counted)
+    monkeypatch.setattr(rs_cuda.gf_apply, "launches", 0)
+    monkeypatch.setattr(rs_cuda.gf_apply_batched, "launches", 0)
+    work = tmp_path / "work"
+    work.mkdir()
+    chip_smoke.make_volume(str(work / "1"), 16 << 20, seed=3, device="cpu")
+    out = chip_smoke.phase_volume_server(
+        rs_cuda, gf256, enc, metrics, str(work), seed=0, power="test card",
+        reduced=[], device="cpu", free_port=free_port)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {f"volume_server_{s}" for s in (
+        "generate", "mount_heartbeat", "reads", "rebuild", "partial_rebuild",
+        "partial_fallback", "scrub", "decode", "summary")}
+    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    paths = out["launches_by_path"]
+    assert set(paths["gf_matmul"]) == {
+        "volume_server_generate", "volume_server_reads",
+        "volume_server_rebuild", "volume_server_partial_rebuild",
+        "volume_server_partial_fallback", "volume_server_scrub"}
+    assert paths["gf_matmul_batched"] == {}
+    healthy, degraded = rows["volume_server_reads"]["passes"]
+    assert not any(healthy["launches"].values())
+    assert degraded["launches"]["gf_matmul"] >= degraded[
+        "degraded_intervals"] > 0
+    partial = rows["volume_server_partial_rebuild"]
+    assert partial["bytes_in"] < partial["full_fetch_bytes"]
+    fallback = rows["volume_server_partial_fallback"]
+    assert fallback["fallbacks"] == 1 and fallback["host_apply_rows"] == 0
+    assert rows["volume_server_decode"]["dat_sha256_equal"]
+    assert not os.path.exists(work / "server_b")

@@ -134,17 +134,17 @@ def test_instrumented_codec_records_op_impl_bytes():
         broken[2] = broken[11] = None
         rec = codec.reconstruct(broken)
         assert np.array_equal(np.asarray(rec[2]), shards[2])
-        if name == "cpu":
-            codec.apply_rows(np.ones((1, 10), np.uint8), shards[:10])
-        for op in ("encode", "reconstruct"):
+        applied = codec.apply_rows(np.ones((1, 10), np.uint8), shards[:10])
+        assert np.array_equal(np.asarray(applied[0]),
+                              np.bitwise_xor.reduce(np.stack(shards[:10])))
+        for op in ("encode", "reconstruct", "apply_rows"):
             assert EC_OP_HISTOGRAM.labels(op, name).count == counts[op] + 1
         assert EC_BYTES_HISTOGRAM.labels("encode", name).total \
             == sums["encode"] + 14 * 512
         assert EC_BYTES_HISTOGRAM.labels("reconstruct", name).total \
             == sums["reconstruct"] + 12 * 512
-        if name == "cpu":
-            assert EC_BYTES_HISTOGRAM.labels("apply_rows", name).total \
-                == sums["apply_rows"] + 10 * 512
+        assert EC_BYTES_HISTOGRAM.labels("apply_rows", name).total \
+            == sums["apply_rows"] + 10 * 512
         # the untimed attributes pass through
         assert codec.data_shards == 10 and codec.matrix.shape == (14, 10)
         text = REGISTRY.render(["seaweedfs_ec_op_"])

@@ -114,6 +114,24 @@ Phases, each printing one JSON line:
      reads/s with p50/p99) beside the card's name and power limit, and
      its launches, counts zeroed just before it and read just after; on
      the card the phase must launch both kernels;
+  4e. http_plane, on 4d's two servers (A also with a metrics port and a
+     TCP port, both requiring write JWTs), each step at the point of 4d
+     where the volume is in the state it needs, each on its own line with
+     its launches: (h1) after step 3, the 4096 needles by HTTP GET from 16
+     threads on keep-alive connections, each body and Etag equal to its
+     .dat record (no launch), then /debug/canary/ec with the probed
+     needle's shard dropped (its decode's launches, exactly); (h2) after
+     step 4, the same GETs with .ec00-.ec03 lost and the caches cleared (a
+     gf_matmul launch per degraded interval) and 64 HEADs; (h3) after step
+     8, the GETs on the decoded volume, the sendfile counter moving by the
+     bytes served, then 64 Range GETs on the fallback path; (h4) volume 2
+     (replication 001) on A and B, 1 GiB of seeded needles (256 JSON-lines
+     ones, then 1 B..256 KiB) POSTed to A by 16 threads with write JWTs and
+     fanned out to B, a POST without a token refused 401, every needle read
+     back equal from B, 16 DELETEs at A then 404 on both; (h5) 64 needles
+     put, got and deleted over A's TCP port; (h6) Query over the 256
+     JSON-lines needles, equal to a plain filter; (h7) /metrics on A's
+     metrics port lists the HTTP families, /debug/traces holds GET spans;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -140,11 +158,11 @@ quick check: `--only-ec-reads --volume-gib 0.5`), and prints no kernels
 line; `--only-store` runs phases 1-3 and 4c alone, at
 `--store-volume-gib` (a quick check: `--only-store --store-volume-gib
 0.5`), and prints no kernels line; `--only-volume-server` runs phases 1-2
-and 4d alone, on a volume of `--store-volume-gib` written for it (a
+and 4d with 4e alone, on a volume of `--store-volume-gib` written for it (a
 quick check: `--only-volume-server --store-volume-gib 0.5`), and prints
-no kernels line.  Exits non-zero, printing no result,
-without a CUDA card or without the package beside this script.  Data comes from --seed; nothing is
-downloaded.
+no kernels line.  Exits non-zero, printing no result, without a CUDA card
+or without the package beside this script.  Data comes from --seed;
+nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -1391,8 +1409,9 @@ def free_port_pair() -> int:
 class MiniMaster:
     """A master servicer built from the port's own rpc declarations, just
     enough for volume servers: `SendHeartbeat` records every beat and keeps
-    each node's EC shard bits (full beats replace them, deltas add and
-    remove), and `LookupEcVolume` answers from them, as the reference
+    each node's volume ids and EC shard bits (full beats replace them,
+    deltas add and remove); `LookupVolume` (read redirects, replica
+    fan-out) and `LookupEcVolume` answer from them, as the reference
     master's topology does.  Every other master rpc answers
     UNIMPLEMENTED."""
 
@@ -1403,7 +1422,8 @@ class MiniMaster:
         self._pb = master_pb2
         self._cond = threading.Condition()
         self.beats: list = []
-        self.nodes: dict[str, dict] = {}  # url -> {"rack", "dc", "ec"}
+        # url -> {"rack", "dc", "volumes": {vid}, "ec": {vid: bits}}
+        self.nodes: dict[str, dict] = {}
         self._server = rpclib.serve([(rpclib.MASTER, self)], grpc_port,
                                     host="127.0.0.1")
 
@@ -1416,7 +1436,11 @@ class MiniMaster:
             with self._cond:
                 self.beats.append(hb)
                 node = self.nodes.setdefault(
-                    url, {"rack": "", "dc": "", "ec": {}})
+                    url, {"rack": "", "dc": "", "volumes": set(), "ec": {}})
+                if hb.volumes or hb.has_no_volumes:  # a full beat
+                    node["volumes"] = {v.id for v in hb.volumes}
+                node["volumes"] |= {v.id for v in hb.new_volumes}
+                node["volumes"] -= {v.id for v in hb.deleted_volumes}
                 if hb.ec_shards or hb.has_no_ec_shards:  # a full beat
                     node["rack"], node["dc"] = hb.rack, hb.data_center
                     node["ec"] = {e.id: e.ec_index_bits
@@ -1429,6 +1453,21 @@ class MiniMaster:
                         & ~e.ec_index_bits
                 self._cond.notify_all()
             yield self._pb.HeartbeatResponse()
+
+    def LookupVolume(self, request, context):
+        resp = self._pb.LookupVolumeResponse()
+        with self._cond:
+            nodes = sorted(self.nodes.items())
+        for vof in request.volume_or_file_ids:
+            entry = resp.volume_id_locations.add(volume_or_file_id=vof)
+            vid = int(vof.split(",", 1)[0])
+            for url, n in nodes:
+                if vid in n["volumes"]:
+                    entry.locations.add(url=url, public_url=url,
+                                        data_center=n["dc"], rack=n["rack"])
+            if not entry.locations:
+                entry.error = f"volume {vid} not found"
+        return resp
 
     def LookupEcVolume(self, request, context):
         import grpc
@@ -1459,6 +1498,9 @@ class MiniMaster:
     def bits(self, url: str, vid: int) -> int:
         return self.nodes.get(url, {"ec": {}})["ec"].get(vid, 0)
 
+    def holds(self, url: str, vid: int) -> bool:
+        return vid in self.nodes.get(url, {"volumes": ()})["volumes"]
+
 
 def _bits_of(shards) -> int:
     return sum(1 << s for s in shards)
@@ -1466,9 +1508,10 @@ def _bits_of(shards) -> int:
 
 def _needle_records(base: str, seed: int) -> tuple[int, dict]:
     """EC_READ_SAMPLE seeded keys of the volume's .idx, each with its .dat
-    record's offset, length, sha256, cookie, data length and CRC (the port's
-    needle parser verifies that CRC) — what the reads over the wire are held
-    against once the .dat is gone.  -> (.dat size, {key: record})."""
+    record's offset, length, sha256, its data's sha256, cookie, data length
+    and CRC (the port's needle parser verifies that CRC) — what the reads
+    over the wire are held against once the .dat is gone.  -> (.dat size,
+    {key: record})."""
     from seaweedfs_tpu_torch.storage.needle import Needle, actual_size
 
     raw = np.fromfile(base + ".idx", dtype=[("k", ">u8"), ("o", ">u4"),
@@ -1487,6 +1530,7 @@ def _needle_records(base: str, seed: int) -> tuple[int, dict]:
             out[int(e["k"])] = {
                 "offset": off, "length": n,
                 "sha256": hashlib.sha256(rec).hexdigest(),
+                "data_sha256": hashlib.sha256(nd.data).hexdigest(),
                 "cookie": nd.cookie, "size": len(nd.data),
                 "crc": nd.checksum & 0xFFFFFFFF}
     return os.path.getsize(base + ".dat"), out
@@ -1505,10 +1549,328 @@ def _latency_row(name: str, lat: list, wall: float, **extra) -> dict:
             "p99_ms": float(np.percentile(lat, 99)) * 1e3, **extra}
 
 
+# -- phase 4e: http_plane ----------------------------------------------------
+
+HTTP_WRITE_BYTES = GIB  # h4: seeded needles POSTed to A, replicated to B
+HTTP_JSON_NEEDLES = 256  # h4's first needles are JSON lines, for h6's Query
+HTTP_SAMPLE = 64  # h2's HEADs, h3's Range GETs, h5's TCP needles
+HTTP_DELETES = 16
+HTTP_JWT_KEY = b"chip-smoke-write-key"
+
+
+class _KeepAlive:
+    """One keep-alive HTTP/1.1 connection per client thread to a port of
+    this host, with TCP_NODELAY as the servers' own pooled clients set it.
+    A kept connection the server closed while it sat idle (the event loop
+    sweeps sockets idle for SEAWEEDFS_TPU_LOOP_IDLE_TIMEOUT_S) is redialled
+    once, as util/connpool.py replays a stale socket."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port = port
+        self._local = threading.local()
+
+    def _dial(self):
+        import http.client
+        import socket
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=VS_RPC_TIMEOUT)
+        conn.connect()
+        conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        return conn
+
+    def request(self, method: str, path: str, body: bytes | None = None,
+                headers: dict | None = None) -> tuple[int, dict, bytes]:
+        import http.client
+
+        conn = getattr(self._local, "conn", None)
+        reused = conn is not None
+        for _ in range(2):
+            if conn is None:
+                conn = self._local.conn = self._dial()
+            try:
+                conn.request(method, path, body=body, headers=headers or {})
+                r = conn.getresponse()
+                return r.status, dict(r.getheaders()), r.read()
+            except (http.client.RemoteDisconnected, ConnectionResetError,
+                    BrokenPipeError):
+                conn.close()
+                conn = self._local.conn = None
+                if not reused:
+                    raise
+                reused = False
+        raise AssertionError("unreachable")
+
+
+def _fid(vid: int, key: int, cookie: int) -> str:
+    return f"{vid},{key:x}{cookie:08x}"
+
+
+def _http_get_pass(client: _KeepAlive, name: str, keys: list[int],
+                   records: dict, method: str = "GET") -> dict:
+    """Every key of `keys` fetched from one server by EC_READ_THREADS
+    threads on keep-alive connections, each body and Etag held against the
+    needle's .dat record.  -> the latency row."""
+    def get(key: int) -> float:
+        r = records[key]
+        t0 = time.perf_counter()
+        status, headers, body = client.request(
+            method, "/" + _fid(1, key, r["cookie"]))
+        dt = time.perf_counter() - t0
+        if status != 200 or headers.get("Etag") != f'"{r["crc"]:x}"' or (
+                int(headers["Content-Length"]) != r["size"]) or (
+                method == "GET" and hashlib.sha256(body).hexdigest()
+                != r["data_sha256"]):
+            raise AssertionError(f"{method} of needle {key:x}: {status} "
+                                 f"{headers} differs from its .dat record")
+        return dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        lat = list(pool.map(get, keys))
+    return _latency_row(name, lat, time.perf_counter() - t0,
+                        bytes=sum(records[k]["size"] for k in keys),
+                        byte_equal=True)
+
+
+def _canary_query(ev) -> tuple[str, int]:
+    """/debug/canary/ec's query for volume 1, dropping the shard of the
+    probed needle's first interval, and the launches its decode makes: the
+    gather reads the first 10 other mounted shards, and the codec decodes
+    the missing data rows in one launch and re-encodes the parity rows it
+    did not read in a second (`reconstruct`, all missing rows)."""
+    _off, _size, intervals = ev.locate(ev.first_live_needle())
+    sid, _ = intervals[0].to_shard_id_and_offset(ev.large_block_size,
+                                                 ev.small_block_size)
+    read = [s for s in sorted(ev.shards) if s != sid][:10]
+    missing = set(range(14)) - set(read)
+    return (f"?volume=1&shard={sid}",
+            int(any(m < 10 for m in missing))
+            + int(any(m >= 10 for m in missing)))
+
+
+def _json_payload(rng, i: int) -> bytes:
+    """JSON lines of seeded documents (1 to 600 lines)."""
+    docs = [{"user": f"u{i}-{j}", "score": int(rng.integers(0, 100)),
+             "zone": ["a", "b", "c"][int(rng.integers(0, 3))]}
+            for j in range(int(rng.integers(1, 600)))]
+    return "\n".join(json.dumps(d) for d in docs).encode()
+
+
+def _plan_writes(total: int, seed: int) -> list[tuple[int, int, bytes]]:
+    """h4's needles: HTTP_JSON_NEEDLES JSON-lines payloads, then seeded
+    random data of 1 B to 256 KiB (phase 4's sizes) up to `total` bytes.
+    -> [(key, cookie, payload)]."""
+    rng = np.random.default_rng(seed + 40)
+    out: list[tuple[int, int, bytes]] = []
+    size = 0
+    while size < total:
+        i = len(out)
+        payload = (_json_payload(rng, i) if i < HTTP_JSON_NEEDLES else
+                   rng.integers(0, 256, int(rng.integers(
+                       1, NEEDLE_MAX_DATA + 1)), dtype=np.uint8).tobytes())
+        out.append((i + 1, int(rng.integers(0, 2**32)), payload))
+        size += len(payload)
+    return out
+
+
+def http_plane_writes(rs_cuda, a, b, master, stub_a, stub_b, vs, metrics,
+                      write_bytes: int, seed: int, power: str) -> dict:
+    """h4-h7 of phase 4e on servers A and B (A with a TCP port and a
+    metrics port; both require write JWTs).  Launch counts are zeroed
+    just before each step and read just after.  -> {step: row}."""
+    from seaweedfs_tpu_torch.query.engine import query_json_lines
+    from seaweedfs_tpu_torch.security import gen_write_jwt
+
+    rows: dict[str, dict] = {}
+
+    def step(name: str, row: dict) -> None:
+        row = {"phase": "http_plane", "step": name, **row,
+               "launches": _launches(rs_cuda), "nvidia_smi": power}
+        emit(row)
+        rows[name] = row
+
+    # h4. replicated writes: volume 2 (replication 001) on A and B
+    for stub in (stub_a, stub_b):
+        stub.AllocateVolume(vs.AllocateVolumeRequest(
+            volume_id=2, replication="001"))
+    url_a, url_b = f"127.0.0.1:{a.port}", f"127.0.0.1:{b.port}"
+    master.wait_for(lambda m: m.holds(url_a, 2) and m.holds(url_b, 2),
+                    "volume 2 on A and B")
+    plan = _plan_writes(write_bytes, seed)
+    http_a, http_b = _KeepAlive(a.port), _KeepAlive(b.port)
+    errors = metrics.REPLICATION_ERROR.labels("write")
+    before = errors.value
+
+    def post(item) -> float:
+        key, cookie, payload = item
+        fid = _fid(2, key, cookie)
+        auth = {"Authorization": "Bearer " + gen_write_jwt(HTTP_JWT_KEY, fid),
+                "Content-Type": "application/octet-stream"}
+        t0 = time.perf_counter()
+        status, _h, body = http_a.request("POST", "/" + fid, payload, auth)
+        dt = time.perf_counter() - t0
+        if status != 201 or json.loads(body)["size"] < len(payload):
+            raise AssertionError(f"POST {fid}: {status} {body[:200]}")
+        return dt
+
+    _zero_launches(rs_cuda)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        lat = list(pool.map(post, plan))
+    wall = time.perf_counter() - t0
+    key, cookie, payload = plan[0]
+    status, _h, _b = http_a.request("POST", "/" + _fid(2, key + 10**6,
+                                                        cookie), payload)
+    if status != 401:
+        raise AssertionError(f"a POST without a write JWT got {status}")
+    total = sum(len(p) for _k, _c, p in plan)
+    write_row = {
+        "needles": len(plan), "bytes": total, "threads": EC_READ_THREADS,
+        "wall_s": wall, "GBps": total / wall / 1e9,
+        "needles_per_s": len(plan) / wall,
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "replication_errors": errors.value - before,
+        "unsigned_post_status": status}
+
+    def read_b(item) -> None:
+        key, cookie, payload = item
+        status, _h, body = http_b.request("GET", "/" + _fid(2, key, cookie))
+        if status != 200 or body != payload:
+            raise AssertionError(f"needle {key:x} on B: {status}, "
+                                 f"{len(body)} bytes of {len(payload)}")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        list(pool.map(read_b, plan))
+    read_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 41)
+    gone = [plan[int(i)] for i in rng.choice(
+        np.arange(HTTP_JSON_NEEDLES, len(plan)), HTTP_DELETES,
+        replace=False)]
+    for key, cookie, _p in gone:
+        fid = _fid(2, key, cookie)
+        auth = {"Authorization": "Bearer " + gen_write_jwt(HTTP_JWT_KEY,
+                                                            fid)}
+        status, _h, body = http_a.request("DELETE", "/" + fid, None, auth)
+        got = [status] + [c.request("GET", "/" + fid)[0]
+                          for c in (http_a, http_b)]
+        if got != [202, 404, 404]:
+            raise AssertionError(f"DELETE {fid} at A, then GET at A and "
+                                 f"B: {got}")
+    step("h4_replicated_writes", {
+        **write_row, "readback_from_b_s": read_s,
+        "readback_from_b_GBps": total / read_s / 1e9,
+        "readback_equal": True, "deleted_at_a": len(gone),
+        "deleted_404_on_a_and_b": True})
+
+    # h5. the raw-TCP path on A's tcp_port, volume 3 (no replication; the
+    # protocol carries no credential, so A takes TCP writes with its
+    # write-JWT key cleared, as a cluster without write JWTs)
+    import socket
+    import struct
+
+    stub_a.AllocateVolume(vs.AllocateVolumeRequest(volume_id=3))
+    key_a, a.jwt_signing_key = a.jwt_signing_key, b""
+    _zero_launches(rs_cuda)
+    sock = socket.create_connection(("127.0.0.1", a.tcp_port), timeout=60)
+    rf = sock.makefile("rb")
+    try:
+        tcp = [(k, c, p) for k, c, p in plan[HTTP_JSON_NEEDLES:][:HTTP_SAMPLE]]
+        t0 = time.perf_counter()
+        for key, cookie, payload in tcp:
+            sock.sendall(b"+" + _fid(3, key, cookie).encode() + b"\n"
+                         + struct.pack(">I", len(payload)) + payload)
+            if rf.readline() != b"+OK\n":
+                raise AssertionError(f"TCP put of needle {key:x}")
+        for key, cookie, payload in tcp:
+            sock.sendall(b"?" + _fid(3, key, cookie).encode() + b"\n")
+            head = rf.readline()
+            if head != b"+OK %d\n" % len(payload) or rf.read(
+                    len(payload)) != payload:
+                raise AssertionError(f"TCP get of needle {key:x}: {head}")
+        for key, cookie, _p in tcp:
+            sock.sendall(b"-" + _fid(3, key, cookie).encode() + b"\n")
+            if rf.readline() != b"+OK\n":
+                raise AssertionError(f"TCP delete of needle {key:x}")
+            sock.sendall(b"?" + _fid(3, key, cookie).encode() + b"\n")
+            if not rf.readline().startswith(b"-ERR"):
+                raise AssertionError(f"needle {key:x} read after delete")
+        tcp_s = time.perf_counter() - t0
+    finally:
+        rf.close()
+        sock.close()
+        a.jwt_signing_key = key_a
+    step("h5_tcp", {"needles": len(tcp), "seconds": tcp_s,
+                    "ops_per_s": 4 * len(tcp) / tcp_s, "equal": True})
+
+    # h6. Query over the JSON-lines needles, against a plain filter
+    def plain(payload: bytes) -> bytes:
+        docs = [json.loads(line) for line in payload.decode().splitlines()]
+        return b"".join(json.dumps({"user": d["user"]},
+                                   separators=(",", ":")).encode() + b"\n"
+                        for d in docs if d["score"] >= 50)
+
+    qv = vs.QueryRequest
+    _zero_launches(rs_cuda)
+    t0 = time.perf_counter()
+    records = 0
+    for key, cookie, payload in plan[:HTTP_JSON_NEEDLES]:
+        got = b"".join(s.records for s in stub_a.Query(qv(
+            selections=["user"], from_file_ids=[_fid(2, key, cookie)],
+            filter=qv.Filter(field="score", operand=">=", value="50"),
+            input_serialization=qv.InputSerialization(
+                json_input=qv.InputSerialization.JSONInput(
+                    type="LINES")))))
+        want = plain(payload)
+        if got != want or got != query_json_lines(
+                payload, ["user"], field="score", op=">=", value="50"):
+            raise AssertionError(f"Query of needle {key:x} differs")
+        records += want.count(b"\n")
+    query_s = time.perf_counter() - t0
+    step("h6_query", {"needles": HTTP_JSON_NEEDLES, "records": records,
+                      "seconds": query_s,
+                      "needles_per_s": HTTP_JSON_NEEDLES / query_s,
+                      "equal_to_plain_filter": True})
+
+    # h7. /metrics on A's metrics port and /debug/traces on A's HTTP port
+    _zero_launches(rs_cuda)
+    status, _h, body = _KeepAlive(a.metrics_port).request("GET", "/metrics")
+    text = body.decode()
+    families = {line.split("{")[0].split(" ")[0]
+                for line in text.splitlines()
+                if line and not line.startswith("#")}
+    want_fams = {"seaweedfs_request_total", "seaweedfs_sendfile_bytes_total",
+                 "seaweedfs_sendfile_fallback_total",
+                 "seaweedfs_httpd_open_sockets",
+                 "seaweedfs_httpd_inflight_requests",
+                 "seaweedfs_connpool_dial_total",
+                 "seaweedfs_hotkey_events_total"}
+    if status != 200 or not want_fams <= families or \
+            'type="volumeServer",op="get"' not in text:
+        raise AssertionError(f"/metrics: {status}, missing "
+                             f"{sorted(want_fams - families)}")
+    status, _h, body = http_a.request("GET", "/debug/traces?limit=1000")
+    spans: dict[str, int] = {}
+    for tr in json.loads(body)["traces"]:
+        for sp in tr["spans"]:
+            spans[sp["name"]] = spans.get(sp["name"], 0) + 1
+    if status != 200 or not spans.get("volumeServer.get"):
+        raise AssertionError(f"/debug/traces: {status} {spans}")
+    step("h7_metrics_traces", {"families": len(families),
+                               "http_families": sorted(want_fams),
+                               "trace_spans": spans})
+    return rows
+
+
 def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
                         power: str, reduced: list[str],
                         device: str = "cuda",
-                        free_port=free_port_pair) -> dict:
+                        free_port=free_port_pair,
+                        http_write_bytes: int = HTTP_WRITE_BYTES) -> dict:
     """The volume server's gRPC side on the card: two port VolumeServers,
     A over `work` (a directory holding sealed volume 1's .dat/.idx, as
     phase 4c leaves it) and B over a fresh directory, both on the servers'
@@ -1520,7 +1882,15 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
     just before each step and read just after.  -> launches by kernel and
     step, and the rows.  `free_port()` names each server's port p (its
     gRPC port is p + 10000); a test suite passes its own, so that no two
-    servers of one process ever get the same port."""
+    servers of one process ever get the same port.
+
+    Phase 4e, http_plane, runs on the same servers at the points where the
+    volume is in the state each step needs, each step on its own line:
+    (h1) after step 3, the needles by HTTP GET; (h2) after step 4, the
+    same GETs degraded, 64 HEADs and /debug/canary/ec; (h3) after step 8,
+    the GETs on the sendfile path and 64 Range GETs; then (h4-h7)
+    `http_write_bytes` of replicated writes, the TCP path, Query, /metrics
+    and /debug/traces (http_plane_writes)."""
     from seaweedfs_tpu_torch.ops import codec_service
     from seaweedfs_tpu_torch.pb import master_pb2
     from seaweedfs_tpu_torch.pb import rpc as rpclib
@@ -1540,17 +1910,24 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
     master = MiniMaster(rpclib, master_pb2, free_port() + 10000)
     servers = []
     steps: dict[str, dict] = {}
+    http_steps: dict[str, dict] = {}
     # the scrub daemons off and on-demand scans unthrottled, as phase 4c's
     # Scrubber(rate_mbps=0): only the VolumeScrub rpcs below read shards
     scrub_rate = os.environ.get("SEAWEEDFS_TPU_SCRUB_RATE_MBPS")
     os.environ["SEAWEEDFS_TPU_SCRUB_RATE_MBPS"] = "0"
     try:
-        for d in (work, work_b):
+        for i, d in enumerate((work, work_b)):
+            # A also serves /metrics and the raw-TCP path; both require
+            # write JWTs on their HTTP plane
+            extra = ({"metrics_port": free_port(), "tcp_port": free_port()}
+                     if i == 0 else {})
             srv = VolumeServer([d], [master.address], ip="127.0.0.1",
-                               port=free_port(), pulse_seconds=1.0)
+                               port=free_port(), pulse_seconds=1.0,
+                               jwt_signing_key=HTTP_JWT_KEY, **extra)
             srv.start()
             servers.append(srv)
         a, b = servers
+        http_a = _KeepAlive(a.port)
         route = ("service" if codec_service.service_for_codec(
             a.store.codec_name) else "direct")
         url_a, url_b = f"127.0.0.1:{a.port}", f"127.0.0.1:{b.port}"
@@ -1564,6 +1941,12 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
                    "nvidia_smi": power}
             emit(row)
             steps[name] = row
+
+        def http_step(name: str, row: dict) -> None:
+            row = {"phase": "http_plane", "step": name, **row,
+                   "nvidia_smi": power}
+            emit(row)
+            http_steps[name] = row
 
         # 1. generate, as `ec.encode` drives it: readonly, then generate
         # on the server's default codec
@@ -1649,6 +2032,26 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
         if any(healthy["launches"].values()):
             raise AssertionError(f"healthy reads launched {healthy}")
 
+        # h1. the same needles by HTTP GET on A, all 14 shards mounted
+        _zero_launches(rs_cuda)
+        row = _http_get_pass(http_a, "healthy_http_get", keys, records)
+        row["launches"] = _launches(rs_cuda)
+        if any(row["launches"].values()):
+            raise AssertionError(f"healthy GETs launched {row}")
+        http_step("h1_healthy_gets", row)
+        # the degraded-read canary, one held shard dropped: a decode needs
+        # 10 of 14 shards, so it runs here, before h2 loses 4 of them
+        ev = a.store.find_ec_volume(1)
+        query, want = _canary_query(ev)
+        _zero_launches(rs_cuda)
+        status, _h, body = http_a.request("GET", "/debug/canary/ec" + query)
+        canary = {**json.loads(body), "status": status, "query": query,
+                  "launches": _launches(rs_cuda), "expected_launches": want}
+        if status != 200 or not canary.get("ok") or not canary.get(
+                "reconstructed") or canary["launches"]["gf_matmul"] != want:
+            raise AssertionError(f"canary {canary}")
+        http_step("h1_canary", canary)
+
         # 4. degraded reads: 4 shards dropped, each needle read whole
         # through VolumeNeedleStatus, A decoding lost intervals on its codec
         lost = list(EC_READ_LOSS)
@@ -1686,6 +2089,33 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
             compiles=c["compiles"], crc_equal=True)
         if not c["degraded_intervals"] or c["launches"] < c["gathers"]:
             raise AssertionError(f"degraded reads: {c}")
+
+        # h2. the same needles by HTTP GET with .ec00-.ec03 lost, caches
+        # cleared: A decodes every lost interval once, on its codec
+        ev = a.store.find_ec_volume(1)
+        if a.store.needle_cache is not None:
+            a.store.needle_cache.clear()
+        if ev._interval_cache is not None:
+            ev._interval_cache.clear()
+        counters = _ReadCounters(rs_cuda, metrics)
+        counters.start()
+        row = _http_get_pass(http_a, "degraded_http_get", keys, records)
+        hc = counters.read()
+        row.update(degraded_intervals=hc["degraded_intervals"],
+                   interval_cache_hits=hc["interval_cache_hits"],
+                   launches={"gf_matmul": hc["launches"],
+                             "gf_matmul_batched": hc["batched_launches"]},
+                   compiles=hc["compiles"])
+        if not hc["launches"] == hc["degraded_intervals"] > 0:
+            raise AssertionError(f"degraded GETs: {hc}")
+        _zero_launches(rs_cuda)
+        heads = _http_get_pass(http_a, "degraded_http_head",
+                               keys[:HTTP_SAMPLE], records, method="HEAD")
+        heads["launches"] = _launches(rs_cuda)
+        http_step("h2_degraded_gets", {
+            **row, "heads": heads,
+            "launches": {k: row["launches"][k] + heads["launches"][k]
+                         for k in row["launches"]}})
         step("reads", {"passes": [healthy, degraded],
                        "launches": {k: healthy["launches"][k]
                                     + degraded["launches"][k]
@@ -1866,6 +2296,47 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
                         "dat_sha256_equal": True,
                         "mounted_read_only": status.is_read_only,
                         "launches": _launches(rs_cuda)})
+
+        # h3. the GETs again from the decoded volume, each body sent from
+        # the .dat by sendfile; then Range GETs, which take the fallback
+        if a.store.needle_cache is not None:
+            a.store.needle_cache.clear()
+        sent = metrics.SENDFILE_BYTES.labels()
+        ranged = metrics.SENDFILE_FALLBACK.labels("range")
+        _zero_launches(rs_cuda)
+        before = sent.value
+        row = _http_get_pass(http_a, "sendfile_http_get", keys, records)
+        # the counter ticks on A's worker after the response's last byte
+        deadline = time.monotonic() + 30
+        while sent.value - before < row["bytes"] and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        row["sendfile_bytes"] = sent.value - before
+        if row["sendfile_bytes"] != row["bytes"]:
+            raise AssertionError(f"sendfile moved {row['sendfile_bytes']} "
+                                 f"bytes for {row['bytes']}")
+        before = ranged.value
+        for key in keys[:HTTP_SAMPLE]:
+            r = records[key]
+            lo = r["size"] // 3
+            path = "/" + _fid(1, key, r["cookie"])
+            st, headers, part = http_a.request(
+                "GET", path, headers={"Range": f"bytes={lo}-"})
+            whole = http_a.request("GET", path)[2]
+            if st != 206 or part != whole[lo:] or headers[
+                    "Content-Range"] != (f"bytes {lo}-{r['size'] - 1}/"
+                                         f"{r['size']}"):
+                raise AssertionError(f"Range GET of needle {key:x}: {st}")
+        row["range_gets"] = HTTP_SAMPLE
+        row["range_fallbacks"] = ranged.value - before
+        if row["range_fallbacks"] != HTTP_SAMPLE:
+            raise AssertionError(f"range GETs: {row}")
+        row["launches"] = _launches(rs_cuda)
+        http_step("h3_sendfile_gets", row)
+
+        http_steps.update(http_plane_writes(
+            rs_cuda, a, b, master, stub_a, stub_b, vs, metrics,
+            http_write_bytes, seed, power))
     finally:
         for srv in servers:
             srv.stop()
@@ -1876,10 +2347,11 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
             os.environ["SEAWEEDFS_TPU_SCRUB_RATE_MBPS"] = scrub_rate
         shutil.rmtree(work_b, ignore_errors=True)
     by_kernel: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
-    for name, row in steps.items():
-        for kernel, n in row.get("launches", {}).items():
-            if n:
-                by_kernel[kernel][f"volume_server_{name}"] = n
+    for prefix, rows in (("volume_server", steps), ("http_plane", http_steps)):
+        for name, row in rows.items():
+            for kernel, n in row.get("launches", {}).items():
+                if n:
+                    by_kernel[kernel][f"{prefix}_{name}"] = n
     # on a card the bulk rpcs take the codec service's batched launch and
     # degraded reads the direct one; without a card every path is direct
     want = (("gf_matmul", "gf_matmul_batched") if route == "service"
@@ -1891,7 +2363,10 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
           "launches_by_path": by_kernel,
           "reduced": reduced, "wall_s": time.perf_counter() - t_phase,
           "nvidia_smi": power})
-    return {"launches_by_path": by_kernel, "steps": steps}
+    if "http_plane_h2_degraded_gets" not in by_kernel["gf_matmul"]:
+        raise AssertionError("the degraded HTTP GETs launched no kernel")
+    return {"launches_by_path": by_kernel, "steps": steps,
+            "http_steps": http_steps}
 
 
 # -- phase 5 -------------------------------------------------------------
@@ -2314,9 +2789,9 @@ def main() -> int:
                     help="phases 1-3 and store_lifecycle only, no kernels "
                     "line (a quick check)")
     ap.add_argument("--only-volume-server", action="store_true",
-                    help="phases 1-2 and volume_server only, on a volume "
-                    "of --store-volume-gib written for it, no kernels line "
-                    "(a quick check)")
+                    help="phases 1-2, volume_server and http_plane only, "
+                    "on a volume of --store-volume-gib written for it, no "
+                    "kernels line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",

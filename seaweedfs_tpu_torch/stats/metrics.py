@@ -1,25 +1,31 @@
 """A small Prometheus-style registry: counters, gauges and histograms with
-labels — the port's own copy of the registry classes of
-seaweedfs_tpu/stats/metrics.py, and of the families the port's modules
-record: the codec service, the codec registry, the EC read path and its
-caches, the rebuild, the executors, fault injection, disk health, the
-needle cache, the scrubber and group commit (names, labels and buckets
-unchanged, so dashboards built on the reference read the port the same
-way).
+labels, exemplars, and the text exposition on a /metrics HTTP endpoint —
+the port's own copy of seaweedfs_tpu/stats/metrics.py, with the families
+the port's modules record: the codec service, the codec registry, the EC
+read path and its caches, the rebuild, the executors, fault injection,
+disk health, the needle cache, the scrubber and group commit (names,
+labels and buckets unchanged, so dashboards built on the reference read
+the port the same way).
 
-The volume server's gRPC side adds the request, volume and gRPC-byte
-families, the partial-sum repair families, the retry and circuit-breaker
-families of util/failsafe.py and the heartbeat's compact snapshot
-(`Registry.snapshot_samples`).
+The volume server adds the request, volume and gRPC-byte families, the
+partial-sum repair families, the retry and circuit-breaker families of
+util/failsafe.py, the heartbeat's compact snapshot
+(`Registry.snapshot_samples`), and for its HTTP side the sendfile,
+event-loop, connection-pool, replication, volume-full and hot-key
+families.  `serve_metrics` renders this registry only: a process that also
+runs the reference's servers keeps two registries, each on its own port.
 
-Not carried over: exemplars, the HTTP /metrics endpoint, and the families
-of the master, the filer and the gateways.
+Not carried over: the families of the master, the filer and the gateways.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from ..util.httpd import FrameworkHTTPServer
 
 _DEFAULT_BUCKETS = (
     0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
@@ -27,19 +33,35 @@ _DEFAULT_BUCKETS = (
 )
 _EC_BYTE_BUCKETS = tuple(float(4 ** k) for k in range(5, 16))  # 1KB..1GB
 
+# exemplar rotation window: each histogram bucket remembers the SLOWEST
+# recent observation's trace id for this long before a smaller sample may
+# replace it — long enough for an alert evaluation tick to pick it up,
+# short enough that a page links to the incident, not last week's spike
+EXEMPLAR_WINDOW_S = float(
+    os.environ.get("SEAWEEDFS_TPU_EXEMPLAR_WINDOW_S", "60"))
 
-# families whose label cardinality scales with the environment (one child
-# per peer / data dir / hot key) — emitted LAST from snapshot_samples so
-# they can never crowd the fixed-cardinality families out of the
-# 512-sample heartbeat snapshot
-SNAPSHOT_DENY_PREFIXES = (
-    "seaweedfs_connpool_in_use",
-    "seaweedfs_connpool_idle",
-    "seaweedfs_disk_free_bytes",
-    "seaweedfs_disk_total_bytes",
-    "seaweedfs_disk_state",
-    "seaweedfs_hotkey_",
-)
+_FAMILY_RE = re.compile(r"^[A-Za-z_:][A-Za-z0-9_:]*$")
+
+
+def parse_family_prefixes(raw: str) -> list[str] | None:
+    """Validated `?family=<prefix>[,<prefix>...]` filter shared by every
+    /metrics endpoint and the master's /cluster/metrics.  Empty -> None
+    (no filter); malformed -> ValueError with an operator-readable
+    message (a typo'd filter silently matching nothing would read as
+    'cluster emits no metrics' mid-incident)."""
+    raw = (raw or "").strip()
+    if not raw:
+        return None
+    prefixes = [p.strip() for p in raw.split(",") if p.strip()]
+    if not prefixes:
+        return None
+    if len(prefixes) > 16:
+        raise ValueError("family: at most 16 comma-separated prefixes")
+    for p in prefixes:
+        if not _FAMILY_RE.match(p):
+            raise ValueError(
+                f"family prefix {p!r} must match [A-Za-z_:][A-Za-z0-9_:]*")
+    return prefixes
 
 
 def escape_label_value(v: str) -> str:
@@ -50,8 +72,23 @@ def escape_label_value(v: str) -> str:
 
 
 def format_le(bound: float) -> str:
-    """Render a bucket bound as a float consistently (`10.0`, not `10`)."""
+    """Render a bucket bound as a float consistently (`10.0`, not `10`),
+    so scrapers that string-match bounds see one canonical spelling."""
     return repr(float(bound))
+
+
+# families whose label cardinality scales with the environment (one child
+# per peer / data dir / hot key) — emitted LAST from snapshot_samples so
+# they can never crowd the fixed-cardinality families SLO rules read out
+# of the 512-sample heartbeat snapshot fallback
+SNAPSHOT_DENY_PREFIXES = (
+    "seaweedfs_connpool_in_use",
+    "seaweedfs_connpool_idle",
+    "seaweedfs_disk_free_bytes",
+    "seaweedfs_disk_total_bytes",
+    "seaweedfs_disk_state",
+    "seaweedfs_hotkey_",
+)
 
 
 class Metric:
@@ -146,22 +183,37 @@ class Gauge(Counter):
 
 
 class _HistogramChild:
-    __slots__ = ("buckets", "counts", "total", "count", "_lock")
+    __slots__ = ("buckets", "counts", "total", "count", "exemplars",
+                 "_lock")
 
     def __init__(self, buckets):
         self.buckets = buckets
         self.counts = [0] * len(buckets)
         self.total = 0.0
         self.count = 0
+        # bucket index (len(buckets) = +Inf) -> [value, trace_id, wall_ts]
+        # of the slowest observation in the current exemplar window
+        self.exemplars: dict[int, list] = {}
         self._lock = threading.Lock()
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, trace_id: str | None = None) -> None:
         with self._lock:
             self.total += v
             self.count += 1
+            idx = len(self.buckets)
             for i, b in enumerate(self.buckets):
                 if v <= b:
                     self.counts[i] += 1
+                    idx = min(idx, i)
+            if trace_id:
+                cur = self.exemplars.get(idx)
+                now = time.time()
+                # keep the slowest sample per bucket, but let it rotate:
+                # a stale all-time max would pin a page's exemplar to an
+                # incident long resolved
+                if (cur is None or v >= cur[0]
+                        or now - cur[2] > EXEMPLAR_WINDOW_S):
+                    self.exemplars[idx] = [v, trace_id, now]
 
     def time(self):
         return _Timer(self)
@@ -190,8 +242,36 @@ class Histogram(Metric):
     def _make_child(self):
         return _HistogramChild(self.buckets)
 
-    def observe(self, v: float) -> None:
-        self.labels().observe(v)
+    def observe(self, v: float, trace_id: str | None = None) -> None:
+        self.labels().observe(v, trace_id=trace_id)
+
+    def exemplars(self) -> list[dict]:
+        """Per-bucket slowest-sample exemplars across every child:
+        [{labels, le, value, traceId, ageSeconds}], newest-window data
+        only (entries older than 2x the window are dropped — the alert
+        that wants them has already evaluated)."""
+        now = time.time()
+        with self._lock:
+            items = list(self._children.items())
+        out: list[dict] = []
+        for key, child in items:
+            with child._lock:
+                entries = [(i, list(e)) for i, e in child.exemplars.items()]
+            for idx, (value, trace_id, ts) in entries:
+                age = now - ts
+                if age > 2 * EXEMPLAR_WINDOW_S:
+                    continue
+                le = (format_le(self.buckets[idx])
+                      if idx < len(self.buckets) else "+Inf")
+                out.append({
+                    "family": self.name,
+                    "labels": dict(zip(self.label_names, key)),
+                    "le": le,
+                    "value": round(value, 6),
+                    "traceId": trace_id,
+                    "ageSeconds": round(age, 3),
+                })
+        return out
 
     def render(self) -> list[str]:
         out = [f"# HELP {self.name} {self.help}",
@@ -260,8 +340,10 @@ class Registry:
                 "register every family exactly once (stats/metrics.py)")
 
     def render(self, family_prefixes: "list[str] | None" = None) -> str:
-        """Text exposition, optionally restricted to families whose name
-        starts with one of `family_prefixes`."""
+        """Text exposition; `family_prefixes` (from ?family=) restricts
+        the output to families whose name starts with any prefix — the
+        SLO engine and operators scrape a subset instead of the full
+        exposition on every evaluation tick."""
         with self._lock:
             metrics = list(self._metrics.values())
         if family_prefixes is not None:
@@ -271,6 +353,21 @@ class Registry:
         for m in metrics:
             lines.extend(m.render())
         return "\n".join(lines) + "\n"
+
+    def exemplars(self, family_prefix: str = "") -> list[dict]:
+        """Histogram exemplars (slowest recent sample per bucket) for
+        families matching the prefix, slowest first — the trace ids a
+        firing latency alert embeds so /cluster/alerts links straight to
+        /cluster/traces."""
+        with self._lock:
+            metrics = [m for m in self._metrics.values()
+                       if m.kind == "histogram"
+                       and m.name.startswith(family_prefix)]
+        out: list[dict] = []
+        for m in metrics:
+            out.extend(m.exemplars())
+        out.sort(key=lambda e: e["value"], reverse=True)
+        return out[:32]
 
     def snapshot_samples(self, max_samples: int = 512) -> list:
         """-> [(exposition sample name incl. labels, float value)] for
@@ -568,3 +665,136 @@ FSYNC_BATCH_SIZE = REGISTRY.histogram(
     "mutations committed per flush barrier",
     buckets=_FSYNC_BATCH_BUCKETS,
 )
+
+
+# -- the volume server's HTTP side ------------------------------------------
+VOLUME_FULL_REJECT = REGISTRY.counter(
+    "seaweedfs_volume_full_rejects_total",
+    "writes rejected with the typed volume-full (409) error",
+)
+REPLICATION_ERROR = REGISTRY.counter(
+    "seaweedfs_replication_error_total",
+    "replica fan-out failures by operation",
+    labels=("op",),
+)
+
+# keep-alive connection pool (util/connpool.py): every internal HTTP hop
+# either reuses a pooled socket or pays a fresh dial; evictions count
+# sockets dropped for staleness, pool overflow, or a dead keep-alive
+CONNPOOL_REUSE = REGISTRY.counter(
+    "seaweedfs_connpool_reuse_total",
+    "internal HTTP requests served on a reused pooled connection",
+)
+CONNPOOL_DIAL = REGISTRY.counter(
+    "seaweedfs_connpool_dial_total",
+    "fresh TCP dials made by the connection pool",
+)
+CONNPOOL_EVICT = REGISTRY.counter(
+    "seaweedfs_connpool_evict_total",
+    "pooled connections discarded (idle-expired, overflow, or dead)",
+)
+
+# per-peer connection accounting for the keep-alive pool: in_use counts
+# sockets checked out to in-flight requests, idle counts sockets parked
+# in the pool.  in_use pinned at its ceiling = the peer is saturated.
+CONNPOOL_IN_USE = REGISTRY.gauge(
+    "seaweedfs_connpool_in_use",
+    "pooled connections checked out to in-flight requests, per peer",
+    labels=("peer",),
+)
+CONNPOOL_IDLE = REGISTRY.gauge(
+    "seaweedfs_connpool_idle",
+    "idle pooled connections, per peer",
+    labels=("peer",),
+)
+
+SENDFILE_BYTES = REGISTRY.counter(
+    "seaweedfs_sendfile_bytes_total",
+    "needle payload bytes served zero-copy via os.sendfile",
+)
+SENDFILE_FALLBACK = REGISTRY.counter(
+    "seaweedfs_sendfile_fallback_total",
+    "whole-needle GETs that fell back to the userspace read path",
+    labels=("reason",),  # disabled|cache|range|transform|ec|remote|error
+)
+HTTPD_OPEN_SOCKETS = REGISTRY.gauge(
+    "seaweedfs_httpd_open_sockets",
+    "connections currently parked on an event-loop HTTP front end",
+    labels=("server",),
+)
+HTTPD_INFLIGHT = REGISTRY.gauge(
+    "seaweedfs_httpd_inflight_requests",
+    "requests currently executing on an event-loop worker pool",
+    labels=("server",),
+)
+
+# heavy-hitter attribution sketches (telemetry/hotkeys.py).
+# hotkey_top_count is per key and therefore deny-listed from the heartbeat
+# snapshot (SNAPSHOT_DENY_PREFIXES); its cardinality is bounded by the
+# recorder, which replaces the child set wholesale on every window rotation
+HOTKEY_EVENTS = REGISTRY.counter(
+    "seaweedfs_hotkey_events_total",
+    "keys fed to the heavy-hitter sketches, by dimension",
+    labels=("dim",),  # needle | bucket | tenant | peer
+)
+HOTKEY_TRACKED = REGISTRY.gauge(
+    "seaweedfs_hotkey_tracked_keys",
+    "keys currently tracked by a dimension's space-saving sketch",
+    labels=("dim",),
+)
+HOTKEY_TOP = REGISTRY.gauge(
+    "seaweedfs_hotkey_top_count",
+    "estimated hits of the hottest keys in the last closed window",
+    labels=("dim", "key"),
+)
+
+
+def serve_metrics(port: int, registry: Registry = REGISTRY,
+                  host: str = "0.0.0.0") -> ThreadingHTTPServer:
+    """Expose GET /metrics (Prometheus text) and GET /debug/traces (JSON)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_GET(self):
+            import urllib.parse
+
+            path = self.path.split("?")[0]
+            if path.startswith("/debug/"):
+                from ..telemetry import serve_debug_http
+
+                if serve_debug_http(self, path):
+                    return
+            if path != "/metrics":
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            query = urllib.parse.parse_qs(
+                urllib.parse.urlparse(self.path).query)
+            try:
+                prefixes = parse_family_prefixes(
+                    query.get("family", [""])[0])
+            except ValueError as e:
+                body = str(e).encode()
+                self.send_response(400)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
+            body = registry.render(prefixes).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = FrameworkHTTPServer((host, port), Handler)
+    httpd.serve_thread = threading.Thread(
+        target=httpd.serve_forever, name="metrics-http", daemon=True)
+    httpd.serve_thread.start()
+    return httpd

@@ -1,24 +1,32 @@
-"""In-process tracing: spans, a thread-local context stack and a bounded
-ring of finished spans — the part of seaweedfs_tpu/telemetry/trace.py that
-the codec and the EC read path use.
+"""In-process distributed tracing: spans, W3C traceparent, a bounded ring.
+
+The port's copy of seaweedfs_tpu/telemetry/trace.py.
+
+Reference shape: OpenTelemetry's SDK, cut down to what a blob store's
+request path needs — a thread-local context stack, wall-clock spans, and
+a fixed-size ring buffer of finished spans that /debug/traces serves as
+JSON.  No exporter, no sampler: every request is recorded until the ring
+evicts it, which is the right trade for a debug surface (the Facebook
+warehouse study's lesson is that you need per-hop latency for the tail
+*after* the fact, not a 1% head sample).
+
+Propagation uses the W3C trace-context `traceparent` header
+(`00-<32 hex trace id>-<16 hex span id>-<2 hex flags>`) on HTTP and the
+same string as gRPC metadata, so one client write yields one connected
+trace across filer -> master assign -> volume POST -> replication.
 
 Usage:
     from seaweedfs_tpu_torch.telemetry import trace
-    with trace.start_span("ec.read_needle", volume=3):
+    with trace.start_span("volumeServer.post", path="/3,0123"):
         ...
-    with trace.child_span("ec.device_compute", impl="cuda"):
-        ...  # recorded only inside an active trace
-
-Spans carry the same names and attributes as the reference's, so a trace
-of the port reads like one of the reference.  W3C `traceparent`
-propagation (`traceparent_header`, `remote_context`) carries a caller's
-context across the gRPC hops of pb/rpc.py.  Not ported: the
-/debug/traces rendering and the log lines' trace ids (the reference's
-glog context provider); they belong to the HTTP side.
+    hdr = trace.traceparent_header()        # inject into outgoing calls
+    with trace.remote_context(incoming_hdr):  # adopt a caller's context
+        ...
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import threading
@@ -27,17 +35,29 @@ from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
+from ..util import glog
+
 # ring capacity: finished spans kept in memory per process
 MAX_SPANS = int(os.environ.get("SEAWEEDFS_TPU_TRACE_BUFFER", "2048"))
-# error-status and slow spans are also kept in a second ring, so a burst of
-# healthy traffic cannot evict the trace an alert points at
+
+# separate bounded ring for spans an alert will want: error-status and
+# slow spans.  Without it a burst of healthy traffic evicts the one
+# trace a firing alert's exemplar points at before anyone looks — the
+# page would link to an empty timeline.
 MAX_IMPORTANT_SPANS = int(
     os.environ.get("SEAWEEDFS_TPU_TRACE_IMPORTANT_BUFFER", "512"))
+
+# slow-span retention threshold; same knob the middleware's slow-request
+# log uses (middleware imports this binding — one source of truth)
 SLOW_SPAN_SECONDS = float(
     os.environ.get("SEAWEEDFS_TPU_SLOW_REQUEST_S", "1.0"))
 
 _ctx = threading.local()  # _ctx.stack: list[(trace_id, span_id)]
-# ids need uniqueness, not unpredictability
+
+# ids need uniqueness, not unpredictability: os.urandom costs a syscall
+# per call and every request opens a span (two ids) — a urandom-seeded
+# PRNG is plenty (getrandbits is a single atomic C call, thread-safe
+# under the GIL)
 _id_rng = random.Random(os.urandom(16))
 
 
@@ -56,9 +76,26 @@ class Span:
     attrs: dict = field(default_factory=dict)
     status: str = "ok"
 
+    def to_dict(self) -> dict:
+        return {
+            "traceId": self.trace_id,
+            "spanId": self.span_id,
+            "parentId": self.parent_id,
+            "name": self.name,
+            "start": self.start,
+            "durationMs": round(self.duration * 1e3, 3),
+            "attrs": self.attrs,
+            "status": self.status,
+        }
+
 
 class Tracer:
-    """Bounded recorder of finished spans."""
+    """Bounded recorder of finished spans, grouped on read by trace id.
+
+    Two rings: the main ring holds everything; error-status and slow
+    spans are ALSO retained in a separate bounded ring, so a burst of
+    healthy traffic cannot evict the trace an alert needs before an
+    operator follows the exemplar link."""
 
     def __init__(self, max_spans: int = MAX_SPANS,
                  max_important: int = MAX_IMPORTANT_SPANS):
@@ -78,7 +115,8 @@ class Tracer:
             self._important.clear()
 
     def spans(self) -> list[Span]:
-        """Main and important rings, each span once."""
+        """Main + important rings, deduplicated (a span recent enough to
+        still sit in the main ring appears once)."""
         with self._lock:
             main = list(self._spans)
             important = list(self._important)
@@ -88,8 +126,47 @@ class Tracer:
         merged.extend(main)
         return merged
 
+    def recent_traces(self, limit: int = 50,
+                      trace_id: str | None = None) -> list[dict]:
+        """Most-recent traces first, each with its spans in start order.
+        `trace_id` filters the ring down to one trace (the cluster
+        stitcher's per-trace query; a full dump per node would make the
+        fan-out O(ring size x nodes))."""
+        by_trace: dict[str, list[Span]] = {}
+        for s in self.spans():
+            if trace_id is not None and s.trace_id != trace_id:
+                continue
+            by_trace.setdefault(s.trace_id, []).append(s)
+        # order traces by the latest span end they contain, newest first
+        ordered = sorted(
+            by_trace.items(),
+            key=lambda kv: max(s.start + s.duration for s in kv[1]),
+            reverse=True,
+        )[:limit]
+        return [
+            {
+                "traceId": tid,
+                "spans": [s.to_dict()
+                          for s in sorted(spans, key=lambda s: s.start)],
+            }
+            for tid, spans in ordered
+        ]
+
+    def traces_json(self, limit: int = 50,
+                    trace_id: str | None = None) -> bytes:
+        # "now" = this process's wall clock at render time: the stitcher
+        # compares it against its own clock (minus half the scrape RTT)
+        # to annotate per-node clock skew on merged timelines
+        return json.dumps({
+            "now": time.time(),
+            "traces": self.recent_traces(limit, trace_id=trace_id),
+        }).encode()
+
 
 TRACER = Tracer()
+
+
+# -- thread-local context ----------------------------------------------------
 
 
 def _stack() -> list:
@@ -99,27 +176,33 @@ def _stack() -> list:
     return stack
 
 
-def current_context() -> "tuple[str, str] | None":
+def current_context() -> tuple[str, str] | None:
     """(trace_id, span_id) of the active span, or None."""
     stack = _stack()
     return stack[-1] if stack else None
 
 
-def current_trace_id() -> "str | None":
+def current_trace_id() -> str | None:
     ctx = current_context()
     return ctx[0] if ctx else None
 
 
 @contextmanager
 def start_span(name: str, tracer: Tracer = TRACER, **attrs):
-    """Open a span under the current context (a new trace when none)."""
+    """Open a span under the current context (new trace when none)."""
     stack = _stack()
     if stack:
         trace_id, parent_id = stack[-1]
     else:
         trace_id, parent_id = _rand_hex(16), ""
-    span = Span(trace_id=trace_id, span_id=_rand_hex(8), parent_id=parent_id,
-                name=name, start=time.time(), attrs=dict(attrs))
+    span = Span(
+        trace_id=trace_id,
+        span_id=_rand_hex(8),
+        parent_id=parent_id,
+        name=name,
+        start=time.time(),
+        attrs=dict(attrs),
+    )
     stack.append((trace_id, span.span_id))
     t0 = time.perf_counter()
     try:
@@ -135,9 +218,12 @@ def start_span(name: str, tracer: Tracer = TRACER, **attrs):
 
 @contextmanager
 def child_span(name: str, tracer: Tracer = TRACER, **attrs):
-    """`start_span` only inside an active trace; a no-op otherwise, so bulk
-    work outside any request (an encode's thousands of codec calls) does
-    not flood the ring with one-span traces."""
+    """`start_span` only when already inside a trace; no-op otherwise.
+
+    For instrumentation on paths that also run outside any request
+    (codec calls from bulk encodes, client hops from background loops):
+    a root span per call would flood the ring with single-span traces
+    and evict the request traces /debug/traces exists to serve."""
     if current_context() is None:
         yield None
         return
@@ -154,7 +240,7 @@ def format_traceparent(trace_id: str, span_id: str) -> str:
     return f"00-{trace_id}-{span_id}-01"
 
 
-def traceparent_header() -> "str | None":
+def traceparent_header() -> str | None:
     """Header value for the active context, or None outside any span."""
     ctx = current_context()
     if ctx is None:
@@ -171,7 +257,7 @@ def _is_hex(s: str) -> bool:
     return bool(s) and set(s) <= _HEX
 
 
-def parse_traceparent(value: "str | None") -> "tuple[str, str] | None":
+def parse_traceparent(value: str | None) -> tuple[str, str] | None:
     """-> (trace_id, span_id) or None on anything malformed."""
     if not value:
         return None
@@ -190,7 +276,7 @@ def parse_traceparent(value: "str | None") -> "tuple[str, str] | None":
 
 
 @contextmanager
-def remote_context(traceparent: "str | None"):
+def remote_context(traceparent: str | None):
     """Adopt a remote caller's context for the duration of the block.
 
     With a malformed/absent header this is a no-op: spans opened inside
@@ -205,3 +291,36 @@ def remote_context(traceparent: "str | None"):
         yield parsed
     finally:
         stack.pop()
+
+
+def inject_headers(headers: dict) -> dict:
+    """Add traceparent to an outgoing-request header dict (mutates + returns)."""
+    hdr = traceparent_header()
+    if hdr is not None:
+        headers[TRACEPARENT] = hdr
+    return headers
+
+
+def wrap_context(fn):
+    """Carry the caller's trace context into a thread-pool worker.
+
+    The filer fans chunk uploads and chunk reads out to an executor;
+    without this the volume-server hops would each start orphan traces."""
+    ctx = current_context()
+    if ctx is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        stack = _stack()
+        stack.append(ctx)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stack.pop()
+
+    return bound
+
+
+# log correlation: every glog line emitted under an active span carries
+# the trace id (the slow-request log's join key back to /debug/traces)
+glog.set_context_provider(current_trace_id)

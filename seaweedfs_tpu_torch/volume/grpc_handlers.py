@@ -8,10 +8,15 @@ into the codec named per request (`codec` field) or the server's default,
 `cuda`: on the card through the hand-written GF(2^8) kernel, through the
 shared codec service's batched launch when the probe finds a card.
 
-Not ported yet: `Query` (needs query/), `VolumeTierMoveDatToRemote` and
-`VolumeTierMoveDatFromRemote` (need the remote tier backends).  This
-service has no method for them, so pb/rpc.py answers UNIMPLEMENTED, as the
-reference's rpc layer does for any method its service object lacks.
+`Query` filters a needle's JSON lines or CSV rows (query/engine.py); a
+needle of an EC volume is read through `read_needle`, so a lost interval
+is decoded on the server's codec, the card on a `cuda` server.
+
+Not ported yet: `VolumeTierMoveDatToRemote` and
+`VolumeTierMoveDatFromRemote` (need the remote tier backends and the SigV4
+signing of s3api/auth.py).  This service has no method for them, so
+pb/rpc.py answers UNIMPLEMENTED, as the reference's rpc layer does for any
+method its service object lacks.
 """
 
 from __future__ import annotations
@@ -682,6 +687,44 @@ class VolumeGrpcService:
                 v.delete_needle(n.id, at_ns=full.append_at_ns)
                 self.store.invalidate_needle(request.volume_id, n.id)
         return vs.VolumeTailReceiverResponse()
+
+    # -- SQL-on-blob query (volume_grpc_query.go:12 + weed/query/) ---------
+
+    def Query(self, request, context):
+        from ..query import query_csv_lines, query_json_lines
+        from ..storage.file_id import FileId
+
+        filt = request.filter
+        for fid_str in request.from_file_ids:
+            fid = FileId.parse(fid_str)
+            try:
+                n = self.store.read_needle(fid.volume_id, fid.key)
+            except KeyError:
+                context.abort(grpc.StatusCode.NOT_FOUND,
+                              f"{fid_str} not found")
+            if n.cookie != fid.cookie:
+                context.abort(grpc.StatusCode.PERMISSION_DENIED,
+                              f"cookie mismatch for {fid_str}")
+            data = bytes(n.data)
+            ins = request.input_serialization
+            if ins.HasField("json_input"):
+                records = query_json_lines(
+                    data, list(request.selections),
+                    field=filt.field, op=filt.operand, value=filt.value,
+                    document=(ins.json_input.type.upper() == "DOCUMENT"),
+                )
+            elif ins.HasField("csv_input"):
+                records = query_csv_lines(
+                    data, list(request.selections),
+                    field=filt.field, op=filt.operand, value=filt.value,
+                    header=ins.csv_input.file_header_info,
+                    delimiter=ins.csv_input.field_delimiter or ",",
+                    comment=ins.csv_input.comments or "#",
+                )
+            else:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              "need csv_input or json_input")
+            yield vs.QueriedStripe(records=records)
 
     def VolumeScrub(self, request, context):
         """On-demand integrity scan (shell `volume.scrub`): one volume /

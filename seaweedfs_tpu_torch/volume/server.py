@@ -1,5 +1,6 @@
-"""VolumeServer, gRPC side: the admin and EC rpcs + the master heartbeat —
-the port of the gRPC half of seaweedfs_tpu/volume/server.py.
+"""VolumeServer process: the HTTP data path, the raw-TCP path, the gRPC
+admin and EC rpcs and the master heartbeat — the port of
+seaweedfs_tpu/volume/server.py.
 
 Reference: weed/server/volume_server.go + volume_grpc_client_to_master.go.
 The gRPC port is http_port + 10000 by convention, like the reference: peers
@@ -7,9 +8,10 @@ and the master know a volume server by its `ip:port` and derive the gRPC
 address from it (`grpc_addr`).
 
     from seaweedfs_tpu_torch.volume.server import VolumeServer
-    vs = VolumeServer(["/data/v1"], ["master:9333"], port=8080)
-    vs.start()          # gRPC on 18080, heartbeats to master:19333
-    ...
+    vs = VolumeServer(["/data/v1"], ["master:9333"], port=8080,
+                      metrics_port=9325, tcp_port=8090)
+    vs.start()  # HTTP on 8080, gRPC on 18080, /metrics on 9325, TCP on
+    ...         # 8090, heartbeats to master:19333
     vs.stop()
 
 Differences from the reference, on purpose:
@@ -17,14 +19,17 @@ Differences from the reference, on purpose:
     ``cpu``), as the port's Store and EcVolume do.  The codec is built
     when the server is made, so a ``cuda`` server on a host without a card
     raises there; it never switches to the host by itself.  Each EC rpc's
-    `codec` field is honoured;
-  * no HTTP or TCP data plane, metrics endpoint, profiler, Guard (JWT,
-    whitelist) or replication fan-out: they come with the HTTP side;
-  * `stop()` also joins the heartbeat thread and releases the port's
-    cached channels to this server's address, so a process that starts
-    and stops servers (tests, chip_smoke.py) leaves no thread or channel
-    behind.  It leaves the process-wide codec service running, as the
-    reference does: sibling servers in the process may be using it.
+    `codec` field is honoured, and an HTTP GET of a needle in a lost
+    interval is decoded on the server's codec;
+  * no `tier_backends` argument: the remote tier (storage/backend_s3.py)
+    is not ported, and the tier-move rpcs answer UNIMPLEMENTED;
+  * `stop()` joins every thread the server started — the heartbeat, the
+    HTTP, metrics and TCP front ends with their connection threads, and
+    the replica fan-out pool — and releases the port's cached channels to
+    this server's address, so a process that starts and stops servers
+    (tests, chip_smoke.py) leaves no thread or channel behind.  It leaves
+    the process-wide codec service running, as the reference does:
+    sibling servers in the process may be using it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import urllib.error
 import weakref
 
 import grpc
@@ -40,11 +46,20 @@ from ..ops.codec import get_codec
 from ..pb import master_pb2
 from ..pb import rpc as rpclib
 from ..pb import volume_server_pb2 as vs
-from ..stats.metrics import DISK_SIZE_GAUGE, REGISTRY, VOLUME_GAUGE
+from ..security import Guard
+from ..stats.metrics import (
+    DISK_SIZE_GAUGE,
+    REGISTRY,
+    REPLICATION_ERROR,
+    VOLUME_GAUGE,
+    serve_metrics,
+)
 from ..storage.scrub import Scrubber
 from ..storage.store import Store
-from ..util import glog
+from ..util import connpool, glog
+from ..util.executors import MeteredThreadPoolExecutor
 from .grpc_handlers import VolumeGrpcService, _write_stream
+from .http_handlers import serve_http
 
 GRPC_PORT_OFFSET = 10000
 
@@ -75,10 +90,15 @@ class VolumeServer:
         codec_name: str = "cuda",
         pulse_seconds: float = 3.0,
         max_volume_count: int | None = None,
+        metrics_port: int = 0,
+        jwt_signing_key: bytes | str = b"",
+        whitelist: list[str] | None = None,
+        tcp_port: int = 0,  # experimental raw-TCP data path; 0 disables
         disk_types: list[str] | None = None,  # per-dir: hdd (default) / ssd
     ):
         self.ip = ip
         self.port = port
+        self.tcp_port = tcp_port
         self.grpc_port = port + GRPC_PORT_OFFSET
         self.master_addresses = master_addresses
         self.pulse_seconds = pulse_seconds
@@ -107,10 +127,25 @@ class VolumeServer:
         # mutating rpcs stamped with an older epoch are rejected — a
         # deposed master cannot drive rebuilds/vacuums on this node
         self._leader_epoch = 0
+        self.metrics_port = metrics_port
+        self.jwt_signing_key = (
+            jwt_signing_key.encode() if isinstance(jwt_signing_key, str)
+            else jwt_signing_key
+        )
+        self.guard = Guard(whitelist)
         self._stop = threading.Event()
+        self._httpd = None
+        self._metricsd = None
+        self._tcpd = None
         self._grpc_server = None
         self._hb_thread: threading.Thread | None = None
         self._hb_call = None  # the live SendHeartbeat stream, cancelled by stop
+        # replica fan-out workers: writes/deletes post to every peer
+        # CONCURRENTLY on pooled connections, so the client's ack waits
+        # one slowest-peer RTT, not the sum over peers
+        self._replica_pool = MeteredThreadPoolExecutor(
+            max_workers=8, name="replica_fanout",
+            thread_name_prefix="replica-fanout")
         # self-healing integrity plane: throttled background scrubber +
         # quarantine the read path feeds (SEAWEEDFS_TPU_SCRUB_RATE_MBPS=0
         # disables the daemon; on-demand VolumeScrub still works)
@@ -141,13 +176,25 @@ class VolumeServer:
                 ev.partial_client = self._make_partial_client(vid)
                 ev.corruption_hook = self.scrubber.suspect_shard
         self.scrubber.start()
+        # flight-recorder plane: always-on low-hz stack sampler feeding
+        # /debug/profile/history (kill-switch + hz env knobs respected)
+        from ..util import profiler as _profiler
+
+        _profiler.ensure_continuous()
+        self._httpd = serve_http(self, "0.0.0.0", self.port)
         self._grpc_server = rpclib.serve(
             [(rpclib.VOLUME_SERVER, VolumeGrpcService(self))], self.grpc_port)
+        if self.metrics_port:
+            self._metricsd = serve_metrics(self.metrics_port)
+        if self.tcp_port:
+            from .tcp_handlers import serve_tcp
+
+            self._tcpd = serve_tcp(self, self.tcp_port)
         self._hb_thread = threading.Thread(
             target=self._heartbeat_loop, name="volume-heartbeat", daemon=True)
         self._hb_thread.start()
-        glog.info("volume server started grpc=%d codec=%s dirs=%s",
-                  self.grpc_port, self.store.codec_name,
+        glog.info("volume server started http=%d grpc=%d codec=%s dirs=%s",
+                  self.port, self.grpc_port, self.store.codec_name,
                   ",".join(loc.directory for loc in self.store.locations))
 
     def stop(self) -> None:
@@ -155,8 +202,16 @@ class VolumeServer:
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=10.0)
         self.scrubber.stop()
+        # each front end: stop accepting, close its connections, join its
+        # loop and connection threads
+        for srv in (self._tcpd, self._httpd, self._metricsd):
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+                srv.serve_thread.join(timeout=10.0)
         if self._grpc_server is not None:
             self._grpc_server.stop(grace=0.5).wait()
+        self._replica_pool.shutdown(wait=True)
         rpclib.close_channels(f"{self.ip}:{self.grpc_port}")
         # NOTE: the shared EC codec service is deliberately NOT closed
         # here — it is a process-wide singleton, and several volume
@@ -594,3 +649,123 @@ class VolumeServer:
             except grpc.RpcError:
                 pass
         return size
+
+    def lookup_volume_url(self, vid: int) -> str | None:
+        """Public URL of some server holding vid (for read redirects)."""
+        master = self.current_leader or self.master_addresses[0]
+        try:
+            resp = rpclib.master_stub(master, timeout=5).LookupVolume(
+                master_pb2.LookupVolumeRequest(volume_or_file_ids=[str(vid)])
+            )
+        except grpc.RpcError:
+            return None
+        for entry in resp.volume_id_locations:
+            for loc in entry.locations:
+                return loc.public_url or loc.url
+        return None
+
+    # -- replication fan-out ---------------------------------------------
+
+    def other_replica_locations(self, vid: int) -> list[str]:
+        """Ask the master where the other replicas of vid live."""
+        master = self.current_leader or self.master_addresses[0]
+        try:
+            stub = rpclib.master_stub(master, timeout=5)
+            resp = stub.LookupVolume(
+                master_pb2.LookupVolumeRequest(volume_or_file_ids=[str(vid)])
+            )
+        except grpc.RpcError:
+            return []
+        out = []
+        me = self.store.public_url
+        for loc in resp.volume_id_locations:
+            for location in loc.locations:
+                if location.url not in (me, f"{self.ip}:{self.port}"):
+                    out.append(location.url)
+        return out
+
+    def replicate_write(self, fid, path: str, body: bytes, headers) -> str | None:
+        """Fan the write out to every other replica CONCURRENTLY on
+        pooled keep-alive connections; returns the first error (in peer
+        order) or None.  Write-path semantics are unchanged — any peer
+        failure still fails the client's write — but the ack now waits
+        max(peer RTT) instead of sum(connect + POST) per peer."""
+        v = self.store.find_volume(fid.volume_id)
+        if v is None or v.super_block.replica_placement.copy_count() <= 1:
+            return None
+        peers = self.other_replica_locations(fid.volume_id)
+        if not peers:
+            return None
+        sep = "&" if "?" in path else "?"
+        from ..telemetry import trace
+        from ..util.http_util import trace_headers
+
+        ct = headers.get("Content-Type")
+        auth = headers.get("Authorization")
+
+        def post(peer: str) -> str | None:
+            url = f"http://{peer}{path}{sep}type=replicate"
+            try:
+                with trace.child_span("volumeServer.replicate", peer=peer):
+                    # traceparent captured inside the span so the peer's
+                    # span parents to the replicate hop
+                    hdrs = trace_headers()
+                    if ct:
+                        hdrs["Content-Type"] = ct
+                    if auth:  # write jwt travels with the replica fan-out
+                        hdrs["Authorization"] = auth
+                    with connpool.request("POST", url, body=body,
+                                          headers=hdrs, timeout=10) as r:
+                        r.read()
+                        if r.status >= 300:
+                            return f"peer {peer} status {r.status}"
+            except urllib.error.HTTPError as e:
+                return f"peer {peer} status {e.code}"
+            except OSError as e:
+                return f"peer {peer}: {e}"
+            return None
+
+        if len(peers) == 1:
+            results = [post(peers[0])]
+        else:
+            results = list(self._replica_pool.map(
+                trace.wrap_context(post), peers))
+        for err in results:
+            if err:
+                REPLICATION_ERROR.labels("write").inc()
+                return err
+        return None
+
+    def replicate_delete(self, fid, path: str, auth: str = "") -> None:
+        """Best-effort tombstone fan-out.  A failed peer no longer
+        disappears silently: it logs at warning and counts
+        seaweedfs_replication_error_total{op="delete"} so divergent
+        replicas are visible before a failover read trips over them."""
+        v = self.store.find_volume(fid.volume_id)
+        if v is None or v.super_block.replica_placement.copy_count() <= 1:
+            return
+        peers = self.other_replica_locations(fid.volume_id)
+        if not peers:
+            return
+        sep = "&" if "?" in path else "?"
+        from ..telemetry import trace
+        from ..util.http_util import trace_headers
+
+        def delete(peer: str) -> None:
+            url = f"http://{peer}{path}{sep}type=replicate"
+            hdrs = trace_headers()
+            if auth:
+                hdrs["Authorization"] = auth
+            try:
+                with connpool.request("DELETE", url, headers=hdrs,
+                                      timeout=10) as r:
+                    r.read()
+            except OSError as e:  # incl. HTTPError (4xx/5xx from the peer)
+                REPLICATION_ERROR.labels("delete").inc()
+                glog.warning("replicate delete %s to peer %s failed: %s",
+                             path, peer, e)
+
+        if len(peers) == 1:
+            delete(peers[0])
+        else:
+            list(self._replica_pool.map(trace.wrap_context(delete), peers))

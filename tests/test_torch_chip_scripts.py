@@ -208,7 +208,8 @@ def test_store_lifecycle_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
 
 def test_volume_server_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
                                                    capsys):
-    """chip_smoke.py's volume_server phase on a 16 MiB volume on this host:
+    """chip_smoke.py's volume_server phase, with its http_plane steps (12 MiB
+    of replicated writes for h4), on a 16 MiB volume on this host:
     two port VolumeServers on the `cuda` codec, monkeypatched to the
     kernel's plain version (`torch_cpu`) behind a wrapper that counts each
     call as a launch, and the script's MiniMaster.  Every check of the
@@ -237,20 +238,26 @@ def test_volume_server_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
     chip_smoke.make_volume(str(work / "1"), 16 << 20, seed=3, device="cpu")
     out = chip_smoke.phase_volume_server(
         rs_cuda, gf256, enc, metrics, str(work), seed=0, power="test card",
-        reduced=[], device="cpu", free_port=free_port)
-    rows = {}
+        reduced=[], device="cpu", free_port=free_port,
+        http_write_bytes=12 << 20)
+    rows, http = {}, {}
     for line in capsys.readouterr().out.splitlines():
         row = json.loads(line)
-        rows[row["phase"]] = row
+        if row["phase"] == "http_plane":
+            http[row["step"]] = row
+        else:
+            rows[row["phase"]] = row
     assert set(rows) == {f"volume_server_{s}" for s in (
         "generate", "mount_heartbeat", "reads", "rebuild", "partial_rebuild",
         "partial_fallback", "scrub", "decode", "summary")}
-    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    assert all(r["nvidia_smi"] == "test card"
+               for r in [*rows.values(), *http.values()])
     paths = out["launches_by_path"]
     assert set(paths["gf_matmul"]) == {
         "volume_server_generate", "volume_server_reads",
         "volume_server_rebuild", "volume_server_partial_rebuild",
-        "volume_server_partial_fallback", "volume_server_scrub"}
+        "volume_server_partial_fallback", "volume_server_scrub",
+        "http_plane_h1_canary", "http_plane_h2_degraded_gets"}
     assert paths["gf_matmul_batched"] == {}
     healthy, degraded = rows["volume_server_reads"]["passes"]
     assert not any(healthy["launches"].values())
@@ -261,4 +268,27 @@ def test_volume_server_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
     fallback = rows["volume_server_partial_fallback"]
     assert fallback["fallbacks"] == 1 and fallback["host_apply_rows"] == 0
     assert rows["volume_server_decode"]["dat_sha256_equal"]
+    # phase 4e, http_plane, on the same servers
+    assert set(http) == {"h1_healthy_gets", "h1_canary", "h2_degraded_gets",
+                         "h3_sendfile_gets", "h4_replicated_writes",
+                         "h5_tcp", "h6_query", "h7_metrics_traces"}
+    h2 = http["h2_degraded_gets"]
+    assert h2["byte_equal"] and h2["degraded_intervals"] > 0
+    assert h2["launches"]["gf_matmul"] == h2["degraded_intervals"] \
+        + h2["heads"]["launches"]["gf_matmul"]
+    assert paths["gf_matmul"]["http_plane_h2_degraded_gets"] \
+        == h2["launches"]["gf_matmul"]
+    canary = http["h1_canary"]
+    assert canary["ok"] and canary["reconstructed"]
+    # the dropped data row's decode, and the unread parity rows re-encoded
+    assert canary["launches"]["gf_matmul"] == canary["expected_launches"] == 2
+    assert not any(http["h1_healthy_gets"]["launches"].values())
+    h3 = http["h3_sendfile_gets"]
+    assert h3["sendfile_bytes"] == h3["bytes"] > 0
+    assert h3["range_fallbacks"] == h3["range_gets"] == 64
+    h4 = http["h4_replicated_writes"]
+    assert h4["bytes"] >= 12 << 20 and h4["readback_equal"]
+    assert h4["unsigned_post_status"] == 401 and h4["replication_errors"] == 0
+    assert http["h6_query"]["equal_to_plain_filter"]
+    assert http["h7_metrics_traces"]["trace_spans"]["volumeServer.get"] > 0
     assert not os.path.exists(work / "server_b")

@@ -252,7 +252,6 @@ def test_unported_rpcs_answer_unimplemented(tmp_path):
         stub = rpc.volume_server_stub(f"127.0.0.1:{srv.grpc_port}",
                                       timeout=30)
         for name, req in (
-                ("Query", vs.QueryRequest(from_file_ids=["1,01"])),
                 ("VolumeTierMoveDatToRemote",
                  vs.VolumeTierMoveDatToRemoteRequest(volume_id=1)),
                 ("VolumeTierMoveDatFromRemote",
@@ -260,6 +259,11 @@ def test_unported_rpcs_answer_unimplemented(tmp_path):
             with pytest.raises(grpc.RpcError) as e:
                 list(getattr(stub, name)(req))
             assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED, name
+        # Query is ported: a malformed fid is an error of its own, not
+        # UNIMPLEMENTED (tests/test_torch_query.py holds its answers)
+        with pytest.raises(grpc.RpcError) as e:
+            list(stub.Query(vs.QueryRequest(from_file_ids=["1,01"])))
+        assert e.value.code() != grpc.StatusCode.UNIMPLEMENTED
         # and an implemented one answers
         assert stub.VolumeServerStatus(
             vs.VolumeServerStatusRequest()).disk_statuses[0].dir == str(

@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3]
                           [--store-volume-gib 12] [--seed 0]
+                          [--cluster-volume-gib 8] [--cluster-codec cuda]
                           [--only-ec-reads | --only-store |
-                           --only-volume-server]
+                           --only-volume-server | --only-cluster]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
 volume, the whole lifecycle of a volume through the store that owns it
 (write, encode, serve, rebuild, scrub, `ec.decode`), and the same
-lifecycle driven over gRPC through the volume server's rpcs.  A full volume
+lifecycle driven over gRPC through the volume server's rpcs, and the
+system as operators start it: a master, volume servers and the admin
+shell, each a `python -m seaweedfs_tpu_torch` process.  A full volume
 `.dat` of needle records is striped into the RS(10,4) shards
 `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
 ones are rebuilt, and needles are read back, lost intervals decoded on
@@ -132,6 +135,24 @@ Phases, each printing one JSON line:
      put, got and deleted over A's TCP port; (h6) Query over the 256
      JSON-lines needles, equal to a plain filter; (h7) /metrics on A's
      metrics port lists the HTTP families, /debug/traces holds GET spans;
+  4f. cluster, in a fresh directory after 4c-4e's is removed: a master
+     (`-volumeSizeLimitMB 30000 -maintenanceInterval 0`) and three volume
+     processes (`-max 40`, no -ec.codec: their default `cuda`; A alone in
+     rack1 holding a sealed volume of --cluster-volume-gib, 8 by default,
+     made before it starts; B and C in rack0), started in that order; (1)
+     256 MiB of seeded needles by /dir/assign?replication=001, POSTed by
+     16 threads and read back through /dir/lookup; (2) `shell -c
+     "ec.encode -volumeId=1"` as a process: 14 shards over the 3 nodes
+     equal to balanced_ec_distribution's plan, every slice's parity equal
+     to the plain version, the servers' kernel launches and codec ops read
+     from their /metrics (the host codec's apply_rows unmoved); (3) 4096
+     GETs through the master's lookup from this process, bodies equal to
+     the .dat records; (4) C SIGKILLed (its shards hashed first), the
+     master drops it, the same GETs degraded; (5) `ec.rebuild -force`: C's
+     shards back on A or B, equal by sha256; (6) `ec.decode -volumeId=1`:
+     the .dat equal by sha256 and served; (7) SIGTERM: each process exits
+     0 within 30 s with no traceback after the signal.  Counts are read
+     just before and just after each step;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -160,7 +181,10 @@ line; `--only-store` runs phases 1-3 and 4c alone, at
 0.5`), and prints no kernels line; `--only-volume-server` runs phases 1-2
 and 4d with 4e alone, on a volume of `--store-volume-gib` written for it (a
 quick check: `--only-volume-server --store-volume-gib 0.5`), and prints
-no kernels line.  Exits non-zero, printing no result, without a CUDA card
+no kernels line; `--only-cluster` runs phases 1-2 and 4f alone (a quick
+check: `--only-cluster --cluster-volume-gib 0.5`), and prints no kernels
+line; `--cluster-codec` passes -ec.codec to 4f's volume processes (a
+CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
 or without the package beside this script.  Data comes from --seed;
 nothing is downloaded.
 """
@@ -172,6 +196,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2372,6 +2397,577 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
 # -- phase 5 -------------------------------------------------------------
 
 
+# -- phase 4f: cluster -------------------------------------------------------
+
+CLUSTER_VOLUME_BYTES = 8 * GIB  # the sealed volume A holds before it starts
+CLUSTER_WRITE_BYTES = 256 * MIB  # step 1: replicated writes through assigns
+CLUSTER_DECODE_SAMPLE = 64  # step 6: GETs served from the decoded .dat
+CLUSTER_START_S = 60.0  # every process registered and the volume listed
+CLUSTER_STOP_S = 30.0  # each process's exit after SIGTERM
+CLUSTER_LIVENESS_S = 60.0  # the master drops a killed node (3 pulses)
+# the volume servers' ops that say which codec did the GF work, and the
+# kernels' own launch counts (each wrapper's count, mirrored in /metrics)
+_CODEC_FAMILIES = ("seaweedfs_ec_op_seconds_count",
+                   "seaweedfs_ec_rebuild_seconds_count")
+_LAUNCH_FAMILY = "seaweedfs_cuda_kernel_launches_total"
+_SERVICE_FAMILY = "seaweedfs_ec_service_jobs_total"
+# a degraded read on a node holding < 10 shards takes the partial-sum path
+# by default: its peers send pre-summed rows, its local columns are applied
+# on the host codec (storage/ec/volume.py::_partial_decode)
+_PARTIAL_FAMILY = "seaweedfs_ec_partial_jobs_total"
+_PARTIAL_FALLBACK_FAMILY = "seaweedfs_ec_partial_fallback_total"
+
+
+class _Cluster:
+    """A master and three volume servers, each a `python -m
+    seaweedfs_tpu_torch` process with its log in `work`; the shell runs
+    as a process of its own per command."""
+
+    def __init__(self, work: str, codec: str, free_port):
+        self.work = work
+        self.codec = codec
+        self.free_port = free_port
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.logs: dict[str, str] = {}
+        self.log_mark: dict[str, int] = {}
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])}
+        self.root = root
+        self.master_port = free_port()
+        self.master_metrics = free_port()
+        self.nodes: dict[str, dict] = {}
+        self.killed: set[str] = set()  # SIGKILLed on purpose
+
+    def start(self, name: str, *argv: str) -> None:
+        log = os.path.join(self.work, f"{name}.log")
+        self.logs[name] = log
+        with open(log, "wb") as f:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
+                cwd=self.work, env=self.env, stdout=f,
+                stderr=subprocess.STDOUT)
+
+    def start_master(self) -> None:
+        self.start("master", "master", "-port", str(self.master_port),
+                   "-volumeSizeLimitMB", "30000", "-maintenanceInterval",
+                   "0", "-metricsPort", str(self.master_metrics))
+
+    def start_volume(self, name: str, rack: str, directory: str) -> None:
+        port, metrics_port = self.free_port(), self.free_port()
+        self.nodes[name] = {"port": port, "metrics": metrics_port,
+                            "dir": directory, "url": f"127.0.0.1:{port}"}
+        argv = ["volume", "-dir", directory, "-mserver",
+                f"127.0.0.1:{self.master_port}", "-port", str(port),
+                "-rack", rack, "-max", "40", "-metricsPort",
+                str(metrics_port)]
+        if self.codec != "cuda":  # cuda is the servers' own default
+            argv += ["-ec.codec", self.codec]
+        self.start(name, *argv)
+
+    def http_json(self, path: str, port: int | None = None) -> dict:
+        import urllib.request
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port or self.master_port}{path}",
+                timeout=60) as r:
+            return json.loads(r.read())
+
+    def wait_for(self, what: str, cond, timeout: float) -> float:
+        """Poll `cond` until true; -> seconds waited.  A process that died
+        meanwhile fails the wait at once."""
+        t0 = time.perf_counter()
+        while True:
+            try:
+                if cond():
+                    return time.perf_counter() - t0
+            except Exception:  # noqa: BLE001 — not up yet
+                pass
+            for name, p in self.procs.items():
+                if p.poll() is not None and name not in self.killed:
+                    raise AssertionError(f"{name} exited {p.returncode} "
+                                         f"while waiting for {what}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"{what}: not within {timeout} s")
+            time.sleep(0.1)
+
+    def shell(self, command: str) -> tuple[float, str]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+             "-master", f"127.0.0.1:{self.master_port}", "-c", command],
+            cwd=self.work, env=self.env, capture_output=True, text=True,
+            timeout=1800)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(self.work, "shell.log"), "a") as f:
+            f.write(f"$ shell -c {command!r}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            raise AssertionError(f"shell -c {command!r} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return wall, proc.stdout
+
+    def scrape(self, name: str) -> dict[str, float]:
+        """The server's /metrics samples of the codec, service and launch
+        families, as {"name{labels}": value}."""
+        import urllib.request
+
+        node = self.nodes[name]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{node['metrics']}/metrics",
+                timeout=60) as r:
+            text = r.read().decode()
+        out = {}
+        for line in text.splitlines():
+            if line.startswith(_CODEC_FAMILIES + (
+                    _LAUNCH_FAMILY, _SERVICE_FAMILY, _PARTIAL_FAMILY,
+                    _PARTIAL_FALLBACK_FAMILY)):
+                key, _, value = line.rpartition(" ")
+                out[key] = float(value)
+        return out
+
+    def ec_shards(self, vid: int) -> dict[int, list[str]]:
+        """The master's LookupEcVolume: shard id -> holder urls."""
+        from seaweedfs_tpu_torch.pb import master_pb2
+        from seaweedfs_tpu_torch.pb import rpc as rpclib
+
+        stub = rpclib.master_stub(f"127.0.0.1:{self.master_port + 10000}",
+                                  timeout=30)
+        resp = stub.LookupEcVolume(master_pb2.LookupEcVolumeRequest(
+            volume_id=vid))
+        return {e.shard_id: sorted(loc.url for loc in e.locations)
+                for e in resp.shard_id_locations}
+
+    def tails(self) -> str:
+        out = []
+        for name, log in self.logs.items():
+            with open(log, "rb") as f:
+                f.seek(max(0, os.path.getsize(log) - 4000))
+                out.append(f"--- {name} ({log}) ---\n"
+                           + f.read().decode(errors="replace"))
+        return "\n".join(out)
+
+    def stop_all(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _moved(before: dict, after: dict, family: str = "",
+           **labels) -> float:
+    """The sum of the samples of `family` whose labels include `labels`
+    that moved between two scrapes."""
+    total = 0.0
+    for key, value in after.items():
+        if family and not key.startswith(family + "{"):
+            continue
+        if all(f'{k}="{v}"' in key for k, v in labels.items()):
+            total += value - before.get(key, 0.0)
+    return total
+
+
+def _codec_ops(before: dict, after: dict, impl: str) -> dict:
+    """Codec op counts that moved, by op, for one impl; the rebuilds timed
+    on that impl as op "rebuild"."""
+    out = {}
+    for key, value in after.items():
+        if f'impl="{impl}"' not in key or value <= before.get(key, 0):
+            continue
+        if key.startswith("seaweedfs_ec_op_seconds_count{"):
+            op = key.split('op="', 1)[1].split('"', 1)[0]
+        elif key.startswith("seaweedfs_ec_rebuild_seconds_count{"):
+            op = "rebuild"
+        else:
+            continue
+        out[op] = out.get(op, 0) + value - before.get(key, 0.0)
+    return out
+
+
+def _launches_moved(before: dict, after: dict) -> dict:
+    return {k: int(_moved(before, after, _LAUNCH_FAMILY, kernel=k))
+            for k in ("gf_matmul", "gf_matmul_batched")}
+
+
+def _cluster_get_pass(name: str, master: "_Cluster", vid: int, keys: list,
+                      records: dict) -> dict:
+    """Every key GET by EC_READ_THREADS threads from the volume's holders
+    as the master's /dir/lookup lists them (one lookup, cached, as a
+    client's vid map does), each body held against its .dat record."""
+    locs = [loc["url"] for loc in master.http_json(
+        f"/dir/lookup?volumeId={vid}")["locations"]]
+    clients = {u: _KeepAlive(int(u.rsplit(":", 1)[1])) for u in locs}
+
+    def get(i_key) -> float:
+        i, key = i_key
+        r = records[key]
+        url = locs[i % len(locs)]
+        t0 = time.perf_counter()
+        status, headers, body = clients[url].request(
+            "GET", "/" + _fid(vid, key, r["cookie"]))
+        dt = time.perf_counter() - t0
+        if status != 200 or hashlib.sha256(body).hexdigest() \
+                != r["data_sha256"]:
+            raise AssertionError(f"GET of needle {key:x} from {url}: "
+                                 f"{status}, body differs from its record")
+        return dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        lat = list(pool.map(get, enumerate(keys)))
+    return _latency_row(name, lat, time.perf_counter() - t0,
+                        bytes=sum(records[k]["size"] for k in keys),
+                        holders=locs, byte_equal=True)
+
+
+def _cluster_writes(master: "_Cluster", total: int, seed: int) -> dict:
+    """Step 1: seeded needles of 1 B..256 KiB, `total` bytes, each by
+    /dir/assign?replication=001, a POST to the assigned server (which
+    fans it out to its replica) and a read back through /dir/lookup."""
+    import urllib.request
+
+    rng = np.random.default_rng(seed + 60)
+    payloads, size = [], 0
+    while size < total:
+        p = rng.integers(0, 256, int(rng.integers(1, NEEDLE_MAX_DATA + 1)),
+                         dtype=np.uint8).tobytes()
+        payloads.append(p)
+        size += len(p)
+    mport = master.master_port
+    assign_lat, write_lat = [], []
+
+    def write(payload: bytes) -> str:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{mport}/dir/assign?replication=001",
+                timeout=60) as r:
+            a = json.loads(r.read())
+        t1 = time.perf_counter()
+        req = urllib.request.Request(f"http://{a['url']}/{a['fid']}",
+                                     data=payload, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 201:
+                raise AssertionError(f"POST {a['fid']}: {r.status}")
+        t2 = time.perf_counter()
+        assign_lat.append(t1 - t0)
+        write_lat.append(t2 - t0)
+        vid = a["fid"].split(",")[0]
+        locs = master.http_json(f"/dir/lookup?volumeId={vid}")["locations"]
+        if len(locs) != 2:
+            raise AssertionError(f"volume {vid}: {len(locs)} replicas, "
+                                 "replication 001 wants 2")
+        for loc in locs:
+            with urllib.request.urlopen(
+                    f"http://{loc['url']}/{a['fid']}", timeout=60) as r:
+                if r.read() != payload:
+                    raise AssertionError(f"{a['fid']} from {loc['url']} "
+                                         "differs from what was written")
+        return vid
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        vids = sorted(set(pool.map(write, payloads)))
+    wall = time.perf_counter() - t0
+    lat = np.asarray(write_lat)
+    return {"needles": len(payloads), "bytes": size, "threads":
+            EC_READ_THREADS, "wall_s": wall, "volumes": vids,
+            "assigns_per_s": len(payloads) / wall,
+            "write_GBps": size / wall / 1e9,
+            "assign_p50_ms": float(np.percentile(assign_lat, 50)) * 1e3,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "readback_equal": True}
+
+
+def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
+                  power: str, reduced: list[str], codec: str = "cuda",
+                  device: str = "cuda", free_port=free_port_pair,
+                  write_bytes: int = CLUSTER_WRITE_BYTES) -> dict:
+    """The system as its operators start it: `python -m seaweedfs_tpu_torch
+    master`, three `volume` processes on their default codec (`cuda`;
+    `codec` other than cuda is passed as -ec.codec) and `shell -c` for
+    each admin command.  A (rack1, alone in its rack) holds a sealed
+    volume of `size` bytes of real needle records made before it starts;
+    B and C share rack0.  Steps, each on its own line: (0) start, every
+    node and the volume listed by /dir/status; (1) replicated writes
+    through assigns; (2) `ec.encode -volumeId=1` from the shell: 14 shards
+    over the 3 nodes as balanced_ec_distribution plans them, every
+    slice's parity equal to the plain version, the card's counts moved on
+    the servers; (3) healthy GETs of 4096 keys through the master's
+    lookup, bodies equal to the .dat records; (4) C SIGKILLed, the master
+    drops it, the same GETs degraded on A and B; (5) `ec.rebuild -force`:
+    C's shards rebuilt equal by sha256; (6) `ec.decode -volumeId=1`: the
+    .dat equal by sha256 and served; (7) SIGTERM: each process exits
+    within 30 s with no traceback after it.  Each step's launch and op
+    counts are the servers' own, read from /metrics just before and just
+    after it.  -> launches by kernel and step, and the rows."""
+    from seaweedfs_tpu_torch.pb import master_pb2
+    from seaweedfs_tpu_torch.pb import rpc as rpclib
+    from seaweedfs_tpu_torch.shell.ec_commands import (_free_ec_slots,
+                                                       _iter_nodes)
+    from seaweedfs_tpu_torch.topology.placement import \
+        balanced_ec_distribution
+
+    t_phase = time.perf_counter()
+    dirs = {n: os.path.join(work, n) for n in ("a", "b", "c")}
+    for d in dirs.values():
+        os.makedirs(d)
+    base = os.path.join(dirs["a"], "1")
+    t0 = time.perf_counter()
+    needles = make_volume(base, size, seed, device)
+    make_s = time.perf_counter() - t0
+    dat_size, records = _needle_records(base, seed)
+    dat_sha = sha256_of(base + ".dat")
+    keys = sorted(records)
+    cl = _Cluster(work, codec, free_port)
+    rows: dict[str, dict] = {}
+    paths: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+
+    def step(name: str, row: dict) -> None:
+        row = {"phase": f"cluster_{name}", **row, "nvidia_smi": power}
+        emit(row)
+        rows[name] = row
+
+    def scrape_all(names=("a", "b", "c")) -> dict:
+        return {n: cl.scrape(n) for n in names if n not in cl.killed}
+
+    def counted(name: str, before: dict, after: dict) -> dict:
+        """Per server: the launches, the codec ops on the servers' codec
+        and the host codec's apply_rows that moved in one step."""
+        out = {}
+        for n in after:
+            launches = _launches_moved(before[n], after[n])
+            for k, v in launches.items():
+                if v:
+                    paths[k][f"cluster_{name}_{n}"] = v
+            out[n] = {"launches": launches,
+                      "ops": _codec_ops(before[n], after[n], codec),
+                      "service_jobs": _moved(before[n], after[n],
+                                             _SERVICE_FAMILY),
+                      "partial_fetches": _moved(before[n], after[n],
+                                                _PARTIAL_FAMILY,
+                                                kind="fetch", result="ok"),
+                      "partial_serves": _moved(before[n], after[n],
+                                               _PARTIAL_FAMILY,
+                                               kind="serve", result="ok"),
+                      "partial_fallbacks": _moved(
+                          before[n], after[n], _PARTIAL_FALLBACK_FAMILY),
+                      "host_apply_rows": _moved(
+                          before[n], after[n],
+                          "seaweedfs_ec_op_seconds_count",
+                          op="apply_rows", impl="cpu")}
+        return out
+
+    def check_route(what: str, counts: dict, servers,
+                    ops: bool = False) -> None:
+        """The servers' codec did the work on `servers`: on the card the
+        kernels launched there (the wrappers' own counts); with `ops`, the
+        codec's instrumented ops moved too (the direct encode route calls
+        none of them).  The host codec's apply_rows moved on none of them
+        (unless the servers' codec is the host's)."""
+        for n in servers:
+            c = counts[n]
+            if codec == "cuda" and not sum(c["launches"].values()):
+                raise AssertionError(f"{what}: no kernel launched on {n}: "
+                                     f"{c}")
+            if ops and not c["ops"]:
+                raise AssertionError(f"{what}: no {codec} codec op moved "
+                                     f"on {n}: {c}")
+            if codec != "cpu" and c["host_apply_rows"]:
+                raise AssertionError(f"{what}: the host codec's "
+                                     f"apply_rows moved on {n}: {c}")
+
+    try:
+        # 0. start: the master, then A (rack1), then B and C (rack0), each
+        # registered before the next starts, so the topology lists them in
+        # that order
+        cl.start_master()
+        cl.wait_for("the master's /dir/status",
+                    lambda: cl.http_json("/dir/status") is not None,
+                    CLUSTER_START_S)
+        t0 = time.perf_counter()
+        for name, rack in (("a", "rack1"), ("b", "rack0"), ("c", "rack0")):
+            cl.start_volume(name, rack, dirs[name])
+            url = cl.nodes[name]["url"]
+            cl.wait_for(f"{name} registered", lambda u=url: u in cl.http_json(
+                "/dir/status")["DataNodes"], CLUSTER_START_S)
+        a_url, b_url, c_url = (cl.nodes[n]["url"] for n in "abc")
+        cl.wait_for("volume 1 listed", lambda: 1 in cl.http_json(
+            "/dir/status")["DataNodes"][a_url]["volumes"], CLUSTER_START_S)
+        for n in "abc":
+            cl.wait_for(f"{n}'s /metrics", lambda n=n: cl.scrape(n) is not None,
+                        CLUSTER_START_S)
+        step("start", {"codec": codec, "start_s": time.perf_counter() - t0,
+                       "make_volume_s": make_s, "volume_bytes": dat_size,
+                       "needles": needles, "nodes": 3,
+                       "reduced": reduced})
+
+        # 1. replicated writes
+        before = scrape_all()
+        w = _cluster_writes(cl, write_bytes, seed)
+        # the heartbeats carry the grown volumes to the topology, which the
+        # shell's spread plan reads: wait for both replicas of each
+        cl.wait_for("the written volumes in the topology", lambda: all(
+            sum(int(v) in n["volumes"] for n in cl.http_json(
+                "/dir/status")["DataNodes"].values()) == 2
+            for v in w["volumes"]), CLUSTER_START_S)
+        step("writes", {**w, "counts": counted("writes", before,
+                                               scrape_all())})
+
+        # 2. ec.encode from the shell
+        stub = rpclib.master_stub(f"127.0.0.1:{cl.master_port + 10000}",
+                                  timeout=60)
+        topo = stub.VolumeList(master_pb2.VolumeListRequest()).topology_info
+        free = {dn.id: _free_ec_slots(dn) for _dc, _r, dn in _iter_nodes(topo)}
+        free[a_url] = max(free.get(a_url, 0), 1)
+        plan = balanced_ec_distribution(free, 14)
+        before = scrape_all()
+        wall, out = cl.shell("ec.encode -volumeId=1")
+        cl.wait_for("14 shards at the master", lambda: len(
+            cl.ec_shards(1)) == 14, CLUSTER_START_S)
+        after = scrape_all()
+        counts = counted("encode", before, after)
+        spread = {}
+        for sid, holders in cl.ec_shards(1).items():
+            for u in holders:
+                spread.setdefault(u, []).append(sid)
+        spread = {u: sorted(s) for u, s in spread.items()}
+        if spread != {u: sorted(s) for u, s in plan.items()} \
+                or len(spread) != 3:
+            raise AssertionError(f"spread {spread} is not the plan {plan} "
+                                 "over 3 nodes")
+        if os.path.exists(base + ".dat"):
+            raise AssertionError("the source .dat survived ec.encode")
+        check_route("ec.encode", counts, ["a"])
+        by_url = {cl.nodes[n]["url"]: n for n in "abc"}
+        shard_path = {sid: os.path.join(dirs[by_url[u[0]]], f"1.ec{sid:02d}")
+                      for sid, u in cl.ec_shards(1).items()}
+        links = os.path.join(work, "parity_view")
+        os.makedirs(links)
+        for sid, p in shard_path.items():
+            os.symlink(p, os.path.join(links, f"1.ec{sid:02d}"))
+        from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+        checked = check_parity(os.path.join(links, "1"), rs_cuda, gf256,
+                               enc.DEFAULT_SLICE, device=device)
+        shard_size = os.path.getsize(shard_path[0])
+        step("encode", {"seconds": wall, "GBps": dat_size / wall / 1e9,
+                        "shell_output": out.strip()[-400:],
+                        "spread": {by_url[u]: s for u, s in spread.items()},
+                        "plan_equal": True, "parity_slices_checked":
+                        checked, "shard_bytes": shard_size,
+                        "counts": counts})
+
+        # 3. healthy GETs through the master's lookup
+        before = scrape_all()
+        healthy = _cluster_get_pass("healthy", cl, 1, keys, records)
+        step("healthy_gets", {**healthy, "counts": counted(
+            "healthy_gets", before, scrape_all())})
+
+        # 4. C dies; the master drops it; the same GETs, degraded
+        c_shards = sorted(s for s, u in cl.ec_shards(1).items()
+                          if c_url in u)
+        c_sha = dict(zip(c_shards, _parallel_sha256(
+            [shard_path[s] for s in c_shards])))
+        before = scrape_all(("a", "b"))
+        cl.killed.add("c")
+        cl.procs["c"].kill()
+        cl.procs["c"].wait()
+        dropped_s = cl.wait_for("the master drops C", lambda: all(
+            c_url not in u for u in cl.ec_shards(1).values()),
+            CLUSTER_LIVENESS_S)
+        degraded = _cluster_get_pass("degraded", cl, 1, keys, records)
+        counts = counted("degraded_gets", before, scrape_all(("a", "b")))
+        # each survivor decoded what it was asked for: on its codec (the
+        # kernel, on the card) or by partial sums from its peer
+        for n in ("a", "b"):
+            c = counts[n]
+            if not (sum(c["launches"].values()) or c["ops"]
+                    or c["partial_fetches"]):
+                raise AssertionError(f"degraded GETs: {n} decoded nothing: "
+                                     f"{c}")
+        step("degraded_gets", {**degraded, "lost_shards": c_shards,
+                               "master_dropped_c_s": dropped_s,
+                               "counts": counts})
+
+        # 5. ec.rebuild -force restores C's shards on A or B
+        before = scrape_all(("a", "b"))
+        wall, out = cl.shell("ec.rebuild -force")
+        cl.wait_for("14 shards on A and B", lambda: len(cl.ec_shards(1)) == 14
+                    and all(c_url not in u for u in cl.ec_shards(1).values()),
+                    CLUSTER_START_S)
+        counts = counted("rebuild", before, scrape_all(("a", "b")))
+        rebuilt = {}
+        for sid, holders in cl.ec_shards(1).items():
+            if sid in c_sha:
+                rebuilt[sid] = os.path.join(dirs[by_url[holders[0]]],
+                                            f"1.ec{sid:02d}")
+        got = dict(zip(rebuilt, _parallel_sha256(list(rebuilt.values()))))
+        if got != c_sha:
+            raise AssertionError("rebuilt shards differ from C's")
+        rebuilders = sorted({by_url[u[0]] for s, u in cl.ec_shards(1).items()
+                             if s in c_sha})
+        check_route("ec.rebuild", counts, rebuilders, ops=True)
+        step("rebuild", {"seconds": wall,
+                         "GBps_read": 10 * shard_size / wall / 1e9,
+                         "rebuilt": c_shards, "on": rebuilders,
+                         "sha256_equal": True,
+                         "shell_output": out.strip()[-400:],
+                         "counts": counts})
+
+        # 6. ec.decode back to a volume
+        before = scrape_all(("a", "b"))
+        wall, out = cl.shell("ec.decode -volumeId=1")
+        holder = next(n for n in "ab"
+                      if os.path.exists(os.path.join(dirs[n], "1.dat")))
+        decoded_sha = sha256_of(os.path.join(dirs[holder], "1.dat"))
+        if decoded_sha != dat_sha:
+            raise AssertionError("the decoded .dat differs from the original")
+        cl.wait_for("volume 1 back at the master", lambda: 1 in cl.http_json(
+            "/dir/status")["DataNodes"][cl.nodes[holder]["url"]]["volumes"],
+            CLUSTER_START_S)
+        sample = keys[::max(1, len(keys) // CLUSTER_DECODE_SAMPLE)][
+            :CLUSTER_DECODE_SAMPLE]
+        served = _cluster_get_pass("decoded", cl, 1, sample, records)
+        step("decode", {"seconds": wall, "GBps": dat_size / wall / 1e9,
+                        "on": holder, "dat_sha256_equal": True,
+                        "gets": served, "shell_output": out.strip()[-400:],
+                        "counts": counted("decode", before,
+                                          scrape_all(("a", "b")))})
+
+        # 7. SIGTERM: clean exits
+        exits = {}
+        for name in ("a", "b", "master"):
+            p = cl.procs[name]
+            mark = os.path.getsize(cl.logs[name])
+            t0 = time.perf_counter()
+            p.send_signal(signal.SIGTERM)
+            try:
+                rc = p.wait(timeout=CLUSTER_STOP_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name} still running "
+                                     f"{CLUSTER_STOP_S} s after SIGTERM")
+            with open(cl.logs[name], "rb") as f:
+                text = f.read().decode(errors="replace")
+            after_term = text[mark:]
+            if rc != 0 or "Traceback" in after_term:
+                raise AssertionError(f"{name} exited {rc} after SIGTERM: "
+                                     f"{after_term[-2000:]}")
+            exits[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                           "tracebacks_in_log": text.count("Traceback")}
+        step("stop", {"exits": exits})
+    except BaseException:
+        print(cl.tails(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        cl.stop_all()
+    summary = {"phase": "cluster_summary",
+               "wall_s": time.perf_counter() - t_phase,
+               "launches_by_path": paths, "nvidia_smi": power}
+    emit(summary)
+    return {"launches_by_path": paths, "rows": rows}
+
+
 def rebuild_plan(gf256, lost=(0, 1, 2, 3)) -> np.ndarray:
     return gf256.decode_plan_for(gf256.rs_matrix(10, 14), 10,
                                  [i for i in range(14) if i not in lost], lost)
@@ -2792,6 +3388,14 @@ def main() -> int:
                     help="phases 1-2, volume_server and http_plane only, "
                     "on a volume of --store-volume-gib written for it, no "
                     "kernels line (a quick check)")
+    ap.add_argument("--cluster-volume-gib", type=float,
+                    default=CLUSTER_VOLUME_BYTES / GIB)
+    ap.add_argument("--cluster-codec", default="cuda",
+                    help="the volume processes' -ec.codec in the cluster "
+                    "phase (cuda, their default, is not passed)")
+    ap.add_argument("--only-cluster", action="store_true",
+                    help="phases 1-2 and the cluster phase only, no kernels "
+                    "line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -2826,6 +3430,31 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     err = phase_correctness(rs_cuda, gf256, _build, gen)
+
+    def cluster() -> dict:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            # the .dat, its 14 shards and the copies before the source's
+            # delete (SKILL.md's disk trap)
+            size, reduced = volume_size(
+                work, int(args.cluster_volume_gib * GIB) // MIB * MIB,
+                per_volume=3.5)
+            reduced = [f"volume {size} bytes: SeaweedFS's default 30 GB "
+                       "volume limit (-volumeSizeLimitMB 30000) cut for the "
+                       "machine's disk (.dat + 14 shards + copies ~3.4x)"
+                       ] + reduced
+            return phase_cluster(rs_cuda, gf256, work, size, args.seed,
+                                 power, reduced, codec=args.cluster_codec)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    if args.only_cluster:
+        cluster()
+        emit({"phase": "done", "wall_s": time.perf_counter() - start,
+              "only_cluster": True})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if args.only_volume_server:
         work = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
@@ -2894,6 +3523,9 @@ def main() -> int:
         return 0
     store_paths = stored["launches_by_path"]
     server_paths = served["launches_by_path"]
+    # the earlier phases' volume directories are gone: the cluster phase
+    # starts in a fresh one
+    cluster_paths = cluster()["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -2917,13 +3549,15 @@ def main() -> int:
         "launches": e2e["encode_launches"] + e2e["rebuild_launches"]
         + reads["read_launches"] + reads["rebuild_launches"]
         + sum(store_paths["gf_matmul"].values())
-        + sum(server_paths["gf_matmul"].values()),
+        + sum(server_paths["gf_matmul"].values())
+        + sum(cluster_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
             "ec_reads": reads["read_launches"],
             "remote_rebuild": reads["rebuild_launches"],
-            **store_paths["gf_matmul"], **server_paths["gf_matmul"]},
+            **store_paths["gf_matmul"], **server_paths["gf_matmul"],
+            **cluster_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -2939,13 +3573,15 @@ def main() -> int:
         "launches": svc["encode_launches"] + svc["rebuild_launches"]
         + reads["rebuild_batched_launches"]
         + sum(store_paths["gf_matmul_batched"].values())
-        + sum(server_paths["gf_matmul_batched"].values()),
+        + sum(server_paths["gf_matmul_batched"].values())
+        + sum(cluster_paths["gf_matmul_batched"].values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
             "service_rebuild": svc["rebuild_launches"],
             "remote_rebuild": reads["rebuild_batched_launches"],
             **store_paths["gf_matmul_batched"],
-            **server_paths["gf_matmul_batched"]},
+            **server_paths["gf_matmul_batched"],
+            **cluster_paths["gf_matmul_batched"]},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],

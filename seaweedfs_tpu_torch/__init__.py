@@ -72,7 +72,20 @@ EC parity and `ec.decode`):
     scrubber's shared background budget.
   * volume/server.py, volume/grpc_handlers.py — the volume server's gRPC
     side on the `cuda` codec by default: the EC, admin, copy, tail,
-    vacuum, scrub and status rpcs and the master heartbeat.
+    vacuum, scrub and status rpcs and the master heartbeat;
+    volume/http_handlers.py, volume/tcp_handlers.py over util/httpd.py —
+    its HTTP and TCP planes.
+  * master/ — the master: assign and growth, lookups, location pub/sub,
+    the liveness sweep, vacuum, the maintenance loop, the scrub-finding
+    repair pass, admin tokens and the HTTP API (server.py,
+    grpc_handlers.py, sequence.py, observability.py's cluster_status);
+    topology/ (topology.py, volume_layout.py, placement.py); operation/
+    (assign, upload, delete).
+  * shell/ — the admin shell: CommandEnv, the maintenance script, the
+    ec.* and volume.* commands; util/config.py (the TOML tier),
+    util/grace.py (profiling hooks).
+  * cli.py, __main__.py — `python -m seaweedfs_tpu_torch master | volume |
+    server | shell | version`; `-ec.codec` defaults to `cuda`.
 
 Checks: `JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py` holds
 every module against the reference on the CPU (no card, nvcc or triton;
@@ -80,15 +93,17 @@ g++ for native/); `python3 chip_smoke.py` runs the whole path on a card,
 and `python3 chip_smoke.py --only-ec-reads --volume-gib 0.5` the EC read
 phase alone at a quick-check size (`--only-store --store-volume-gib 0.5`
 the store's lifecycle, `--only-volume-server --store-volume-gib 0.5` the
-volume server's).  Every protobuf message of the port lives in pb.POOL,
+volume server's, `--only-cluster --cluster-volume-gib 0.5` a master and
+three volume processes driven by the shell).  Every protobuf message of the port lives in pb.POOL,
 never in protobuf's default pool, where the reference registers the same
 file names: a process importing both packages would fail.
 
-Not ported yet: the volume server's HTTP and TCP planes, the `Query` rpc
-(query/) and the tier moves (backend_s3.py, Volume.tier_to_remote /
+Not ported yet: the tier moves (backend_s3.py, Volume.tier_to_remote /
 tier_to_local), which answer UNIMPLEMENTED; parallel/ (multi-GPU); the
-master, the other servers and the CLI; the cuda_xor / cuda_bitplane
-impls; spans and stage metrics inside the encode pipeline; 5-byte
-offsets.
+master's raft quorum, lifecycle and mass-repair planes, SLO engine and
+canary, flight recorder and federation; the shell's cluster.* and fs.*
+commands; gRPC TLS; the filer, the gateways and the CLI's other
+subcommands; the cuda_xor / cuda_bitplane impls; spans and stage metrics
+inside the encode pipeline; 5-byte offsets.
 util/jaxenv.py works around a JAX-only hang and has no counterpart here.
 """

@@ -24,6 +24,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..stats.metrics import CUDA_KERNEL_LAUNCHES as _LAUNCHES_METRIC
 from . import _build, gf256, gf_network
 from ._build import load
 
@@ -233,6 +234,7 @@ def gf_apply(matrix, data: torch.Tensor) -> torch.Tensor:
     _launch(m, data, row_stride, 0, out, b, 0, b, 1)
     with _COUNT_LOCK:
         gf_apply.launches += 1
+    _LAUNCHES_METRIC.labels("gf_matmul").inc()
     return out
 
 
@@ -291,6 +293,7 @@ def gf_apply_batched(matrix, data: torch.Tensor) -> torch.Tensor:
     _launch(m, data, row_stride, entry_stride, out, b, r * b, b, v)
     with _COUNT_LOCK:
         gf_apply_batched.launches += 1
+    _LAUNCHES_METRIC.labels("gf_matmul_batched").inc()
     return out
 
 

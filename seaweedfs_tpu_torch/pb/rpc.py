@@ -212,13 +212,18 @@ def serve(
     port: int,
     host: str = "0.0.0.0",
     max_workers: int = 16,
+    thread_name_prefix: str = "",
 ) -> grpc.Server:
     """Start a grpc server hosting the given services; returns it started.
-    Raises RuntimeError when the port cannot be bound."""
+    Raises RuntimeError when the port cannot be bound.  The server's
+    worker pool is `server.pool`: a caller that must leave no thread
+    behind shuts it down after `server.stop(...).wait()`."""
     from concurrent import futures
 
+    pool = futures.ThreadPoolExecutor(
+        max_workers=max_workers, thread_name_prefix=thread_name_prefix)
     server = grpc.server(
-        futures.ThreadPoolExecutor(max_workers=max_workers),
+        pool,
         options=[
             ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
             ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
@@ -228,6 +233,7 @@ def serve(
         server.add_generic_rpc_handlers((generic_handler(service, impl),))
     server.add_insecure_port(f"{host}:{port}")
     server.start()
+    server.pool = pool
     return server
 
 

@@ -509,6 +509,17 @@ EC_SERVICE_STAGE = REGISTRY.histogram(
 )
 
 
+# -- the hand-written CUDA kernels (ops/rs_cuda.py) --------------------------
+# one count per launch, added where each wrapper adds one to its own
+# `launches` counter: the only view of a server process's launches from
+# outside it (chip_smoke.py's cluster phase reads it from /metrics)
+
+CUDA_KERNEL_LAUNCHES = REGISTRY.counter(
+    "seaweedfs_cuda_kernel_launches_total",
+    "launches of the port's CUDA kernels, by kernel",
+    labels=("kernel",),  # gf_matmul (gf_apply) | gf_matmul_batched
+)
+
 # -- EC codec operations (ops/codec.py::InstrumentedCodec) -------------------
 # every blocking codec call through get_codec, by op and by the backend
 # that did the GF work (impl="cuda", "cpu", "torch_cpu")
@@ -645,6 +656,13 @@ SCRUB_REPAIRS = REGISTRY.counter(
     "seaweedfs_scrub_repairs_total",
     "self-healing repair attempts by kind and outcome",
     labels=("kind", "result"),  # replica|ec_shard|index x ok|error
+)
+
+# -- the master (master/server.py) --------------------------------------------
+
+VOLUME_UNDERREPLICATED = REGISTRY.gauge(
+    "seaweedfs_volume_underreplicated",
+    "volumes with fewer live replicas than their placement requires",
 )
 
 # -- group commit (storage/group_commit.py) -----------------------------------

@@ -1,7 +1,8 @@
 """Shared HTTP plumbing for the http.server-based servers.
 
 The port's copy of the part of seaweedfs_tpu/util/http_util.py that the
-volume server's replica fan-out uses: `trace_headers`.
+volume server's replica fan-out and operation/upload.py use:
+`trace_headers` and `netloc`.
 
 Reference analogue: weed/util/http_util.go (request helpers shared by
 every server).
@@ -21,3 +22,13 @@ def trace_headers(headers: dict | None = None) -> dict:
     out = dict(headers or {})
     trace.inject_headers(out)
     return out
+
+
+def netloc(url: str) -> str:
+    """host:port of a URL (or of a bare host:port string) — the breaker /
+    location-cache key every failover path shares."""
+    import urllib.parse
+
+    if "//" not in url:
+        return url.split("/", 1)[0]
+    return urllib.parse.urlsplit(url).netloc

@@ -292,3 +292,55 @@ def test_volume_server_phase_rehearsed_on_the_host(tmp_path, monkeypatch,
     assert http["h6_query"]["equal_to_plain_filter"]
     assert http["h7_metrics_traces"]["trace_spans"]["volumeServer.get"] > 0
     assert not os.path.exists(work / "server_b")
+
+
+def test_cluster_phase_rehearsed_on_the_host(tmp_path, capsys):
+    """chip_smoke.py's cluster phase (4f) at 12 MiB on this host: a master
+    and three volume processes of `python -m seaweedfs_tpu_torch` with
+    `-ec.codec torch_cpu` (the kernel's plain version; the phase passes it
+    because the caller asks, never as a fallback), the shell as a process
+    per command.  Every check of the phase passes: the spread is the
+    plan's over 3 nodes, parity equals the plain version, C's shards come
+    back equal by sha256, the decoded .dat equals the original, and each
+    process exits 0 on SIGTERM; the servers' own /metrics show the
+    torch_cpu codec's ops moving and the host codec's apply_rows not."""
+    import chip_smoke
+    from helpers import free_port
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+
+    work = tmp_path / "work"
+    work.mkdir()
+    out = chip_smoke.phase_cluster(
+        rs_cuda, gf256, str(work), 12 << 20, seed=0, power="test card",
+        reduced=["test size"], codec="torch_cpu", device="cpu",
+        free_port=free_port, write_bytes=8 << 20)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {f"cluster_{s}" for s in (
+        "start", "writes", "encode", "healthy_gets", "degraded_gets",
+        "rebuild", "decode", "stop", "summary")}
+    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    enc = rows["cluster_encode"]
+    assert enc["plan_equal"] and sorted(enc["spread"]) == ["a", "b", "c"]
+    assert sorted(s for v in enc["spread"].values() for s in v) \
+        == list(range(14))
+    assert enc["parity_slices_checked"] >= 1
+    assert not enc["counts"]["a"]["host_apply_rows"]
+    assert rows["cluster_writes"]["readback_equal"]
+    assert rows["cluster_writes"]["bytes"] >= 8 << 20
+    deg = rows["cluster_degraded_gets"]
+    assert deg["byte_equal"] and deg["lost_shards"] == enc["spread"]["c"]
+    assert any(s < 10 for s in deg["lost_shards"])
+    for n in ("a", "b"):  # 5 local shards each: the partial-sum path
+        assert deg["counts"][n]["partial_fetches"] > 0, n
+    rebuild = rows["cluster_rebuild"]
+    assert rebuild["sha256_equal"] and all(
+        rebuild["counts"][n]["ops"].get("rebuild") for n in rebuild["on"])
+    assert rows["cluster_decode"]["dat_sha256_equal"]
+    assert {n: e["rc"] for n, e in rows["cluster_stop"]["exits"].items()} \
+        == {"a": 0, "b": 0, "master": 0}
+    # no card: the kernels' launch counters stayed at 0 on every server
+    assert out["launches_by_path"] == {"gf_matmul": {},
+                                       "gf_matmul_batched": {}}

@@ -1,0 +1,270 @@
+"""`python -m seaweedfs_tpu_torch` as an operator runs it: a master and
+two volume servers as real processes (the cluster of
+tests/test_cli_processes.py, with a second volume server where that one
+has a filer, which the port does not have yet), needles written through
+assigns and `ec.encode` run by `shell -c`; SIGTERM stops each process
+cleanly.  Then the refusals: a `volume` with no codec on this card-less
+host names the card, the TPU codec names are refused naming `cuda`, a
+subcommand, plane flag or TLS setting not ported yet exits naming its
+ROADMAP item, and the entry point's modules import neither jax nor any
+module of seaweedfs_tpu."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+from helpers import free_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEADLINE_S = 30.0
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def _cli(args, cwd, timeout=60, **env):
+    return subprocess.run(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=cwd,
+        env=_env(**env), capture_output=True, text=True, timeout=timeout)
+
+
+def _spawn(args, cwd, log):
+    return subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=cwd,
+        env=_env(), stdout=log, stderr=subprocess.STDOUT)
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _wait(cond, what, procs=(), timeout=DEADLINE_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for p in procs:
+            assert p.poll() is None, f"a process exited {p.returncode} " \
+                                     f"while waiting for {what}"
+        try:
+            got = cond()
+            if got:
+                return got
+        except (urllib.error.URLError, OSError, KeyError, ValueError):
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"{what}: not within {timeout} s")
+
+
+def test_cli_three_process_cluster_encodes_from_the_shell(tmp_path):
+    mport = free_port()
+    vports = [free_port(), free_port()]
+    logs = {n: open(tmp_path / f"{n}.log", "wb")
+            for n in ("master", "v0", "v1")}
+    procs = {}
+    try:
+        procs["master"] = _spawn(
+            ["master", "-port", str(mport), "-volumeSizeLimitMB", "64"],
+            str(tmp_path), logs["master"])
+        _wait(lambda: _get_json(
+            f"http://127.0.0.1:{mport}/cluster/healthz")["ok"],
+            "the master", procs.values())
+        for i, vp in enumerate(vports):
+            d = tmp_path / f"v{i}"
+            d.mkdir()
+            procs[f"v{i}"] = _spawn(
+                ["volume", "-dir", str(d), "-port", str(vp), "-mserver",
+                 f"127.0.0.1:{mport}", "-ec.codec=cpu", "-max", "20",
+                 "-rack", f"rack{i}"], str(tmp_path), logs[f"v{i}"])
+        _wait(lambda: len(_get_json(f"http://127.0.0.1:{mport}/dir/status")
+                          ["DataNodes"]) == 2, "two volume servers",
+              procs.values())
+        fids = {}
+        for i in range(12):
+            a = _get_json(f"http://127.0.0.1:{mport}/dir/assign"
+                          "?collection=cli")
+            payload = f"needle {i} ".encode() * (50 + i)
+            req = urllib.request.Request(f"http://{a['url']}/{a['fid']}",
+                                         data=payload, method="POST")
+            with urllib.request.urlopen(req, timeout=10) as r:
+                assert r.status == 201
+            fids[a["fid"]] = payload
+        vid = int(next(iter(fids)).split(",")[0])
+        fids = {f: p for f, p in fids.items()
+                if int(f.split(",")[0]) == vid}
+        out = _cli(["shell", "-master", f"127.0.0.1:{mport}", "-c",
+                    f"ec.encode -volumeId={vid}"], str(tmp_path))
+        assert out.returncode == 0, out.stderr
+        assert f"ec.encode {vid}: spread" in out.stdout
+
+        def fourteen():
+            doc = _get_json(f"http://127.0.0.1:{mport}/dir/status")
+            return sorted(s for n in doc["DataNodes"].values()
+                          for s in n["ecShards"].get(str(vid), [])) \
+                == list(range(14))
+        _wait(fourteen, "14 shards at the master", procs.values())
+        out = _cli(["shell", "-master", f"127.0.0.1:{mport}", "-c",
+                    "volume.list"], str(tmp_path))
+        assert out.returncode == 0 and f"ec{vid}[" in out.stdout
+        for fid, payload in fids.items():
+            for vp in vports:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{vp}/{fid}", timeout=10) as r:
+                    assert r.read() == payload
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs = {}
+        for name, p in procs.items():
+            try:
+                rcs[name] = p.wait(timeout=DEADLINE_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs[name] = "killed"
+        for f in logs.values():
+            f.close()
+    assert rcs == {"master": 0, "v0": 0, "v1": 0}
+    for name in logs:
+        text = (tmp_path / f"{name}.log").read_text(errors="replace")
+        assert "Traceback" not in text, text[-3000:]
+
+
+def test_volume_without_a_codec_needs_the_card(tmp_path):
+    """No -ec.codec: the default is cuda, and this host has no card."""
+    out = _cli(["volume", "-dir", str(tmp_path), "-port", str(free_port()),
+                "-mserver", "127.0.0.1:1"], str(tmp_path),
+               CUDA_VISIBLE_DEVICES="")
+    assert out.returncode != 0
+    assert "CUDA card" in out.stderr and "-ec.codec=cpu" in out.stderr
+    assert len(out.stderr.strip().splitlines()) == 1
+
+
+@pytest.mark.parametrize("name", ["tpu", "tpu_xor", "tpu_mxu", "pallas",
+                                  "tpu_pallas", "jax", "mxu"])
+def test_tpu_codec_names_are_refused_naming_cuda(tmp_path, name):
+    out = _cli(["volume", "-dir", str(tmp_path), "-port", str(free_port()),
+                f"-ec.codec={name}"], str(tmp_path))
+    assert out.returncode == 2
+    assert "names a TPU codec" in out.stderr and "'cuda'" in out.stderr
+
+
+@pytest.mark.parametrize("cmd", ["volume", "server"])
+def test_tpu_codec_type_in_master_toml_is_refused(tmp_path, cmd):
+    (tmp_path / "master.toml").write_text('[codec]\ntype = "tpu"\n')
+    out = _cli([cmd, "-dir", str(tmp_path), "-port", str(free_port())],
+               str(tmp_path))
+    assert out.returncode == 2
+    assert "codec.type" in out.stderr and "'cuda'" in out.stderr
+
+
+def test_codec_type_in_master_toml_is_read(tmp_path):
+    """master.toml's [codec].type is the volume's codec when the flag is
+    not given: `cpu` there starts a server on this card-less host."""
+    (tmp_path / "master.toml").write_text('[codec]\ntype = "cpu"\n')
+    port = free_port()
+    with open(tmp_path / "v.log", "wb") as log:
+        p = _spawn(["volume", "-dir", str(tmp_path), "-port", str(port),
+                    "-mserver", "127.0.0.1:1"], str(tmp_path), log)
+        try:
+            _wait(lambda: (tmp_path / "v.log").read_text().count(
+                "codec=cpu"), "the server's start line", [p])
+        finally:
+            p.send_signal(signal.SIGTERM)
+            assert p.wait(timeout=DEADLINE_S) == 0
+
+
+@pytest.mark.parametrize("cmd,item", [
+    ("filer", "A-7"), ("s3", "A-7"), ("mount", "A-7"), ("webdav", "A-7"),
+    ("benchmark", "A-6"), ("scaffold", "A-6"), ("backup", "A-6"),
+])
+def test_subcommands_not_ported_exit_2_naming_the_roadmap(tmp_path, cmd,
+                                                          item):
+    out = _cli([cmd, "-port", "1"], str(tmp_path))
+    assert out.returncode == 2
+    assert "not ported yet" in out.stderr and f"ROADMAP {item}" in out.stderr
+    assert len(out.stderr.strip().splitlines()) == 1
+
+
+@pytest.mark.parametrize("argv,words", [
+    (["master", "-sloInterval", "15"], "slo_interval"),
+    (["master", "-lifecycleInterval", "5"], "lifecycle_interval"),
+    (["master", "-peers", "127.0.0.1:{p},127.0.0.1:1"], "raft"),
+    (["master", "-lifecyclePolicy", "p.json"], "-lifecyclePolicy"),
+    (["volume", "-tierBackends", "t.json", "-ec.codec=cpu"], "A-2"),
+    (["volume", "-offset.5bytes", "-ec.codec=cpu"], "A-8"),
+    (["server", "-filer", "-ec.codec=cpu"], "A-7"),
+])
+def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
+    p = free_port()
+    argv = [a.replace("{p}", str(p)) for a in argv] + [
+        "-port", str(p)]
+    if argv[0] != "master":
+        argv += ["-dir", str(tmp_path)]
+    out = _cli(argv, str(tmp_path))
+    assert out.returncode != 0
+    assert words in out.stderr and "not ported yet" in out.stderr
+
+
+def test_grpc_tls_in_security_toml_is_refused(tmp_path):
+    (tmp_path / "security.toml").write_text(
+        '[jwt.signing]\nkey = "k"\n[grpc]\nca = "ca.crt"\n'
+        '[grpc.master]\ncert = "m.crt"\nkey = "m.key"\n')
+    out = _cli(["master", "-port", str(free_port())], str(tmp_path))
+    assert out.returncode == 2
+    assert "grpc.ca" in out.stderr and "ROADMAP A-6" in out.stderr
+
+
+def test_security_toml_jwt_key_and_white_list_are_read(tmp_path,
+                                                        monkeypatch):
+    """security.toml's [jwt.signing].key and [guard].white_list are read
+    as the reference reads them, and a master started there signs its
+    assigns (the token verifies against the key, byte for byte as the
+    reference's)."""
+    from seaweedfs_tpu.cli import (_security_jwt_key as ref_key,
+                                   _security_white_list as ref_wl)
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.master.server import MasterServer
+
+    (tmp_path / "security.toml").write_text(
+        '[jwt.signing]\nkey = "k1"\n[guard]\nwhite_list = ["10.0.0.1"]\n')
+    monkeypatch.chdir(tmp_path)
+    assert cli._security_jwt_key() == ref_key() == "k1"
+    assert cli._security_white_list() == ref_wl() == ["10.0.0.1"]
+    m = MasterServer(port=free_port(), jwt_signing_key=cli._security_jwt_key())
+    from seaweedfs_tpu.security.jwt import verify_write_jwt
+
+    assert verify_write_jwt(b"k1", m.sign_fid("3,01637037d6"), "3,01637037d6")
+
+
+def test_version():
+    out = _cli(["version"], REPO)
+    assert out.returncode == 0 and out.stdout.strip() \
+        == "seaweedfs_tpu_torch 0.1.0"
+
+
+def test_entry_point_imports_no_jax_and_no_reference_module():
+    code = ("import sys, seaweedfs_tpu_torch.cli, "
+            "seaweedfs_tpu_torch.master.server, "
+            "seaweedfs_tpu_torch.shell.commands, "
+            "seaweedfs_tpu_torch.volume.server\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'seaweedfs_tpu' "
+            "or m.startswith('seaweedfs_tpu.'))\n"
+            "print(len(sys.modules), bad)\n"
+            "sys.exit(1 if bad else 0)")
+    env = _env()
+    env.pop("JAX_PLATFORMS", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("[]")

@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3]
                           [--store-volume-gib 12] [--seed 0]
-                          [--cluster-volume-gib 8] [--cluster-codec cuda]
+                          [--cluster-volume-gib 4] [--cluster-codec cuda]
+                          [--maintenance-volume-gib 1]
                           [--only-ec-reads | --only-store |
-                           --only-volume-server | --only-cluster]
+                           --only-volume-server | --only-cluster |
+                           --only-maintenance]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
 volume, the whole lifecycle of a volume through the store that owns it
 (write, encode, serve, rebuild, scrub, `ec.decode`), and the same
-lifecycle driven over gRPC through the volume server's rpcs, and the
+lifecycle driven over gRPC through the volume server's rpcs, the
 system as operators start it: a master, volume servers and the admin
-shell, each a `python -m seaweedfs_tpu_torch` process.  A full volume
+shell, each a `python -m seaweedfs_tpu_torch` process, and the master's
+maintenance plane doing the same with no operator: sealing and encoding
+volumes by policy, and rebuilding a dead server's shards on the
+survivors.  A full volume
 `.dat` of needle records is striped into the RS(10,4) shards
 `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
 ones are rebuilt, and needles are read back, lost intervals decoded on
@@ -136,10 +141,12 @@ Phases, each printing one JSON line:
      JSON-lines needles, equal to a plain filter; (h7) /metrics on A's
      metrics port lists the HTTP families, /debug/traces holds GET spans;
   4f. cluster, in a fresh directory after 4c-4e's is removed: a master
-     (`-volumeSizeLimitMB 30000 -maintenanceInterval 0`) and three volume
-     processes (`-max 40`, no -ec.codec: their default `cuda`; A alone in
-     rack1 holding a sealed volume of --cluster-volume-gib, 8 by default,
-     made before it starts; B and C in rack0), started in that order; (1)
+     (`-volumeSizeLimitMB 30000 -maintenanceInterval 0`, its dead-node
+     mass repair switched off by SEAWEEDFS_TPU_MASS_REPAIR=0: this phase's
+     subject is the shell's rebuild) and three volume processes (`-max
+     40`, no -ec.codec: their default `cuda`; A alone in rack1 holding a
+     sealed volume of --cluster-volume-gib, 8 by default, made before it
+     starts; B and C in rack0), started in that order; (1)
      256 MiB of seeded needles by /dir/assign?replication=001, POSTed by
      16 threads and read back through /dir/lookup; (2) `shell -c
      "ec.encode -volumeId=1"` as a process: 14 shards over the 3 nodes
@@ -153,6 +160,30 @@ Phases, each printing one JSON line:
      the .dat equal by sha256 and served; (7) SIGTERM: each process exits
      0 within 30 s with no traceback after the signal.  Counts are read
      just before and just after each step;
+  4g. maintenance, in a fresh directory after 4f's is removed: a master
+     (`-volumeSizeLimitMB` the volumes' size, `-lifecycleInterval 6`,
+     `-lifecyclePolicy` {"*": {"ec_cooldown_seconds": 5}}, the
+     controller's defaults otherwise) and four volume processes (`-max
+     40`, their default `cuda`; A and B in rack0, C and D in rack1, D
+     registered first), each holding two volumes of
+     --maintenance-volume-gib (1 by default) made before it starts, the
+     second last written MAINT_WAVE_GAP_S after the first; no operator
+     command: (1) the controller seals and EC-encodes all 8 volumes in two
+     waves, one volume of each node at a time (14 shards each over the 4
+     nodes, every slice's parity equal to the plain version, sources
+     dropped, batched launches on every generating node, the host codec's
+     apply_rows on none; the second wave stacks 5 shards of a volume on A
+     and B, printed); (2) D
+     SIGKILLed: the seconds until the master drops it, until `shell -c
+     volume.repair` lists every affected volume planned, and until every
+     volume has 14 shards again (the time to recover); (3) 4096 GETs
+     across the 8 volumes from the moment D is dropped, while the repair
+     runs, each body equal to its record; (4) D's shards rebuilt equal by
+     sha256 on the survivors' cards (batched launches on every rebuild
+     target), the repair's rate, partial-sum bytes in against a full
+     fetch, the master's seaweedfs_repair_batch_* counters,
+     `volume.lifecycle` and `volume.repair` showing every job done; (5)
+     SIGTERM: clean exits;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -183,8 +214,10 @@ and 4d with 4e alone, on a volume of `--store-volume-gib` written for it (a
 quick check: `--only-volume-server --store-volume-gib 0.5`), and prints
 no kernels line; `--only-cluster` runs phases 1-2 and 4f alone (a quick
 check: `--only-cluster --cluster-volume-gib 0.5`), and prints no kernels
-line; `--cluster-codec` passes -ec.codec to 4f's volume processes (a
-CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
+line; `--only-maintenance` runs phases 1-2 and 4g alone (a quick check:
+`--only-maintenance --maintenance-volume-gib 0.25`), and prints no
+kernels line; `--cluster-codec` passes -ec.codec to 4f's and 4g's volume
+processes (a CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
 or without the package beside this script.  Data comes from --seed;
 nothing is downloaded.
 """
@@ -1531,8 +1564,9 @@ def _bits_of(shards) -> int:
     return sum(1 << s for s in shards)
 
 
-def _needle_records(base: str, seed: int) -> tuple[int, dict]:
-    """EC_READ_SAMPLE seeded keys of the volume's .idx, each with its .dat
+def _needle_records(base: str, seed: int,
+                    sample: int = EC_READ_SAMPLE) -> tuple[int, dict]:
+    """`sample` seeded keys of the volume's .idx, each with its .dat
     record's offset, length, sha256, its data's sha256, cookie, data length
     and CRC (the port's needle parser verifies that CRC) — what the reads
     over the wire are held against once the .dat is gone.  -> (.dat size,
@@ -1544,7 +1578,7 @@ def _needle_records(base: str, seed: int) -> tuple[int, dict]:
     live = raw[(raw["o"] > 0) & (raw["s"] > 0)
                & (raw["s"] != np.uint32(0xFFFFFFFF))]
     pick = np.random.default_rng(seed + 15).choice(
-        len(live), min(EC_READ_SAMPLE, len(live)), replace=False)
+        len(live), min(sample, len(live)), replace=False)
     out = {}
     with open(base + ".dat", "rb") as f:
         for e in live[np.sort(pick)]:
@@ -2416,6 +2450,11 @@ _SERVICE_FAMILY = "seaweedfs_ec_service_jobs_total"
 # on the host codec (storage/ec/volume.py::_partial_decode)
 _PARTIAL_FAMILY = "seaweedfs_ec_partial_jobs_total"
 _PARTIAL_FALLBACK_FAMILY = "seaweedfs_ec_partial_fallback_total"
+_PARTIAL_BYTES_FAMILY = "seaweedfs_ec_partial_bytes_total"
+# source bytes into rebuilds and partial-sum reads, by locality
+_REBUILD_BYTES_FAMILY = "seaweedfs_ec_rebuild_bytes_total"
+# the master's maintenance plane (phase 4g)
+_MASTER_FAMILIES = ("seaweedfs_repair_batch_", "seaweedfs_lifecycle_")
 
 
 class _Cluster:
@@ -2440,19 +2479,21 @@ class _Cluster:
         self.nodes: dict[str, dict] = {}
         self.killed: set[str] = set()  # SIGKILLed on purpose
 
-    def start(self, name: str, *argv: str) -> None:
+    def start(self, name: str, *argv: str, env: dict | None = None) -> None:
         log = os.path.join(self.work, f"{name}.log")
         self.logs[name] = log
         with open(log, "wb") as f:
             self.procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
-                cwd=self.work, env=self.env, stdout=f,
+                cwd=self.work, env={**self.env, **(env or {})}, stdout=f,
                 stderr=subprocess.STDOUT)
 
-    def start_master(self) -> None:
+    def start_master(self, *flags: str, limit_mb: int = 30000,
+                     env: dict | None = None) -> None:
         self.start("master", "master", "-port", str(self.master_port),
-                   "-volumeSizeLimitMB", "30000", "-maintenanceInterval",
-                   "0", "-metricsPort", str(self.master_metrics))
+                   "-volumeSizeLimitMB", str(limit_mb),
+                   "-maintenanceInterval", "0", "-metricsPort",
+                   str(self.master_metrics), *flags, env=env)
 
     def start_volume(self, name: str, rack: str, directory: str) -> None:
         port, metrics_port = self.free_port(), self.free_port()
@@ -2508,20 +2549,28 @@ class _Cluster:
         return wall, proc.stdout
 
     def scrape(self, name: str) -> dict[str, float]:
-        """The server's /metrics samples of the codec, service and launch
-        families, as {"name{labels}": value}."""
+        """The server's /metrics samples of the codec, service, launch and
+        partial-sum families, as {"name{labels}": value}."""
+        return self.scrape_port(self.nodes[name]["metrics"], _CODEC_FAMILIES
+                                + (_LAUNCH_FAMILY, _SERVICE_FAMILY,
+                                   _PARTIAL_FAMILY, _PARTIAL_FALLBACK_FAMILY,
+                                   _PARTIAL_BYTES_FAMILY,
+                                   _REBUILD_BYTES_FAMILY))
+
+    def scrape_master(self) -> dict[str, float]:
+        """The master's maintenance-plane samples."""
+        return self.scrape_port(self.master_metrics, _MASTER_FAMILIES)
+
+    @staticmethod
+    def scrape_port(port: int, prefixes: tuple) -> dict[str, float]:
         import urllib.request
 
-        node = self.nodes[name]
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{node['metrics']}/metrics",
-                timeout=60) as r:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=60) as r:
             text = r.read().decode()
         out = {}
         for line in text.splitlines():
-            if line.startswith(_CODEC_FAMILIES + (
-                    _LAUNCH_FAMILY, _SERVICE_FAMILY, _PARTIAL_FAMILY,
-                    _PARTIAL_FALLBACK_FAMILY)):
+            if line.startswith(prefixes):
                 key, _, value = line.rpartition(" ")
                 out[key] = float(value)
         return out
@@ -2537,6 +2586,30 @@ class _Cluster:
             volume_id=vid))
         return {e.shard_id: sorted(loc.url for loc in e.locations)
                 for e in resp.shard_id_locations}
+
+    def terminate(self, names) -> dict:
+        """SIGTERM each process in turn: it must exit 0 within
+        CLUSTER_STOP_S with no traceback in its log after the signal."""
+        exits = {}
+        for name in names:
+            p = self.procs[name]
+            mark = os.path.getsize(self.logs[name])
+            t0 = time.perf_counter()
+            p.send_signal(signal.SIGTERM)
+            try:
+                rc = p.wait(timeout=CLUSTER_STOP_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name} still running "
+                                     f"{CLUSTER_STOP_S} s after SIGTERM")
+            with open(self.logs[name], "rb") as f:
+                text = f.read().decode(errors="replace")
+            after_term = text[mark:]
+            if rc != 0 or "Traceback" in after_term:
+                raise AssertionError(f"{name} exited {rc} after SIGTERM: "
+                                     f"{after_term[-2000:]}")
+            exits[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                           "tracebacks_in_log": text.count("Traceback")}
+        return exits
 
     def tails(self) -> str:
         out = []
@@ -2684,9 +2757,11 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
                   device: str = "cuda", free_port=free_port_pair,
                   write_bytes: int = CLUSTER_WRITE_BYTES) -> dict:
     """The system as its operators start it: `python -m seaweedfs_tpu_torch
-    master`, three `volume` processes on their default codec (`cuda`;
-    `codec` other than cuda is passed as -ec.codec) and `shell -c` for
-    each admin command.  A (rack1, alone in its rack) holds a sealed
+    master` (its dead-node mass repair off, SEAWEEDFS_TPU_MASS_REPAIR=0:
+    the subject here is the shell's rebuild), three `volume` processes on
+    their default codec (`cuda`; `codec` other than cuda is passed as
+    -ec.codec) and `shell -c` for each admin command.  A (rack1, alone in
+    its rack) holds a sealed
     volume of `size` bytes of real needle records made before it starts;
     B and C share rack0.  Steps, each on its own line: (0) start, every
     node and the volume listed by /dir/status; (1) replicated writes
@@ -2780,8 +2855,9 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
     try:
         # 0. start: the master, then A (rack1), then B and C (rack0), each
         # registered before the next starts, so the topology lists them in
-        # that order
-        cl.start_master()
+        # that order.  The master's dead-node mass repair (on by default)
+        # is switched off: this phase's subject is the shell's ec.rebuild
+        cl.start_master(env={"SEAWEEDFS_TPU_MASS_REPAIR": "0"})
         cl.wait_for("the master's /dir/status",
                     lambda: cl.http_json("/dir/status") is not None,
                     CLUSTER_START_S)
@@ -2936,32 +3012,484 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
                                           scrape_all(("a", "b")))})
 
         # 7. SIGTERM: clean exits
-        exits = {}
-        for name in ("a", "b", "master"):
-            p = cl.procs[name]
-            mark = os.path.getsize(cl.logs[name])
-            t0 = time.perf_counter()
-            p.send_signal(signal.SIGTERM)
-            try:
-                rc = p.wait(timeout=CLUSTER_STOP_S)
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"{name} still running "
-                                     f"{CLUSTER_STOP_S} s after SIGTERM")
-            with open(cl.logs[name], "rb") as f:
-                text = f.read().decode(errors="replace")
-            after_term = text[mark:]
-            if rc != 0 or "Traceback" in after_term:
-                raise AssertionError(f"{name} exited {rc} after SIGTERM: "
-                                     f"{after_term[-2000:]}")
-            exits[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
-                           "tracebacks_in_log": text.count("Traceback")}
-        step("stop", {"exits": exits})
+        step("stop", {"exits": cl.terminate(("a", "b", "master"))})
     except BaseException:
         print(cl.tails(), file=sys.stderr, flush=True)
         raise
     finally:
         cl.stop_all()
     summary = {"phase": "cluster_summary",
+               "wall_s": time.perf_counter() - t_phase,
+               "launches_by_path": paths, "nvidia_smi": power}
+    emit(summary)
+    return {"launches_by_path": paths, "rows": rows}
+
+
+# -- phase 4g: maintenance ----------------------------------------------------
+
+MAINT_NODES = (("a", "rack0"), ("b", "rack0"), ("c", "rack1"), ("d", "rack1"))
+MAINT_VOLUMES_PER_NODE = 2  # made before the processes start
+MAINT_VOLUME_BYTES = GIB  # each; the master's limit is the same size
+MAINT_COOLDOWN_S = 5
+MAINT_POLICY = {"*": {"ec_cooldown_seconds": MAINT_COOLDOWN_S}}
+# a lifecycle cycle longer than a volume server's full-beat period (3 s,
+# checked each 1 s): the seals of one cycle are all seen by the next
+MAINT_INTERVAL_S = 6
+# The controller runs one job per node (the reference's only value), so a
+# node's two encodes run in turn, and a later encode plans its spread from
+# a snapshot holding the earlier ones' shards and freed slots: the free-slot
+# planner then stacks 5 of its shards on one node (ROADMAP C-1).  The
+# phase makes that deterministic: each node's first volume cools at
+# MAINT_WAVE1_S from the start (every node registered and every volume
+# sealed by then), its second MAINT_WAVE_GAP_S later, so the 4 first
+# encodes plan from one snapshot (4/4/3/3, the first two nodes in topology
+# order taking 4) and the 4 second ones from the next, after the first
+# wave's sources dropped (2/2/5/5).  D registers first, so rack1 leads the
+# topology order: D and C take 4 and 2, A and B 3 and 5.
+MAINT_WAVE1_S = 40.0
+MAINT_WAVE_GAP_S = 10.0
+MAINT_ENCODE_S = 900.0  # every volume sealed, encoded, its source dropped
+MAINT_REPAIR_S = 900.0  # every lost shard rebuilt and mounted
+
+
+def _ec_spread(cl: "_Cluster") -> dict[int, dict[str, list[int]]]:
+    """The master's /dir/status: volume id -> node url -> shard ids."""
+    out: dict[int, dict[str, list[int]]] = {}
+    for url, node in cl.http_json("/dir/status")["DataNodes"].items():
+        for vid, sids in node["ecShards"].items():
+            out.setdefault(int(vid), {})[url] = sorted(sids)
+    return out
+
+
+def _maintenance_get_pass(cl: "_Cluster", records: dict) -> dict:
+    """Every sampled key of every volume GET by EC_READ_THREADS threads
+    from the volume's holders as the master's /dir/lookup lists them (one
+    lookup per volume, cached), each body held against its .dat record."""
+    t_start = time.perf_counter()
+    locs = {vid: [loc["url"] for loc in cl.http_json(
+        f"/dir/lookup?volumeId={vid}")["locations"]] for vid in records}
+    clients = {u: _KeepAlive(int(u.rsplit(":", 1)[1]))
+               for urls in locs.values() for u in urls}
+    work = [(vid, key) for vid in sorted(records)
+            for key in sorted(records[vid])]
+
+    def get(i_item) -> float:
+        i, (vid, key) = i_item
+        r = records[vid][key]
+        url = locs[vid][i % len(locs[vid])]
+        t0 = time.perf_counter()
+        status, _headers, body = clients[url].request(
+            "GET", "/" + _fid(vid, key, r["cookie"]))
+        dt = time.perf_counter() - t0
+        if status != 200 or hashlib.sha256(body).hexdigest() \
+                != r["data_sha256"]:
+            raise AssertionError(f"GET of {vid},{key:x} from {url}: "
+                                 f"{status}, body differs from its record")
+        return dt
+
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        lat = list(pool.map(get, enumerate(work)))
+    return _latency_row(
+        "during_repair", lat, time.perf_counter() - t_start,
+        bytes=sum(records[v][k]["size"] for v, k in work),
+        volumes=len(records), byte_equal=True, t_start=t_start,
+        t_end=time.perf_counter())
+
+
+def _shell_counts(out: str, label: str) -> dict:
+    """The `{label}{...}` dict a volume.lifecycle / volume.repair status
+    prints on its own line."""
+    import ast
+
+    for line in out.splitlines():
+        if label in line:
+            return ast.literal_eval(line.split(label, 1)[1].strip())
+    raise AssertionError(f"no {label!r} line in: {out[-1000:]}")
+
+
+def phase_maintenance(rs_cuda, gf256, work: str, size: int, seed: int,
+                      power: str, reduced: list[str], codec: str = "cuda",
+                      device: str = "cuda", free_port=free_port_pair,
+                      gets: int = EC_READ_SAMPLE) -> dict:
+    """The master's maintenance plane with no operator command: a master
+    (`-volumeSizeLimitMB` the volumes' size, `-lifecycleInterval`
+    MAINT_INTERVAL_S, `-lifecyclePolicy` {"*": {"ec_cooldown_seconds":
+    5}}, the controller's and mass repair's defaults otherwise) and four
+    `volume` processes on their default codec (`cuda`; `codec` other than
+    cuda is passed as -ec.codec), A and B in rack0, C and D in rack1, each
+    `-max 40` holding two volumes of `size` bytes of real needle records
+    made before it starts.  The master and D start first, A, B and C once
+    D has registered; each node's volumes are stamped last written so
+    that they cool in two waves (MAINT_WAVE1_S, MAINT_WAVE_GAP_S).
+    Steps, each on its own line: (0) start; (1) the controller seals and
+    EC-encodes all 8 volumes: 8 ec_encode jobs done (each job's seconds
+    and transitions) in two waves of one cycle each, 14 shards of each
+    mounted across the 4 nodes, D holding at most 4 of any volume (the
+    nodes holding 5, whose death would be a loss, printed), every slice's
+    parity equal to the plain version, each source .dat dropped, the
+    batched kernel's launches moved on every generating node and the host
+    codec's apply_rows on none; (2) D's shards hashed, D SIGKILLed:
+    the seconds until the master drops it, until `shell -c volume.repair`
+    (a process) lists every affected volume planned, and until every
+    volume has 14 shards mounted again (the time to recover); (3) from
+    the moment the master drops D, `gets` GETs of seeded needles across
+    the 8 volumes through the master's lookup, every body equal to its
+    .dat record; (4) the rebuilt shards equal D's by sha256, the repair's
+    rate, each survivor's launches and host apply_rows, the bytes the
+    survivors took in from peers (partial sums, and full fetches where a
+    target chose them; the concurrent GETs' partial sums included)
+    against a full fetch of every target's remote sources, the master's
+    seaweedfs_repair_batch_*
+    counters, and `volume.lifecycle` / `volume.repair` showing every
+    ec_encode and mass_repair job done, none failed or parked; (5)
+    SIGTERM: each process exits 0 within 30 s with no traceback after it.
+    Counts are read just before and just after each step.  -> launches
+    by kernel and step, and the rows."""
+    import re
+    import threading
+
+    t_phase = time.perf_counter()
+    names = [n for n, _r in MAINT_NODES]
+    dirs = {n: os.path.join(work, n) for n in names}
+    records: dict[int, dict] = {}
+    t0 = time.perf_counter()
+    needles = 0
+    for n in names:
+        os.makedirs(dirs[n])
+        for _ in range(MAINT_VOLUMES_PER_NODE):
+            vid = len(records) + 1
+            base = os.path.join(dirs[n], str(vid))
+            needles += make_volume(base, size, seed + vid, device)
+            _size, records[vid] = _needle_records(
+                base, seed + vid,
+                sample=gets // (len(names) * MAINT_VOLUMES_PER_NODE))
+    make_s = time.perf_counter() - t0
+    vids = sorted(records)
+    policy = os.path.join(work, "policy.json")
+    with open(policy, "w") as f:
+        json.dump(MAINT_POLICY, f)
+    cl = _Cluster(work, codec, free_port)
+    rows: dict[str, dict] = {}
+    paths: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+
+    def step(name: str, row: dict) -> None:
+        row = {"phase": f"maintenance_{name}", **row, "nvidia_smi": power}
+        emit(row)
+        rows[name] = row
+
+    def scrape_all() -> dict:
+        return {n: cl.scrape(n) for n in names if n not in cl.killed}
+
+    def counted(name: str, before: dict, after: dict) -> dict:
+        """Per server: the launches, the host codec's apply_rows, the
+        codec service's jobs and the partial-sum traffic that moved."""
+        out = {}
+        for n in after:
+            launches = _launches_moved(before[n], after[n])
+            for k, v in launches.items():
+                if v:
+                    paths[k][f"maintenance_{name}_{n}"] = v
+            out[n] = {"launches": launches,
+                      "host_apply_rows": _moved(
+                          before[n], after[n],
+                          "seaweedfs_ec_op_seconds_count",
+                          op="apply_rows", impl="cpu"),
+                      "service_jobs": _moved(before[n], after[n],
+                                             _SERVICE_FAMILY),
+                      "partial_bytes_in": _moved(before[n], after[n],
+                                                 _PARTIAL_BYTES_FAMILY,
+                                                 op="recv"),
+                      "remote_bytes_in": _moved(
+                          before[n], after[n], _REBUILD_BYTES_FAMILY)
+                      - _moved(before[n], after[n], _REBUILD_BYTES_FAMILY,
+                               source="local"),
+                      "partial_bytes_served": _moved(
+                          before[n], after[n], _PARTIAL_BYTES_FAMILY,
+                          op="serve")}
+        return out
+
+    # each node's i-th volume cools at MAINT_WAVE1_S + i * MAINT_WAVE_GAP_S
+    # from here: its .dat's mtime is the write time the server reports
+    t_stamp = time.time()
+    waves: list[list[int]] = [[], []]
+    for i, n in enumerate(names):
+        for w in range(MAINT_VOLUMES_PER_NODE):
+            vid = i * MAINT_VOLUMES_PER_NODE + w + 1
+            waves[w].append(vid)
+            at = t_stamp + MAINT_WAVE1_S + w * MAINT_WAVE_GAP_S \
+                - MAINT_COOLDOWN_S
+            os.utime(os.path.join(dirs[n], f"{vid}.dat"), (at, at))
+
+    def registered(ns) -> bool:
+        return set(cl.http_json("/dir/status")["DataNodes"]) >= {
+            cl.nodes[n]["url"] for n in ns}
+
+    try:
+        # 0. start: the master and D, then A, B and C once D registered
+        t0 = time.perf_counter()
+        cl.start_master("-lifecycleInterval", str(MAINT_INTERVAL_S),
+                        "-lifecyclePolicy", policy, limit_mb=size // MIB)
+        t_master = time.perf_counter()
+        first, rest = MAINT_NODES[-1], MAINT_NODES[:-1]
+        cl.start_volume(first[0], first[1], dirs[first[0]])
+        cl.wait_for("D registered", lambda: registered([first[0]]),
+                    CLUSTER_START_S)
+        for n, rack in rest:
+            cl.start_volume(n, rack, dirs[n])
+        cl.wait_for("every node registered", lambda: registered(names),
+                    CLUSTER_START_S)
+        for n in names:
+            cl.wait_for(f"{n}'s /metrics", lambda n=n: cl.scrape(n)
+                        is not None, CLUSTER_START_S)
+        before = scrape_all()
+        registered_s = time.time() - t_stamp
+        if registered_s > MAINT_WAVE1_S - 2 * MAINT_INTERVAL_S:
+            raise AssertionError(
+                f"every node registered {registered_s} s after the stamp: "
+                f"too late to seal every volume before the first wave "
+                f"cools at {MAINT_WAVE1_S} s")
+        by_url = {cl.nodes[n]["url"]: n for n in names}
+        # the planner's node order: racks in order of first registration,
+        # then each rack's nodes in theirs (TopologyInfo's walk)
+        joined = [by_url[u] for u in cl.http_json("/dir/status")[
+            "DataNodes"]]
+        rack_of = dict(MAINT_NODES)
+        racks = list(dict.fromkeys(rack_of[n] for n in joined))
+        order = [n for r in racks for n in joined if rack_of[n] == r]
+        step("start", {"codec": codec, "start_s": time.perf_counter() - t0,
+                       "registered_s": registered_s,
+                       "topology_order": order,
+                       "make_volumes_s": make_s, "volumes": len(vids),
+                       "volume_bytes": size, "needles": needles,
+                       "nodes": len(names), "reduced": reduced})
+
+        # 1. the controller seals and encodes every volume
+        failed: list = []
+
+        def encoded() -> bool:
+            jobs = cl.http_json("/cluster/lifecycle")["jobs"]
+            failed[:] = [j for j in jobs
+                         if j["state"] in ("failed", "parked")]
+            done = [j for j in jobs if j["transition"] == "ec_encode"
+                    and j["state"] == "done"]
+            return bool(failed) or len(done) == len(vids)
+
+        cl.wait_for("every ec_encode job done", encoded, MAINT_ENCODE_S)
+        if failed:
+            raise AssertionError(f"lifecycle jobs failed: {failed}")
+        cl.wait_for("every source .dat dropped", lambda: not any(
+            os.path.exists(os.path.join(dirs[n], f"{v}.dat"))
+            for n in names for v in vids), CLUSTER_START_S)
+        cl.wait_for("14 shards of every volume at the master", lambda: all(
+            sum(map(len, sp.values())) == 14 and len(sp) == len(names)
+            for sp in (_ec_spread(cl).get(v, {}) for v in vids)),
+            CLUSTER_START_S)
+        encode_s = time.perf_counter() - t_master
+        after = scrape_all()
+        counts = counted("encode", before, after)
+        spread = _ec_spread(cl)
+        for v in vids:
+            if sorted(s for sids in spread[v].values() for s in sids) \
+                    != list(range(14)):
+                raise AssertionError(f"volume {v}: shards {spread[v]}")
+        worst = max(len(spread[v].get(cl.nodes["d"]["url"], []))
+                    for v in vids)
+        if worst > 4:
+            raise AssertionError(f"D holds {worst} shards of a volume: its "
+                                 f"death would be a loss ({spread})")
+        # the nodes whose death would lose a volume: the planner's stacking
+        stacked = {by_url[u]: sorted(v for v in vids
+                                     if len(spread[v].get(u, [])) > 4)
+                   for u in by_url}
+        for n in names:
+            c = counts[n]
+            if codec == "cuda" and not c["launches"]["gf_matmul_batched"]:
+                raise AssertionError(f"encode: no batched launch on {n}: "
+                                     f"{c}")
+            if codec != "cpu" and c["host_apply_rows"]:
+                raise AssertionError(f"encode: the host codec's apply_rows "
+                                     f"moved on {n}: {c}")
+        from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+        checked = 0
+        for v in vids:
+            view = os.path.join(work, f"parity_view_{v}")
+            os.makedirs(view)
+            for url, sids in spread[v].items():
+                for sid in sids:
+                    os.symlink(os.path.join(dirs[by_url[url]],
+                                            f"{v}.ec{sid:02d}"),
+                               os.path.join(view, f"{v}.ec{sid:02d}"))
+            checked += check_parity(os.path.join(view, str(v)), rs_cuda,
+                                    gf256, enc.DEFAULT_SLICE, device=device)
+        shard_size = {v: os.path.getsize(os.path.join(
+            work, f"parity_view_{v}", f"{v}.ec00")) for v in vids}
+        doc = cl.http_json("/cluster/lifecycle")
+        jobs = {}
+        created, ended = {}, {}
+        for j in doc["jobs"]:
+            jobs.setdefault(j["volume_id"], []).append(
+                {"transition": j["transition"],
+                 "seconds": (j["updated_ms"] - j["created_ms"]) / 1e3})
+            if j["transition"] == "ec_encode":
+                created[j["volume_id"]] = j["created_ms"]
+                ended[j["volume_id"]] = j["updated_ms"]
+        # each wave journaled by one cycle, the second after the first ended
+        for wave in waves:
+            if max(created[v] for v in wave) - min(
+                    created[v] for v in wave) > 1000 * MAINT_INTERVAL_S / 2:
+                raise AssertionError(f"wave {wave} planned across cycles: "
+                                     f"{created}")
+        if min(created[v] for v in waves[1]) < max(
+                ended[v] for v in waves[0]):
+            raise AssertionError(f"the second wave planned before the first "
+                                 f"ended: {created} {ended}")
+        step("encode", {
+            "seconds": encode_s,
+            "GBps": size * len(vids) / encode_s / 1e9,
+            "jobs": {str(v): jobs[v] for v in vids},
+            "spread": {str(v): {by_url[u]: s for u, s in spread[v].items()}
+                       for v in vids},
+            "waves": waves,
+            "wave_s": [(max(ended[v] for v in w) - min(created[v] for v in w))
+                       / 1e3 for w in waves],
+            "d_max_shards_per_volume": worst,
+            "loss_if_dead": {n: v for n, v in stacked.items() if v},
+            "parity_slices_checked": checked, "sources_dropped": True,
+            "lifecycle_counts": doc["counts"], "counts": counts})
+
+        # 2. D dies; the master repairs with no command
+        d_url = cl.nodes["d"]["url"]
+        d_keys = [(v, sid) for v in vids for sid in spread[v].get(d_url, [])]
+        d_sha = dict(zip(d_keys, _parallel_sha256(
+            [os.path.join(dirs["d"], f"{v}.ec{sid:02d}")
+             for v, sid in d_keys])))
+        affected = sorted({v for v, _sid in d_keys})
+        before, master_before = scrape_all(), cl.scrape_master()
+        before.pop("d")
+        t_kill = time.perf_counter()
+        cl.killed.add("d")
+        cl.procs["d"].kill()
+        cl.procs["d"].wait()
+        cl.wait_for("the master drops D", lambda: d_url not in
+                    cl.http_json("/dir/status")["DataNodes"],
+                    CLUSTER_LIVENESS_S)
+        detect_s = time.perf_counter() - t_kill
+
+        # 3. GETs while the repair runs, from the moment D is dropped
+        got_reads: dict = {}
+
+        def reads() -> None:
+            try:
+                got_reads["row"] = _maintenance_get_pass(cl, records)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                got_reads["error"] = e
+
+        reader = threading.Thread(target=reads, name="maintenance-gets")
+        reader.start()
+        polls = 0
+        while True:
+            polls += 1
+            _wall, out = cl.shell("volume.repair")
+            planned = {int(m) for m in re.findall(
+                r"^\s+(\d+):mass_repair: ", out, re.M)}
+            if planned >= set(affected):
+                planned_s = time.perf_counter() - t_kill
+                break
+            if time.perf_counter() - t_kill > MAINT_REPAIR_S:
+                raise AssertionError(f"volume.repair planned {planned} of "
+                                     f"{affected}: {out[-2000:]}")
+
+        def repaired() -> bool:
+            sp = _ec_spread(cl)
+            return all(sum(map(len, sp.get(v, {}).values())) == 14
+                       and d_url not in sp.get(v, {}) for v in vids)
+
+        cl.wait_for("every volume back to 14 shards", repaired,
+                    MAINT_REPAIR_S)
+        recover_s = time.perf_counter() - t_kill
+        reader.join()
+        if "error" in got_reads:
+            raise got_reads["error"]
+        read_row = got_reads["row"]
+        read_row["started_after_kill_s"] = read_row.pop("t_start") - t_kill
+        read_row["ended_after_kill_s"] = read_row.pop("t_end") - t_kill
+        read_row["during_repair"] = \
+            read_row["started_after_kill_s"] < recover_s
+        step("dead_node", {"detect_s": detect_s, "planned_s": planned_s,
+                           "volume_repair_polls": polls,
+                           "time_to_recover_s": recover_s,
+                           "repair_s": recover_s - detect_s,
+                           "affected_volumes": affected,
+                           "lost_shards": len(d_keys)})
+        step("gets_during_repair", read_row)
+
+        # 4. the rebuilt shards, the repair's rate and the plane's books
+        after, master_after = scrape_all(), cl.scrape_master()
+        counts = counted("repair", before, after)
+        spread2 = _ec_spread(cl)
+        rebuilt = {}
+        for v, sid in d_keys:
+            url = next(u for u, sids in spread2[v].items() if sid in sids)
+            rebuilt[(v, sid)] = os.path.join(dirs[by_url[url]],
+                                             f"{v}.ec{sid:02d}")
+        got = dict(zip(rebuilt, _parallel_sha256(list(rebuilt.values()))))
+        if got != d_sha:
+            bad = [k for k in d_sha if got[k] != d_sha[k]]
+            raise AssertionError(f"rebuilt shards differ from D's: {bad}")
+        targets = {}
+        for (v, _sid), p in rebuilt.items():
+            targets[v] = os.path.basename(os.path.dirname(p))
+        for n in sorted(set(targets.values())):
+            if codec == "cuda" and not counts[n]["launches"][
+                    "gf_matmul_batched"]:
+                raise AssertionError(f"repair: no batched launch on the "
+                                     f"rebuild target {n}: {counts[n]}")
+        # a full fetch pulls every source the target does not hold
+        full_fetch = sum(
+            (10 - len(spread[v].get(cl.nodes[targets[v]]["url"], [])))
+            * shard_size[v] for v in affected)
+        _w, lc_out = cl.shell("volume.lifecycle")
+        _w, mr_out = cl.shell("volume.repair")
+        states = _shell_counts(lc_out, "states=")
+        mr_counts = _shell_counts(mr_out, "counts:")
+        ec_done = len(re.findall(r"^\s+\d+:ec_encode: done", lc_out, re.M))
+        mr_done = len(re.findall(r"^\s+\d+:mass_repair: done", mr_out,
+                                 re.M))
+        if (ec_done != len(vids) or mr_done != len(affected)
+                or mr_counts["repaired"] != len(affected)
+                or mr_counts["failed"] or mr_counts["parked"]
+                or set(states) != {"done"}):
+            raise AssertionError(f"lifecycle / repair status:\n{lc_out}\n"
+                                 f"{mr_out}")
+        read_bytes = 10 * sum(shard_size[v] for v in affected)
+        step("repair", {
+            "sha256_equal": True, "rebuilt": len(rebuilt),
+            "targets": {str(v): t for v, t in sorted(targets.items())},
+            "GBps_read": read_bytes / (recover_s - detect_s) / 1e9,
+            "lost_bytes": sum(shard_size[v] for v, _s in d_keys),
+            "partial_bytes_in": sum(c["partial_bytes_in"]
+                                    for c in counts.values()),
+            "remote_bytes_in": sum(c["remote_bytes_in"]
+                                   for c in counts.values()),
+            "full_fetch_bytes": full_fetch,
+            "repair_batch": {k: v - master_before.get(k, 0.0)
+                             for k, v in master_after.items()
+                             if k.startswith("seaweedfs_repair_batch_")
+                             and "_bucket{" not in k
+                             and v != master_before.get(k, 0.0)},
+            "lifecycle_states": states, "mass_repair_counts": mr_counts,
+            "ec_encode_done": ec_done, "mass_repair_done": mr_done,
+            "counts": counts})
+
+        # 5. SIGTERM: clean exits
+        step("stop", {"exits": cl.terminate(("a", "b", "c", "master"))})
+    except BaseException:
+        print(cl.tails(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        cl.stop_all()
+    summary = {"phase": "maintenance_summary",
                "wall_s": time.perf_counter() - t_phase,
                "launches_by_path": paths, "nvidia_smi": power}
     emit(summary)
@@ -3396,6 +3924,12 @@ def main() -> int:
     ap.add_argument("--only-cluster", action="store_true",
                     help="phases 1-2 and the cluster phase only, no kernels "
                     "line (a quick check)")
+    ap.add_argument("--maintenance-volume-gib", type=float,
+                    default=MAINT_VOLUME_BYTES / GIB,
+                    help="each of the maintenance phase's 8 volumes")
+    ap.add_argument("--only-maintenance", action="store_true",
+                    help="phases 1-2 and the maintenance phase only, no "
+                    "kernels line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -3448,13 +3982,34 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
-    if args.only_cluster:
-        cluster()
-        emit({"phase": "done", "wall_s": time.perf_counter() - start,
-              "only_cluster": True})
-        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                     "count": torch.cuda.device_count()}})
-        return 0
+    def maintenance() -> dict:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            # 8 x (.dat, 14 shards, copies in flight)
+            size, reduced = volume_size(
+                work, int(args.maintenance_volume_gib * GIB) // MIB * MIB,
+                count=len(MAINT_NODES) * MAINT_VOLUMES_PER_NODE,
+                per_volume=3.5)
+            reduced = [f"8 volumes of {size} bytes (-volumeSizeLimitMB "
+                       f"{size // MIB}): SeaweedFS's default 30 GB volume "
+                       "limit cut for the machine's disk and the script's "
+                       "run time"] + reduced
+            return phase_maintenance(rs_cuda, gf256, work, size, args.seed,
+                                     power, reduced,
+                                     codec=args.cluster_codec)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    for only, phase in (("only_cluster", cluster),
+                        ("only_maintenance", maintenance)):
+        if getattr(args, only):
+            phase()
+            emit({"phase": "done", "wall_s": time.perf_counter() - start,
+                  only: True})
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": kind,
+                "count": torch.cuda.device_count()}})
+            return 0
     if args.only_volume_server:
         work = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
@@ -3524,8 +4079,9 @@ def main() -> int:
     store_paths = stored["launches_by_path"]
     server_paths = served["launches_by_path"]
     # the earlier phases' volume directories are gone: the cluster phase
-    # starts in a fresh one
+    # starts in a fresh one, and the maintenance phase after it
     cluster_paths = cluster()["launches_by_path"]
+    maint_paths = maintenance()["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -3550,14 +4106,15 @@ def main() -> int:
         + reads["read_launches"] + reads["rebuild_launches"]
         + sum(store_paths["gf_matmul"].values())
         + sum(server_paths["gf_matmul"].values())
-        + sum(cluster_paths["gf_matmul"].values()),
+        + sum(cluster_paths["gf_matmul"].values())
+        + sum(maint_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
             "ec_reads": reads["read_launches"],
             "remote_rebuild": reads["rebuild_launches"],
             **store_paths["gf_matmul"], **server_paths["gf_matmul"],
-            **cluster_paths["gf_matmul"]},
+            **cluster_paths["gf_matmul"], **maint_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -3574,14 +4131,16 @@ def main() -> int:
         + reads["rebuild_batched_launches"]
         + sum(store_paths["gf_matmul_batched"].values())
         + sum(server_paths["gf_matmul_batched"].values())
-        + sum(cluster_paths["gf_matmul_batched"].values()),
+        + sum(cluster_paths["gf_matmul_batched"].values())
+        + sum(maint_paths["gf_matmul_batched"].values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
             "service_rebuild": svc["rebuild_launches"],
             "remote_rebuild": reads["rebuild_batched_launches"],
             **store_paths["gf_matmul_batched"],
             **server_paths["gf_matmul_batched"],
-            **cluster_paths["gf_matmul_batched"]},
+            **cluster_paths["gf_matmul_batched"],
+            **maint_paths["gf_matmul_batched"]},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],

@@ -81,6 +81,11 @@ EC parity and `ec.decode`):
     grpc_handlers.py, sequence.py, observability.py's cluster_status);
     topology/ (topology.py, volume_layout.py, placement.py); operation/
     (assign, upload, delete).
+  * maintenance/ — the master's maintenance plane: the lifecycle
+    controller (policies, a crash-safe job journal, seal and ec_encode on
+    the volume servers' codec, vacuum, rebalance, ttl_expire) and
+    dead-node mass repair (batched rebuilds on the survivors), both built
+    by every master; the tier transition is refused (policy.py).
   * shell/ — the admin shell: CommandEnv, the maintenance script, the
     ec.* and volume.* commands; util/config.py (the TOML tier),
     util/grace.py (profiling hooks).
@@ -94,14 +99,16 @@ and `python3 chip_smoke.py --only-ec-reads --volume-gib 0.5` the EC read
 phase alone at a quick-check size (`--only-store --store-volume-gib 0.5`
 the store's lifecycle, `--only-volume-server --store-volume-gib 0.5` the
 volume server's, `--only-cluster --cluster-volume-gib 0.5` a master and
-three volume processes driven by the shell).  Every protobuf message of the port lives in pb.POOL,
+three volume processes driven by the shell, `--only-maintenance
+--maintenance-volume-gib 0.25` a master encoding and repairing four
+volume processes on its own).  Every protobuf message of the port lives in pb.POOL,
 never in protobuf's default pool, where the reference registers the same
 file names: a process importing both packages would fail.
 
 Not ported yet: the tier moves (backend_s3.py, Volume.tier_to_remote /
 tier_to_local), which answer UNIMPLEMENTED; parallel/ (multi-GPU); the
-master's raft quorum, lifecycle and mass-repair planes, SLO engine and
-canary, flight recorder and federation; the shell's cluster.* and fs.*
+master's raft quorum, SLO engine and canary, flight recorder and
+federation; the shell's cluster.* and fs.*
 commands; gRPC TLS; the filer, the gateways and the CLI's other
 subcommands; the cuda_xor / cuda_bitplane impls; spans and stage metrics
 inside the encode pipeline; 5-byte offsets.

@@ -14,11 +14,13 @@ Differences from the reference, on purpose:
     tpu_xor, tpu_mxu, pallas, tpu_pallas, jax, mxu) are refused, from the
     flag or the TOML, with a message naming `cuda`.  A `cuda` volume
     server on a host without a card exits non-zero naming the card;
-  * a flag of a plane that is not ported (the master's lifecycle, SLO,
-    canary, flight-recorder and geo flags, `-peers` with a quorum, the
-    volume's `-tierBackends` and `-offset.5bytes`, the server's `-filer`
-    and `-s3`) given a value other than its default exits non-zero naming
-    it; the master's `-sloInterval` defaults to 0, not 15;
+  * a flag of a plane that is not ported (the master's SLO, canary,
+    flight-recorder and geo flags, `-peers` with a quorum, the volume's
+    `-tierBackends` and `-offset.5bytes`, the server's `-filer` and `-s3`)
+    given a value other than its default exits non-zero naming it, and so
+    does a `-lifecyclePolicy` file, or the policy persisted in
+    `-lifecycleDir`, naming a `tier_backend` (the remote tier, ROADMAP
+    A-2); the master's `-sloInterval` defaults to 0, not 15;
   * security.toml's JWT key and white list are read as the reference
     reads them; gRPC TLS certificates configured there make the process
     exit non-zero naming ROADMAP A-6 (security/tls.py is not ported), so
@@ -147,8 +149,12 @@ def cmd_master(args) -> None:
     script = raw_scripts if isinstance(raw_scripts, list) else None
     sequencer = mconf.get_string("master.sequencer.type", "memory")
     node_id = mconf.get_int("master.sequencer.sequencer_snowflake_id")
-    _refuse("-lifecyclePolicy", args.lifecyclePolicy, "",
-            "the lifecycle controller (maintenance/, ROADMAP A-5)")
+    lifecycle_policy = None
+    if args.lifecyclePolicy:  # a refused policy raises in MasterServer
+        import json
+
+        with open(args.lifecyclePolicy) as f:
+            lifecycle_policy = json.load(f)
     _refuse("-sloSpecs", args.sloSpecs, "",
             "the SLO engine (telemetry/slo.py, ROADMAP A-5)")
     stopper = _Stopper()
@@ -162,6 +168,7 @@ def cmd_master(args) -> None:
         lifecycle_interval=args.lifecycleInterval,
         lifecycle_dir=args.lifecycleDir,
         lifecycle_rate_mbps=args.lifecycleRateMBps,
+        lifecycle_policy=lifecycle_policy,
         repair_deadline_s=args.repairDeadlineS,
         sequencer=sequencer,
         sequencer_node_id=node_id,
@@ -359,13 +366,28 @@ def _parser() -> argparse.ArgumentParser:
     m.add_argument("-raftDir", default=".",
                    help="directory for persisted raft state (unused "
                         "until raft is ported)")
+    m.add_argument("-lifecycleInterval", type=float, default=0.0,
+                   help="lifecycle controller cycle seconds; 0 = manual "
+                        "only (volume.lifecycle -apply)")
+    m.add_argument("-lifecycleDir", default="",
+                   help="crash-safe lifecycle journal directory; empty "
+                        "keeps jobs in memory only")
+    m.add_argument("-lifecycleRateMBps", type=float, default=None,
+                   help="cluster background-I/O budget shared by "
+                        "lifecycle jobs and scrub (None = env "
+                        "SEAWEEDFS_TPU_LIFECYCLE_RATE_MBPS, 0 = "
+                        "unthrottled)")
+    m.add_argument("-lifecyclePolicy", default="",
+                   help="JSON policy file: {collection: {field: value}}")
+    m.add_argument("-repairDeadlineS", type=float, default=None,
+                   help="total-repair-time bound for dead-node mass "
+                        "repair; when a -lifecycleRateMBps budget is "
+                        "set, the pushed background rate is raised to "
+                        "what the bound requires.  None = env "
+                        "SEAWEEDFS_TPU_MASS_REPAIR_DEADLINE_S, 0 = "
+                        "no bound")
     # flags of planes that come with later slices (ROADMAP A-5, A-7): a
     # value other than the default is refused, never ignored
-    m.add_argument("-lifecycleInterval", type=float, default=0.0)
-    m.add_argument("-lifecycleDir", default="")
-    m.add_argument("-lifecycleRateMBps", type=float, default=None)
-    m.add_argument("-lifecyclePolicy", default="")
-    m.add_argument("-repairDeadlineS", type=float, default=None)
     m.add_argument("-peerClusters", default="")
     m.add_argument("-sloInterval", type=float, default=0.0)
     m.add_argument("-sloSpecs", default="")

@@ -2,14 +2,12 @@
 
 Reference: weed/server/master_grpc_server*.go.
 
-The port's copy of seaweedfs_tpu/master/grpc_handlers.py, without the
-`Lifecycle` rpc: the lifecycle controller and mass repair (maintenance/)
-come with a later slice (ROADMAP A-5), and until then the service has no
-method for it, so pb/rpc.py answers UNIMPLEMENTED.
+The port's copy of seaweedfs_tpu/master/grpc_handlers.py.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import random
 import threading
@@ -137,10 +135,16 @@ class MasterGrpcService:
                         node, new_vids, deleted_vids
                     )
                 # the shared background-I/O budget: volume servers point
-                # their scrub bucket at this rate (0 = keep the node's
-                # local default).  The port has no lifecycle plane or
-                # mass repair yet, so nothing raises it.
-                rate = self.master.background_rate_mbps
+                # their scrub bucket at this rate so scrub + lifecycle
+                # traffic can never saturate a node together (0 = keep
+                # the node's local default).  During a deadline-bounded
+                # mass repair the pushed rate is raised to the floor the
+                # bound requires — never below the operator's budget,
+                # and only while a budget exists to raise.
+                rate = self.master.lifecycle.rate_mbps
+                if rate > 0:
+                    rate = max(rate, self.master.mass_repair
+                               .rate_floor_mbps())
                 yield master_pb2.HeartbeatResponse(
                     volume_size_limit=self.topo.volume_size_limit,
                     leader=self.master.leader(),
@@ -334,6 +338,65 @@ class MasterGrpcService:
         self._require_leader(context)
         self.master.vacuum(request.garbage_threshold or 0.3)
         return master_pb2.VacuumVolumeResponse()
+
+    # -- lifecycle plane --------------------------------------------------
+
+    def Lifecycle(self, request, context):
+        """The volume.lifecycle / volume.repair shell surface.
+
+        `status` / `policy` / `run` drive the lifecycle controller: `run`
+        evaluates the policies now; with apply=False it only reports the
+        plan (dry run), with apply=True the planned jobs are journaled and
+        executed before the response returns.  `mass_repair_status` /
+        `mass_repair_plan` / `mass_repair_run` do the same for the
+        dead-node mass-repair orchestrator."""
+        lc = self.master.lifecycle
+        action = request.action or "status"
+        if action == "status":
+            return master_pb2.LifecycleResponse(
+                report=json.dumps(lc.status()))
+        if action == "policy":
+            try:
+                policies = lc.set_policies(request.policy_json)
+            except ValueError as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            return master_pb2.LifecycleResponse(report=policies.dumps())
+        if action == "run":
+            self._require_leader(context)
+            plans = lc.evaluate()
+            if request.volume_id:
+                plans = [p for p in plans
+                         if p["volume_id"] == request.volume_id]
+            if request.transition:
+                plans = [p for p in plans
+                         if p["transition"] == request.transition]
+            report = {"planned": plans, "results": []}
+            if request.apply:
+                accepted = lc.submit(plans)
+                # scoped: execute only the jobs THIS request planned —
+                # unrelated resumed/queued jobs stay for the controller
+                report["results"] = lc.run_pending(
+                    wait=True, keys={j["key"] for j in accepted})
+            return master_pb2.LifecycleResponse(
+                report=json.dumps(report))
+        if action == "mass_repair_status":
+            return master_pb2.LifecycleResponse(
+                report=json.dumps(self.master.mass_repair.status()))
+        if action in ("mass_repair_plan", "mass_repair_run"):
+            self._require_leader(context)
+            mr = self.master.mass_repair
+            plans = mr.plan(dead_node=request.node)
+            report = {"planned": plans, "results": []}
+            if action == "mass_repair_run":
+                accepted = mr.submit(plans)
+                report["accepted"] = [j["key"] for j in accepted]
+                report["results"] = mr.run_wave(mr.pending())
+            return master_pb2.LifecycleResponse(
+                report=json.dumps(report))
+        context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                      f"unknown lifecycle action {action!r} "
+                      "(want status|policy|run|mass_repair_status|"
+                      "mass_repair_plan|mass_repair_run)")
 
     # -- admin lock -------------------------------------------------------
 

@@ -5,8 +5,8 @@ the shell read: `cluster_status`.
 The rest of the reference module (the federated /cluster/metrics,
 /cluster/traces and /cluster/hot scrapes) comes with the federation slice
 (ROADMAP A-5), and so do the blocks of the status document that report
-planes this master does not have: `Lifecycle`, `Health` (SLOs and
-canaries) and `Raft`.
+planes this master does not have: `Health` (SLOs and canaries) and
+`Raft`.
 """
 
 from __future__ import annotations
@@ -70,4 +70,13 @@ def cluster_status(master) -> dict:
     master.update_replication_health()
     out["VolumeHealth"] = master.volume_health_snapshot()
     out["ScrubFindings"] = len(master.scrub_findings_snapshot())
+    # lifecycle plane: one-line controller summary (the full journal is
+    # at /cluster/lifecycle); answers "is background maintenance alive
+    # and is anything parked waiting for an operator"
+    lc = master.lifecycle
+    out["Lifecycle"] = {
+        "enabled": lc.interval_s > 0,
+        "rateMBps": lc.rate_mbps,
+        "jobStates": lc.journal.counts(),
+    }
     return out

@@ -9,19 +9,18 @@ reference's [master.maintenance] script block (master_server.go:187-242).
 The port's copy of seaweedfs_tpu/master/server.py: assign and growth,
 lookups, location pub/sub, the liveness sweep, vacuum orchestration, the
 maintenance loop (which runs the port's shell), the scrub-finding ingest
-and repair pass, replication health, admin tokens, the client registry and
-the HTTP API.
+and repair pass, replication health, admin tokens, the client registry,
+the maintenance plane (maintenance/: the lifecycle controller and
+dead-node mass repair, built by every master as in the reference; the
+liveness sweep hands each dead node to the orchestrator) and the HTTP API.
 
 Left out, each for a later slice (ROADMAP A-5; geo with A-7):
   * the raft quorum (master/raft.py): `peers` naming more than this master
     raises, never a silent single master (split brain);
-  * the lifecycle controller and dead-node mass repair (maintenance/): the
-    liveness sweep still unregisters dead nodes and bumps
-    `dead_node_seq`, and calls no orchestrator;
   * the SLO engine and canary, the flight recorder, federation,
     observability scrapes and geo: /cluster/alerts, /cluster/debug*,
-    /cluster/geo, /cluster/hot, /cluster/lifecycle, /cluster/metrics,
-    /cluster/traces and /cluster/raft answer 501 naming the slice.
+    /cluster/geo, /cluster/hot, /cluster/metrics, /cluster/traces and
+    /cluster/raft answer 501 naming the slice.
 A constructor argument of a left-out plane given a value other than its
 default raises ValueError naming it.  `stop()` joins every thread `start()`
 started (the reference leaves daemon threads).
@@ -30,7 +29,6 @@ started (the reference leaves daemon threads).
 from __future__ import annotations
 
 import json
-import os
 import random
 import threading
 import time
@@ -152,17 +150,7 @@ class MasterServer:
             jwt_signing_key.encode() if isinstance(jwt_signing_key, str)
             else jwt_signing_key
         )
-        # the shared background-I/O budget the heartbeat ack pushes to
-        # volume servers' scrub buckets: the reference's lifecycle
-        # controller reads it from the same env var (0 = the node's own)
-        self.background_rate_mbps = float(
-            os.environ.get("SEAWEEDFS_TPU_LIFECYCLE_RATE_MBPS", "0"))
         _refuse_left_out_planes(
-            lifecycle_interval=lifecycle_interval,
-            lifecycle_dir=lifecycle_dir,
-            lifecycle_rate_mbps=lifecycle_rate_mbps,
-            lifecycle_policy=lifecycle_policy,
-            repair_deadline_s=repair_deadline_s,
             peer_clusters=peer_clusters,
             slo_interval=slo_interval,
             slo_specs=slo_specs,
@@ -172,6 +160,25 @@ class MasterServer:
             alert_webhook=alert_webhook,
             debug_dir=debug_dir,
         )
+        # the maintenance plane: policy-driven seal -> EC-encode ->
+        # vacuum -> rebalance with a crash-safe job journal, built even
+        # when the periodic loop is off (interval 0) so /cluster/lifecycle
+        # and volume.lifecycle work; and dead-node mass repair, riding the
+        # same journal, triggered from the liveness sweep and executed as
+        # one batched rebuild rpc per target
+        from ..maintenance import (LifecycleController,
+                                   MassRepairOrchestrator, PolicySet)
+
+        self.lifecycle = LifecycleController(
+            self,
+            policies=(PolicySet.parse(lifecycle_policy)
+                      if lifecycle_policy is not None else None),
+            interval_s=lifecycle_interval,
+            rate_mbps=lifecycle_rate_mbps,
+            journal_dir=lifecycle_dir,
+        )
+        self.mass_repair = MassRepairOrchestrator(
+            self, self.lifecycle, deadline_s=repair_deadline_s)
         self._rng = random.Random()
         # raft quorum: not ported.  A one-entry peer list naming this
         # master is the single-master case; anything more must refuse to
@@ -213,15 +220,22 @@ class MasterServer:
             th = threading.Thread(target=fn, name=name, daemon=True)
             th.start()
             self._threads.append(th)
+        self.lifecycle.start()
+        # journaled mass-repair jobs interrupted by a crash replay as
+        # pending: resume them exactly once from the journal
+        self.mass_repair.resume()
         glog.info("master started http=%d grpc=%d peers=1",
                   self.port, self.grpc_port)
 
     def stop(self) -> None:
         """Stop serving and join every thread start() started: the
-        liveness and maintenance loops, the HTTP front ends and the gRPC
-        server's workers.  A maintenance run in progress finishes its
-        current rpc first."""
+        liveness and maintenance loops, the lifecycle controller's loop,
+        workers and emergency runners, the mass-repair runner and its
+        evacuations, the HTTP front ends and the gRPC server's workers.
+        A job or run in progress finishes its current rpc first."""
         self._stop.set()
+        self.mass_repair.stop()
+        self.lifecycle.stop()
         for srv in (self._httpd, self._metricsd):
             if srv is not None:
                 srv.shutdown()
@@ -474,6 +488,10 @@ class MasterServer:
                 vids = self.topo.unregister_node(node_id)
                 self.unregister_from_layouts(vids, node_id)
                 self.note_dead_node(node_id)
+                # plan AFTER the node left the topology, so the
+                # orchestrator ranks exactly the post-death shard map
+                self.mass_repair.on_node_dead(node_id)
+            self.mass_repair.tick()
 
     def note_dead_node(self, node_id: str) -> None:
         """Bump the dead-node sequence the heartbeat ack carries; volume
@@ -486,16 +504,23 @@ class MasterServer:
                      self.dead_node_seq)
 
     def note_disk_health(self, node) -> None:
-        """Heartbeat-ingest hook for the disk-fault plane.  The reference
-        reacts here (emergency vacuum through the lifecycle plane,
-        evacuation through mass repair); the port has neither yet, so a
-        node whose worst disk changes state is logged, once per change."""
+        """Heartbeat-ingest hook for the disk-fault plane: a low-space
+        or full disk gets the lifecycle plane's emergency vacuum; a
+        failing disk becomes a proactive-evacuation trigger for the
+        mass-repair orchestrator (drain it before it dies)."""
         worst = node.worst_disk_state()
-        if worst == getattr(node, "_logged_disk_state", "healthy"):
-            return
-        node._logged_disk_state = worst
-        glog.warning("node %s disk state %s (no lifecycle or mass-repair "
-                     "plane in this master to react)", node.id, worst)
+        if worst in ("low_space", "full"):
+            try:
+                self.lifecycle.note_low_space(node.id)
+            except Exception as e:  # noqa: BLE001 — never fail the beat
+                glog.warning("low-space reaction for %s failed: %s",
+                             node.id, e)
+        if worst == "failing":
+            try:
+                self.mass_repair.on_disk_failing(node.id)
+            except Exception as e:  # noqa: BLE001
+                glog.warning("evacuation trigger for %s failed: %s",
+                             node.id, e)
 
     def note_topology_change(self, node_id: str) -> None:
         """A node JOINED (first heartbeat, incl. a rejoin after a
@@ -656,9 +681,13 @@ class MasterServer:
             self._repair_mutex.release()
 
     def _mass_repair_active_vids(self) -> set[int]:
-        """Volumes a mass-repair job holds.  The orchestrator is not
-        ported, so none: the scrub repair pass owns every volume."""
-        return set()
+        """Volumes with an active mass_repair journal job: the scrub
+        repair pass leaves them to the orchestrator (and vice versa —
+        one repairer per volume, never a double rebuild)."""
+        from ..maintenance.mass_repair import TRANSITION
+
+        return {j["volume_id"] for j in self.lifecycle.journal.active()
+                if j.get("transition") == TRANSITION}
 
     def _repair_pass_locked(self, summary: dict) -> dict:
         from ..stats.metrics import SCRUB_REPAIRS
@@ -955,7 +984,6 @@ _LEFT_OUT_PATHS = {
     "/cluster/geo": "geo registry (replication/geo.py), ROADMAP A-7",
     "/cluster/hot": "federated hot keys (master/observability.py), "
                     "ROADMAP A-5",
-    "/cluster/lifecycle": "lifecycle controller (maintenance/), ROADMAP A-5",
     "/cluster/metrics": "metrics federation (telemetry/federation.py), "
                         "ROADMAP A-5",
     "/cluster/traces": "trace stitching (telemetry/stitch.py), ROADMAP A-5",
@@ -968,17 +996,12 @@ def _refuse_left_out_planes(**given) -> None:
     does not have, when given a value other than its default: it is never
     silently ignored."""
     defaults = {
-        "lifecycle_interval": 0.0, "lifecycle_dir": "",
-        "lifecycle_rate_mbps": None, "lifecycle_policy": None,
-        "repair_deadline_s": None, "peer_clusters": None,
+        "peer_clusters": None,
         "slo_interval": 0.0, "slo_specs": None, "slo_window_scale": None,
         "canary_interval": 0.0, "canary_s3": "", "alert_webhook": "",
         "debug_dir": "",
     }
     planes = {
-        "lifecycle": "the lifecycle controller (maintenance/), ROADMAP A-5",
-        "repair": "dead-node mass repair (maintenance/mass_repair.py), "
-                  "ROADMAP A-5",
         "peer": "the geo registry (replication/geo.py), ROADMAP A-7",
         "slo": "the SLO engine (telemetry/slo.py), ROADMAP A-5",
         "canary": "the canary prober (telemetry/canary.py), ROADMAP A-5",
@@ -1226,6 +1249,9 @@ class _MasterHttpHandler(BaseHTTPRequestHandler):
             self.end_headers()
             self.wfile.write(page)
             return
+        if u.path == "/cluster/lifecycle":
+            # lifecycle controller status: policies, journal, job states
+            return self._json(200, self.master.lifecycle.status())
         if u.path in ("/cluster/status", "/dir/status"):
             from . import observability
 
@@ -1246,6 +1272,7 @@ class _MasterHttpHandler(BaseHTTPRequestHandler):
                 "failed": [list(k) for k in s["failed"]],
                 "skipped": [list(k) for k in s["skipped"]],
                 "outstanding": len(self.master.scrub_findings_snapshot()),
+                "massRepair": self.master.mass_repair.status(),
             })
         if u.path == "/vol/grow":
             # master_server_handlers_admin.go volumeGrowHandler

@@ -107,8 +107,6 @@ _NOT_PORTED = {
     "fs.": "shell/fs_commands.py, ROADMAP A-7",
     "s3.": "shell/fs_commands.py, ROADMAP A-7",
     "volume.tier.": "the remote tier, ROADMAP A-2",
-    "volume.lifecycle": "the lifecycle controller, ROADMAP A-5",
-    "volume.repair": "dead-node mass repair, ROADMAP A-5",
 }
 
 

@@ -1,14 +1,16 @@
 """Volume admin commands: volume.list / volume.vacuum / volume.fix.replication
-/ volume.balance / volume.move / volume.mount / volume.unmount / volume.delete.
+/ volume.balance / volume.move / volume.mount / volume.unmount / volume.delete
+/ volume.lifecycle / volume.repair.
 
 Reference: weed/shell/command_volume_*.go.  Placement decisions are pure
 functions over the TopologyInfo snapshot (tier-3 test pattern).
 
 The port's copy of seaweedfs_tpu/shell/volume_commands.py, without
 `volume.tier.upload` / `volume.tier.download` / `volume.tier.move` (the
-remote tier and disk-type moves, ROADMAP A-2) and `volume.lifecycle` /
-`volume.repair` (the master's lifecycle and mass-repair planes, ROADMAP
-A-5); shell/commands.py names the item when one of them is asked for.
+remote tier and disk-type moves, ROADMAP A-2); shell/commands.py names the
+item when one of them is asked for.  `volume.lifecycle -policy=` checks
+the policy here first, so a policy the port refuses (a `tier_backend`,
+ROADMAP A-2) raises ValueError before any rpc.
 """
 
 from __future__ import annotations
@@ -583,6 +585,113 @@ def volume_check_disk(env: CommandEnv, args: list[str]) -> str:
                 lines.append(f"volume {vid}: synced {node} from {best[0]}")
             except grpc.RpcError as e:
                 lines.append(f"volume {vid}: sync failed: {e.code()}")
+    return "\n".join(lines)
+
+
+@register("volume.lifecycle")
+def volume_lifecycle(env: CommandEnv, args: list[str]) -> str:
+    """Operate the master's lifecycle controller.
+
+    volume.lifecycle                      — controller status + job list
+    volume.lifecycle -dry-run [...]       — evaluate policies, print plan
+    volume.lifecycle -apply [...]         — evaluate AND execute now
+    volume.lifecycle -policy='<json>'     — install a policy set
+    Filters for -dry-run/-apply: -volumeId=N -transition=NAME."""
+    import json as _json
+
+    from ..maintenance.policy import PolicySet
+
+    flags = _parse_flags(args)
+    if "policy" in flags:
+        PolicySet.parse(flags["policy"])  # refused policies raise here
+        resp = env.master().Lifecycle(master_pb2.LifecycleRequest(
+            action="policy", policy_json=flags["policy"]))
+        return "lifecycle policy updated:\n" + resp.report
+    if "apply" in flags or "dry-run" in flags or "run" in flags:
+        resp = env.master().Lifecycle(master_pb2.LifecycleRequest(
+            action="run",
+            apply="apply" in flags,
+            volume_id=int(flags.get("volumeId", "0") or 0),
+            transition=flags.get("transition", ""),
+        ))
+        doc = _json.loads(resp.report)
+        lines = []
+        planned = doc.get("planned", [])
+        lines.append(f"planned: {len(planned)} transition(s)"
+                     + ("" if "apply" in flags
+                        else " (dry run, -apply to execute)"))
+        for p in planned:
+            lines.append(
+                f"  v{p['volume_id']} {p['transition']}"
+                f" on {p.get('node', '?')} ({p.get('bytes', 0)} bytes)")
+        for r in doc.get("results", []):
+            lines.append(f"  {r.get('key')}: {r.get('state')}"
+                         + (f" — {r['detail']}" if r.get("detail") else "")
+                         + (f" — {r['error']}" if r.get("error") else ""))
+        return "\n".join(lines)
+    resp = env.master().Lifecycle(
+        master_pb2.LifecycleRequest(action="status"))
+    doc = _json.loads(resp.report)
+    lines = [
+        f"lifecycle: enabled={doc['enabled']} running={doc['running']}"
+        f" interval={doc['intervalSeconds']}s rate={doc['rateMBps']}MB/s",
+        f"journal: {doc['journalPath'] or '(memory only)'}"
+        f" states={doc['jobStates']}",
+        f"counts: {doc['counts']}",
+    ]
+    for j in doc.get("jobs", [])[-16:]:
+        lines.append(
+            f"  {j['key']}: {j['state']} attempts={j.get('attempts', 0)}"
+            + (f" — {j['detail']}" if j.get("detail") else "")
+            + (f" — {j['error']}" if j.get("error") else ""))
+    return "\n".join(lines)
+
+
+@register("volume.repair")
+def volume_repair(env: CommandEnv, args: list[str]) -> str:
+    """Operate the master's dead-node mass-repair orchestrator.
+
+    volume.repair                — orchestrator status + recent jobs
+    volume.repair -plan          — rank affected volumes by exposure,
+                                   print targets; touches nothing
+    volume.repair -apply         — plan, journal and execute the batch
+    -node=ip:port tags the plan with the dead node it answers for."""
+    import json as _json
+
+    flags = _parse_flags(args)
+    node = flags.get("node", "")
+    if "plan" in flags or "apply" in flags:
+        resp = env.master().Lifecycle(master_pb2.LifecycleRequest(
+            action=("mass_repair_run" if "apply" in flags
+                    else "mass_repair_plan"),
+            node=node))
+        doc = _json.loads(resp.report)
+        planned = doc.get("planned", [])
+        lines = [f"mass repair: {len(planned)} volume(s) planned"
+                 + ("" if "apply" in flags
+                    else " (dry run, -apply to execute)")]
+        for p in planned:
+            lines.append(
+                f"  v{p['volume_id']} surviving={p['surviving']}"
+                f" -> {p['node']} ({p.get('bytes', 0)} bytes)")
+        for r in doc.get("results", []):
+            lines.append(f"  {r.get('key')}: {r.get('state')}"
+                         + (f" — {r['error']}" if r.get("error") else ""))
+        return "\n".join(lines)
+    resp = env.master().Lifecycle(
+        master_pb2.LifecycleRequest(action="mass_repair_status"))
+    doc = _json.loads(resp.report)
+    lines = [
+        f"mass repair: enabled={doc['enabled']} pending={doc['pending']}"
+        f" deadline={doc['deadlineSeconds']}s"
+        f" rateFloor={doc['rateFloorMBps']}MB/s",
+        f"counts: {doc['counts']}",
+    ]
+    for j in doc.get("jobs", [])[-16:]:
+        lines.append(
+            f"  {j['key']}: {j['state']} attempts={j.get('attempts', 0)}"
+            + (f" — {j['detail']}" if j.get("detail") else "")
+            + (f" — {j['error']}" if j.get("error") else ""))
     return "\n".join(lines)
 
 

@@ -665,6 +665,78 @@ VOLUME_UNDERREPLICATED = REGISTRY.gauge(
     "volumes with fewer live replicas than their placement requires",
 )
 
+# -- the lifecycle controller (maintenance/controller.py) ---------------------
+# journaled jobs: seal -> ec_encode -> vacuum -> rebalance -> ttl_expire.
+# `jobs` counts job executions by outcome (ok | error | parked | resumed),
+# `transitions` counts completed volume state changes, and bytes/seconds
+# attribute the background I/O the shared token bucket paces.
+
+LIFECYCLE_JOBS = REGISTRY.counter(
+    "seaweedfs_lifecycle_jobs_total",
+    "lifecycle job executions by transition and outcome",
+    labels=("transition", "result"),  # ok | error | parked | resumed
+)
+LIFECYCLE_BYTES = REGISTRY.counter(
+    "seaweedfs_lifecycle_bytes_total",
+    "bytes moved/processed by lifecycle jobs, by transition",
+    labels=("transition",),
+)
+LIFECYCLE_SECONDS = REGISTRY.histogram(
+    "seaweedfs_lifecycle_seconds",
+    "wall time per lifecycle job, throttle wait included",
+    labels=("transition",),
+    buckets=(0.01, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0),
+)
+LIFECYCLE_TRANSITIONS = REGISTRY.counter(
+    "seaweedfs_lifecycle_transitions_total",
+    "completed volume lifecycle transitions by result",
+    labels=("transition", "result"),  # ok | error
+)
+LIFECYCLE_QUEUE_DEPTH = REGISTRY.gauge(
+    "seaweedfs_lifecycle_queue_depth",
+    "lifecycle jobs journaled but not yet finished (pending + running)",
+)
+
+# -- dead-node mass repair (maintenance/mass_repair.py) -----------------------
+# a dead node becomes one planned batch: volumes ranked by exposure (fewest
+# surviving shards first), rebuild targets spread across the survivors, one
+# VolumeEcShardsBatchRebuild per target.  bytes + seconds give the
+# aggregate repair GB/s; deadline slack tracks the total-repair-time bound.
+
+REPAIR_BATCH_QUEUE_DEPTH = REGISTRY.gauge(
+    "seaweedfs_repair_batch_queue_depth",
+    "mass-repair volume jobs journaled but not yet finished",
+)
+REPAIR_BATCH_VOLUMES = REGISTRY.counter(
+    "seaweedfs_repair_batch_volumes_total",
+    "volumes planned into mass-repair batches by exposure class "
+    "(surviving shards above the 10-shard decode floor; lost = below it)",
+    labels=("exposure",),  # "0" | "1" | "2" | "3" | "lost"
+)
+REPAIR_BATCH_JOBS = REGISTRY.counter(
+    "seaweedfs_repair_batch_jobs_total",
+    "mass-repair volume rebuild executions by outcome",
+    labels=("result",),  # ok | error | parked | resumed
+)
+REPAIR_BATCH_BYTES = REGISTRY.counter(
+    "seaweedfs_repair_batch_bytes_total",
+    "shard bytes reconstructed by completed mass-repair jobs",
+)
+REPAIR_BATCH_SECONDS = REGISTRY.histogram(
+    "seaweedfs_repair_batch_seconds",
+    "wall time per mass-repair wave (one pass over the pending batch)",
+    buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0),
+)
+REPAIR_BATCH_DEADLINE_SLACK = REGISTRY.gauge(
+    "seaweedfs_repair_batch_deadline_slack_seconds",
+    "configured mass-repair deadline minus projected completion time",
+)
+DISK_EVACUATE_COUNTER = REGISTRY.counter(
+    "seaweedfs_disk_evacuations_total",
+    "proactive failing-disk evacuation moves by kind and outcome",
+    labels=("kind", "result"),  # kind: ec_shard|volume; result: ok|error
+)
+
 # -- group commit (storage/group_commit.py) -----------------------------------
 # one fsync pair acks a whole batch of appends, so commits_total <<
 # writes_total is the win being measured

@@ -18,6 +18,7 @@ import chip_ab  # noqa: E402
 
 
 @pytest.mark.parametrize("argv", [["chip_smoke.py"],
+                                  ["chip_smoke.py", "--only-maintenance"],
                                   ["chip_ab.py", "--tree", "a=."]])
 def test_exits_nonzero_without_a_card(argv):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
@@ -341,6 +342,77 @@ def test_cluster_phase_rehearsed_on_the_host(tmp_path, capsys):
     assert rows["cluster_decode"]["dat_sha256_equal"]
     assert {n: e["rc"] for n, e in rows["cluster_stop"]["exits"].items()} \
         == {"a": 0, "b": 0, "master": 0}
+    # no card: the kernels' launch counters stayed at 0 on every server
+    assert out["launches_by_path"] == {"gf_matmul": {},
+                                       "gf_matmul_batched": {}}
+
+
+def test_maintenance_phase_rehearsed_on_the_host(tmp_path, capsys):
+    """chip_smoke.py's maintenance phase (4g) with 8 volumes of 4 MiB on
+    this host: a master with its lifecycle loop and the controller's
+    defaults, then four volume processes of `python -m seaweedfs_tpu_torch`
+    with `-ec.codec torch_cpu` (the kernel's plain version, passed because
+    the caller asks, never as a fallback), D first, and no shell command
+    but the status reads.  Every check of the phase passes: the controller
+    seals and encodes all 8 volumes in two waves of one volume per node
+    (parity equal to the plain version, sources dropped; the first wave
+    spread 4/4/3/3 with D and C, first in topology order, taking 4, the
+    second 2/2/5/5, stacking 5 on A and B), D's
+    death is repaired by the master alone (rebuilt shards equal by
+    sha256), GETs from the moment D is dropped return every body equal,
+    volume.lifecycle and volume.repair show every job done, and every
+    process exits 0 on SIGTERM."""
+    import chip_smoke
+    from helpers import free_port
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+
+    work = tmp_path / "work"
+    work.mkdir()
+    out = chip_smoke.phase_maintenance(
+        rs_cuda, gf256, str(work), 4 << 20, seed=0, power="test card",
+        reduced=["test size"], codec="torch_cpu", device="cpu",
+        free_port=free_port)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {f"maintenance_{s}" for s in (
+        "start", "encode", "dead_node", "gets_during_repair", "repair",
+        "stop", "summary")}
+    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    enc = rows["maintenance_encode"]
+    assert len(enc["jobs"]) == 8 and all(
+        [j["transition"] for j in jobs] == ["seal", "ec_encode"]
+        for jobs in enc["jobs"].values())
+    assert enc["d_max_shards_per_volume"] <= 4
+    assert rows["maintenance_start"]["topology_order"][:2] == ["d", "c"]
+    assert enc["waves"] == [[1, 3, 5, 7], [2, 4, 6, 8]]
+    for w, want in enumerate(({"d": 4, "c": 4, "a": 3, "b": 3},
+                              {"d": 2, "c": 2, "a": 5, "b": 5})):
+        for v in enc["waves"][w]:
+            assert {n: len(s) for n, s in enc["spread"][str(v)].items()
+                    } == want, (v, enc["spread"])
+    assert enc["loss_if_dead"] == {"a": [2, 4, 6, 8], "b": [2, 4, 6, 8]}
+    assert all(sorted(s for v in sp.values() for s in v) == list(range(14))
+               for sp in enc["spread"].values())
+    assert enc["parity_slices_checked"] >= 8 and enc["sources_dropped"]
+    assert not any(c["host_apply_rows"] for c in enc["counts"].values())
+    dead = rows["maintenance_dead_node"]
+    assert dead["detect_s"] < min(dead["planned_s"],
+                                  dead["time_to_recover_s"])
+    assert dead["affected_volumes"] == list(range(1, 9))
+    gets = rows["maintenance_gets_during_repair"]
+    assert gets["byte_equal"] and gets["reads"] > 0
+    rep = rows["maintenance_repair"]
+    assert rep["sha256_equal"] and rep["rebuilt"] == dead["lost_shards"]
+    assert rep["remote_bytes_in"] > 0 and rep["full_fetch_bytes"] > 0
+    assert rep["ec_encode_done"] == 8 and rep["mass_repair_done"] == 8
+    assert rep["mass_repair_counts"]["repaired"] == 8
+    assert rep["lifecycle_states"] == {"done": 24}
+    assert rep["repair_batch"][
+        'seaweedfs_repair_batch_jobs_total{result="ok"}'] == 8
+    assert {n: e["rc"] for n, e in rows["maintenance_stop"]["exits"].items()
+            } == {"a": 0, "b": 0, "c": 0, "master": 0}
     # no card: the kernels' launch counters stayed at 0 on every server
     assert out["launches_by_path"] == {"gf_matmul": {},
                                        "gf_matmul_batched": {}}

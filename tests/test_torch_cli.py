@@ -197,9 +197,8 @@ def test_subcommands_not_ported_exit_2_naming_the_roadmap(tmp_path, cmd,
 
 @pytest.mark.parametrize("argv,words", [
     (["master", "-sloInterval", "15"], "slo_interval"),
-    (["master", "-lifecycleInterval", "5"], "lifecycle_interval"),
+    (["master", "-sloSpecs", "s.json"], "-sloSpecs"),
     (["master", "-peers", "127.0.0.1:{p},127.0.0.1:1"], "raft"),
-    (["master", "-lifecyclePolicy", "p.json"], "-lifecyclePolicy"),
     (["volume", "-tierBackends", "t.json", "-ec.codec=cpu"], "A-2"),
     (["volume", "-offset.5bytes", "-ec.codec=cpu"], "A-8"),
     (["server", "-filer", "-ec.codec=cpu"], "A-7"),
@@ -213,6 +212,56 @@ def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
     out = _cli(argv, str(tmp_path))
     assert out.returncode != 0
     assert words in out.stderr and "not ported yet" in out.stderr
+
+
+def test_lifecycle_flags_are_live(tmp_path):
+    """-lifecycleInterval, -lifecycleDir, -lifecycleRateMBps,
+    -lifecyclePolicy (a JSON file) and -repairDeadlineS reach the
+    master's maintenance plane, as /cluster/lifecycle and /vol/repair
+    show; SIGTERM still exits 0."""
+    (tmp_path / "policy.json").write_text(
+        json.dumps({"*": {"ec_cooldown_seconds": 5}}))
+    (tmp_path / "lc").mkdir()
+    port = free_port()
+    with open(tmp_path / "master.log", "wb") as log:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-port",
+             str(port), "-lifecycleInterval", "7", "-lifecycleDir",
+             str(tmp_path / "lc"), "-lifecycleRateMBps", "8",
+             "-lifecyclePolicy", "policy.json", "-repairDeadlineS", "90"],
+            cwd=str(tmp_path), env=_env(), stdout=log,
+            stderr=subprocess.STDOUT)
+        try:
+            doc = _wait(lambda: _get_json(
+                f"http://127.0.0.1:{port}/cluster/lifecycle"),
+                "/cluster/lifecycle", [p])
+            assert doc["enabled"] and doc["running"]
+            assert (doc["intervalSeconds"], doc["rateMBps"]) == (7.0, 8.0)
+            assert doc["journalPath"] == str(
+                tmp_path / "lc" / "lifecycle.journal.jsonl")
+            assert doc["policies"]["*"]["ec_cooldown_seconds"] == 5
+            mr = _get_json(f"http://127.0.0.1:{port}/vol/repair")[
+                "massRepair"]
+            assert mr["enabled"] and mr["deadlineSeconds"] == 90
+        finally:
+            p.send_signal(signal.SIGTERM)
+            rc = p.wait(timeout=DEADLINE_S)
+    assert rc == 0
+    assert "Traceback" not in (tmp_path / "master.log").read_text()
+
+
+@pytest.mark.parametrize("flags", [
+    ["-lifecyclePolicy", "lifecycle.policy.json"],
+    ["-lifecycleDir", "."],  # the policy a reference master persisted
+])
+def test_lifecycle_policy_with_a_tier_backend_is_refused(tmp_path, flags):
+    (tmp_path / "lifecycle.policy.json").write_text(json.dumps(
+        {"*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}}))
+    out = _cli(["master", "-port", str(free_port()), *flags],
+               str(tmp_path))
+    assert out.returncode != 0
+    assert "not ported yet" in out.stderr
+    assert "remote tier, ROADMAP A-2" in out.stderr
 
 
 def test_grpc_tls_in_security_toml_is_refused(tmp_path):

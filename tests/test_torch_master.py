@@ -5,8 +5,10 @@ VolumeList, Statistics, the heartbeat acks and the HTTP API (/dir/assign,
 address replaced by a name, fid keys compared by format and order (the
 cookie is random in both).  Then the packages cross-wired: port volume
 servers register with the reference master and reference volume servers
-with the port's.  Last, the planes the port leaves out answer 501,
-UNIMPLEMENTED or ValueError, and stop() leaves no thread of the master's.
+with the port's.  Last, the planes the port leaves out answer 501 or
+ValueError, the maintenance plane's surfaces (/cluster/lifecycle, the
+Lifecycle rpc, /vol/repair's massRepair) answer as the reference's, and
+stop() leaves no thread of the master's.
 """
 
 import json
@@ -250,9 +252,9 @@ def test_http_api_answers_equal(masters, path):
 
 
 def test_dir_status_answers_equal_but_for_the_left_out_planes(masters):
-    """/dir/status: the same topology, leader and health blocks; the
-    reference's blocks of planes the port does not have (Lifecycle, the
-    SLO and canary Health) are absent from the port's, and nothing else."""
+    """/dir/status: the same topology, leader, health and Lifecycle
+    blocks; the reference's block of planes the port does not have (the
+    SLO and canary Health) is absent from the port's, and nothing else."""
     docs = {}
     for pkg, (m, _s, _a) in masters.items():
         code, body = _http(f"http://127.0.0.1:{m.port}/dir/status")
@@ -261,14 +263,14 @@ def test_dir_status_answers_equal_but_for_the_left_out_planes(masters):
         for node in doc["DataNodes"].values():
             node.pop("secondsSinceLastBeat")
         docs[pkg] = doc
-    assert set(docs["ref"]) - set(docs["port"]) == {"Lifecycle", "Health"}
+    assert set(docs["ref"]) - set(docs["port"]) == {"Health"}
     assert set(docs["port"]) <= set(docs["ref"])
     assert docs["port"] == {k: docs["ref"][k] for k in docs["port"]}
 
 
 @pytest.mark.parametrize("path", [
     "/cluster/alerts", "/cluster/debug", "/cluster/debug/capture",
-    "/cluster/geo", "/cluster/hot", "/cluster/lifecycle",
+    "/cluster/geo", "/cluster/hot",
     "/cluster/metrics", "/cluster/traces?trace=" + "a" * 32,
     "/cluster/raft",
 ])
@@ -283,18 +285,92 @@ def test_left_out_surfaces_answer_501_naming_the_plane(masters, path):
         assert code == 501
 
 
-def test_lifecycle_rpc_is_unimplemented(masters):
-    m = masters["port"][0]
-    with pytest.raises(grpc.RpcError) as e:
-        port_rpc.master_stub(f"127.0.0.1:{m.grpc_port}").Lifecycle(
-            port_pb.LifecycleRequest(action="status"))
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
+def _lifecycle_docs(masters, action: str) -> dict:
+    """pkg -> the Lifecycle rpc's report, with times, paths and each
+    master's own address normalized away."""
+    docs = {}
+    for pkg, (m, _s, _a) in masters.items():
+        _M, pb, rpc = PKG[pkg]
+        resp = rpc.master_stub(f"127.0.0.1:{m.grpc_port}").Lifecycle(
+            pb.LifecycleRequest(action=action))
+        doc = json.loads(resp.report)
+        for k in ("lastCycle", "deadlineLeftSeconds"):
+            doc.pop(k, None)
+        docs[pkg] = doc
+    return docs
+
+
+def test_lifecycle_rpc_answers_as_the_reference(masters):
+    """The Lifecycle rpc's status, dry-run plan and mass-repair status
+    answer alike on a master with no lifecycle loop (the same default
+    policies, the same empty journal), and a bad action is refused
+    INVALID_ARGUMENT by both."""
+    for action in ("status", "mass_repair_status"):
+        docs = _lifecycle_docs(masters, action)
+        assert docs["port"] == docs["ref"], action
+    st = _lifecycle_docs(masters, "status")["port"]
+    assert st["enabled"] is False and "*" in st["policies"]
+    for pkg, (m, _s, _a) in masters.items():
+        _M, pb, rpc = PKG[pkg]
+        stub = rpc.master_stub(f"127.0.0.1:{m.grpc_port}")
+        plan = json.loads(stub.Lifecycle(pb.LifecycleRequest(
+            action="run", apply=False)).report)
+        assert plan["results"] == []
+        with pytest.raises(grpc.RpcError) as e:
+            stub.Lifecycle(pb.LifecycleRequest(action="nope"))
+        assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
+
+
+def test_cluster_lifecycle_and_vol_repair_answer_as_the_reference(masters):
+    """/cluster/lifecycle and /vol/repair's massRepair block: the same
+    documents from both masters."""
+    for path, key in (("/cluster/lifecycle", None),
+                      ("/vol/repair", "massRepair")):
+        docs = {}
+        for pkg, (m, _s, _a) in masters.items():
+            code, body = _http(f"http://127.0.0.1:{m.port}{path}")
+            assert code == 200, (pkg, path)
+            doc = json.loads(body)
+            doc = doc[key] if key else doc
+            for k in ("lastCycle", "deadlineLeftSeconds"):
+                doc.pop(k, None)
+            docs[pkg] = doc
+        assert docs["port"] == docs["ref"], path
+
+
+def test_tier_backend_policy_is_refused_naming_a2():
+    """A policy naming a tier backend raises ValueError at the
+    constructor and at set_policies, naming the remote tier's item."""
+    with pytest.raises(ValueError, match="remote tier, ROADMAP A-2"):
+        PortMaster(ip="127.0.0.1", port=free_port(), lifecycle_policy={
+            "*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}})
+    m = PortMaster(ip="127.0.0.1", port=free_port())
+    with pytest.raises(ValueError, match="remote tier, ROADMAP A-2"):
+        m.lifecycle.set_policies({"photos": {"tier_backend": "s3.cold"}})
+    assert m.lifecycle.policies.for_collection("photos").tier_backend == ""
+
+
+def test_maintenance_plane_arguments_are_live(tmp_path):
+    """The lifecycle and repair arguments build the plane the reference
+    builds: a controller with the given interval, journal, rate and
+    policy, and an orchestrator with the given deadline (on by
+    default)."""
+    m = PortMaster(ip="127.0.0.1", port=free_port(),
+                   lifecycle_interval=5.0, lifecycle_dir=str(tmp_path),
+                   lifecycle_rate_mbps=8.0,
+                   lifecycle_policy={"*": {"ec_cooldown_seconds": 30}},
+                   repair_deadline_s=60.0)
+    lc, mr = m.lifecycle, m.mass_repair
+    assert (lc.interval_s, lc.rate_mbps) == (5.0, 8.0)
+    assert lc.journal.path == str(tmp_path / "lifecycle.journal.jsonl")
+    assert lc.policies.for_collection("x").ec_cooldown_seconds == 30
+    assert (tmp_path / "lifecycle.policy.json").exists()
+    assert mr.deadline_s == 60.0 and mr.enabled
+    assert mr.journal is lc.journal
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"lifecycle_interval": 5.0}, {"lifecycle_dir": "/tmp/x"},
-    {"lifecycle_rate_mbps": 8.0}, {"lifecycle_policy": {"*": {}}},
-    {"repair_deadline_s": 60.0}, {"peer_clusters": ["127.0.0.1:1"]},
+    {"peer_clusters": ["127.0.0.1:1"]},
     {"slo_interval": 15.0}, {"slo_specs": []}, {"slo_window_scale": 0.1},
     {"canary_interval": 1.0}, {"canary_s3": "127.0.0.1:8333"},
     {"alert_webhook": "http://127.0.0.1:1/a"}, {"debug_dir": "/tmp/d"},
@@ -323,7 +399,8 @@ def test_stop_leaves_no_master_thread():
     the module's other masters are not this one's)."""
     before = set(threading.enumerate())
     m = PortMaster(ip="127.0.0.1", port=free_port(), metrics_port=free_port(),
-                   maintenance_interval=0.2, pulse_seconds=0.2)
+                   maintenance_interval=0.2, pulse_seconds=0.2,
+                   lifecycle_interval=0.2)
     m.start()
     stream = _HeartbeatStream(port_rpc, f"127.0.0.1:{m.grpc_port}")
     stream.send(port_pb.Heartbeat(ip="10.9.0.9", port=8089,
@@ -342,7 +419,8 @@ def test_stop_leaves_no_master_thread():
         c.getresponse().read()
         conns.append(c)
     names = {t.name for t in set(threading.enumerate()) - before}
-    assert {"master-liveness", "master-maintenance", "master-http"} <= names
+    assert {"master-liveness", "master-maintenance", "master-http",
+            "master-lifecycle-controller"} <= names
     assert any(n.startswith("master-grpc") for n in names)
     m.stop()
     stream.close()

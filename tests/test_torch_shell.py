@@ -65,6 +65,9 @@ class _Cluster:
         self.pkg = pkg
         self.master = Master(ip="127.0.0.1", port=free_port(),
                              volume_size_limit_mb=64)
+        # the subject is the shell's ec.rebuild: both masters' dead-node
+        # mass repair (on by default) stays off so it cannot race it
+        self.master.mass_repair.enabled = False
         self.master.start()
         self.servers, self.dirs, self.names = {}, {}, {}
         for name, rack in NODES:
@@ -357,8 +360,6 @@ def test_unknown_and_left_out_commands_raise(clusters):
     with pytest.raises(ValueError, match="unknown command 'nope'"):
         port.run("nope")
     for line, item in (("volume.tier.upload -volumeId=1", "A-2"),
-                       ("volume.lifecycle", "A-5"),
-                       ("volume.repair", "A-5"),
                        ("cluster.status", "A-5"),
                        ("fs.ls /", "A-7"),
                        ("collection.list", "A-7")):

@@ -6,7 +6,7 @@
                           [--maintenance-volume-gib 1]
                           [--only-ec-reads | --only-store |
                            --only-volume-server | --only-cluster |
-                           --only-maintenance]
+                           --only-maintenance | --only-mesh]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
@@ -28,7 +28,11 @@ matrix at its first use: one volume at a time and each degraded read
 through `gf_apply` (named `gf_matmul` in the kernels line, as in earlier
 runs), and many volumes at once through the codec service, which stacks
 their slices into one batched launch (`gf_apply_batched`, named
-`gf_matmul_batched`, also the port of bench.py:104's sweep kernel).
+`gf_matmul_batched`, also the port of bench.py:104's sweep kernel).  The
+mesh phase adds the JAX package's other two device programs, the XOR
+network of the doubling chain (`gf_xor`, csrc/gf_xor.cu) and the
+bit-plane route (`bit_unpack` and `bit_pack`, csrc/gf_bitplane.cu,
+around torch._int_mm), and parallel/ over a mesh of the card.
 
 Phases, each printing one JSON line:
   1. card and build: the card's name and power limit, the host library's
@@ -203,7 +207,26 @@ Phases, each printing one JSON line:
      turns on the direct route (SEAWEEDFS_TPU_EC_SERVICE=0) and on the
      default route a user gets with no arguments (the shared service, its
      default batch cap), each checked by sha256 and its launches;
-  9. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
+  9. mesh: parallel/ on the card and the JAX package's other two device
+     programs.  (a) gf_xor (csrc/gf_xor.cu, one entry and batched),
+     bit_unpack and bit_pack (csrc/gf_bitplane.cu) and the whole
+     bit-plane route against their plain versions for the parity matrix
+     and 20 seeded decode plans of 1-4 lost shards at 1, 7, 4099 and 16
+     MiB per shard; (b) each timed at 16 MiB per shard, one launch and
+     back to back, beside its bound, its plain version, torch._int_mm
+     alone and gf_bitslice on the same data; (c) BASELINE config 4 on the
+     1x1 mesh of the card: 64 seeded volumes of 32-96 MiB (~4 GiB), each
+     encoded alone on `cuda`, then batch_generate_ec_files over all 64
+     (every shard file equal by sha256), one volume's .ec00-.ec03 rebuilt
+     by mesh_rebuild_ec_files (equal), and that volume encoded on
+     `cuda_xor` and rebuilt on `cuda_bitplane` (equal); (d) the same
+     flows on a virtual 2x4 mesh of the one card, 16 volumes (~256 MiB);
+     (e) dryrun_multidevice(8); (f) a burst of encode and decode jobs
+     through a device-mode CodecService on make_mesh() (one launch per
+     batch) and on the virtual mesh (one per entry and batch), equal to
+     the `cpu` codec.  Launch counts are zeroed just before each flow and
+     read just after;
+  10. the {"kernels": [...]} line, then {"ok": true, "device": ...} last.
 
 `--only-ec-reads` runs phases 1, 4 and 4b alone, at `--volume-gib` (a
 quick check: `--only-ec-reads --volume-gib 0.5`), and prints no kernels
@@ -216,7 +239,8 @@ no kernels line; `--only-cluster` runs phases 1-2 and 4f alone (a quick
 check: `--only-cluster --cluster-volume-gib 0.5`), and prints no kernels
 line; `--only-maintenance` runs phases 1-2 and 4g alone (a quick check:
 `--only-maintenance --maintenance-volume-gib 0.25`), and prints no
-kernels line; `--cluster-codec` passes -ec.codec to 4f's and 4g's volume
+kernels line; `--only-mesh` runs phases 1-2 and the mesh phase alone, and prints
+no kernels line; `--cluster-codec` passes -ec.codec to 4f's and 4g's volume
 processes (a CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
 or without the package beside this script.  Data comes from --seed;
 nothing is downloaded.
@@ -227,6 +251,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import mmap
 import os
 import shutil
 import signal
@@ -333,13 +358,21 @@ def time_back_to_back_ms(fn, reps: int = 20, windows: int = 5,
     return float(np.median(times))
 
 
+def _timed_build(_build, name: str) -> float:
+    """Seconds of one nvcc build of csrc/<name>.cu (0 when built)."""
+    t0 = time.perf_counter()
+    _build.build(name)
+    return time.perf_counter() - t0
+
+
 def compile_seconds(_build) -> dict:
     """Each NVRTC compile of this process: seconds by cache key."""
     return {key[:16]: s for key, s in _build.COMPILE_SECONDS.items()}
 
 
 def random_u8(shape, gen) -> torch.Tensor:
-    return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+    """Seeded random bytes on the generator's device (the card)."""
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=gen.device,
                          generator=gen)
 
 
@@ -576,11 +609,14 @@ def check_parity(base: str, rs_cuda, gf256, slice_size: int,
 
 
 def sha256_of(path: str) -> str:
-    h = hashlib.sha256()
+    """The file's sha256, hashed through a read-only mmap: on the H100
+    machine, threads hashing through read() ran an order of magnitude
+    slower (the mesh phase's `sha256_s`, PERF.md)."""
     with open(path, "rb") as f:
-        while chunk := f.read(64 * MIB):
-            h.update(chunk)
-    return h.hexdigest()
+        if os.fstat(f.fileno()).st_size == 0:
+            return hashlib.sha256().hexdigest()
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+            return hashlib.sha256(m).hexdigest()
 
 
 def sha256_all(paths: list[str]) -> list[str]:
@@ -2663,12 +2699,29 @@ def _launches_moved(before: dict, after: dict) -> dict:
 
 
 def _cluster_get_pass(name: str, master: "_Cluster", vid: int, keys: list,
-                      records: dict) -> dict:
+                      records: dict, holders: "set[str] | None" = None
+                      ) -> dict:
     """Every key GET by EC_READ_THREADS threads from the volume's holders
     as the master's /dir/lookup lists them (one lookup, cached, as a
-    client's vid map does), each body held against its .dat record."""
-    locs = [loc["url"] for loc in master.http_json(
-        f"/dir/lookup?volumeId={vid}")["locations"]]
+    client's vid map does), each body held against its .dat record.
+    `holders`: the URLs the lookup must list before the pass starts; it
+    is polled until it does (a node whose heartbeat the master missed
+    under load comes back within a few pulses), for at most
+    CLUSTER_LIVENESS_S, then the pass fails naming what it listed."""
+    def lookup() -> list[str]:
+        return [loc["url"] for loc in master.http_json(
+            f"/dir/lookup?volumeId={vid}")["locations"]]
+    t0 = time.perf_counter()
+    locs = lookup()
+    while holders is not None and not holders <= set(locs):
+        if time.perf_counter() - t0 > CLUSTER_LIVENESS_S:
+            raise AssertionError(
+                f"{name} GETs: /dir/lookup?volumeId={vid} lists {locs}, "
+                f"not every holder of {sorted(holders)}, after "
+                f"{CLUSTER_LIVENESS_S} s")
+        time.sleep(0.5)
+        locs = lookup()
+    lookup_wait_s = time.perf_counter() - t0
     clients = {u: _KeepAlive(int(u.rsplit(":", 1)[1])) for u in locs}
 
     def get(i_key) -> float:
@@ -2690,7 +2743,8 @@ def _cluster_get_pass(name: str, master: "_Cluster", vid: int, keys: list,
         lat = list(pool.map(get, enumerate(keys)))
     return _latency_row(name, lat, time.perf_counter() - t0,
                         bytes=sum(records[k]["size"] for k in keys),
-                        holders=locs, byte_equal=True)
+                        holders=locs, lookup_wait_s=lookup_wait_s,
+                        byte_equal=True)
 
 
 def _cluster_writes(master: "_Cluster", total: int, seed: int) -> dict:
@@ -2952,7 +3006,10 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
         dropped_s = cl.wait_for("the master drops C", lambda: all(
             c_url not in u for u in cl.ec_shards(1).values()),
             CLUSTER_LIVENESS_S)
-        degraded = _cluster_get_pass("degraded", cl, 1, keys, records)
+        # the pass starts once the lookup lists both survivors (ROADMAP
+        # C-2: under load the master can miss a live node's pulses)
+        degraded = _cluster_get_pass("degraded", cl, 1, keys, records,
+                                     holders={a_url, b_url})
         counts = counted("degraded_gets", before, scrape_all(("a", "b")))
         # each survivor decoded what it was asked for: on its codec (the
         # kernel, on the card) or by partial sums from its peer
@@ -2960,8 +3017,11 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
             c = counts[n]
             if not (sum(c["launches"].values()) or c["ops"]
                     or c["partial_fetches"]):
-                raise AssertionError(f"degraded GETs: {n} decoded nothing: "
-                                     f"{c}")
+                raise AssertionError(
+                    f"degraded GETs: {n} decoded nothing; /dir/lookup "
+                    f"listed {degraded['holders']} (A {a_url}, B {b_url}) "
+                    f"after {degraded['lookup_wait_s']:.2f} s; counts "
+                    f"{counts}")
         step("degraded_gets", {**degraded, "lost_shards": c_shards,
                                "master_dropped_c_s": dropped_s,
                                "counts": counts})
@@ -3887,6 +3947,426 @@ def time_batched(rs_cuda, gf256, gf_network, gen, power: str) -> dict:
     return row
 
 
+# -- the mesh phase (parallel/ and the xor and bit-plane kernels) -----------
+
+MESH_WIDTHS = (1, 7, 4099, 16 * MIB)
+MESH_PLANS = 20  # seeded decode plans of 1-4 lost rows
+MESH_VOLUMES = 64  # BASELINE config 4's volume count
+MESH_VOLUME_BYTES = (32 * MIB, 96 * MIB)  # uneven sizes, ~4 GiB in all
+VIRTUAL_VOLUMES = 16
+VIRTUAL_VOLUME_BYTES = (8 * MIB, 24 * MIB)  # ~256 MiB in all
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+SHA_THREADS = 8
+
+
+def _sha_many(paths: list[str]) -> list[str]:
+    with ThreadPoolExecutor(SHA_THREADS) as pool:
+        return list(pool.map(sha256_of, paths))
+
+
+def _zero_mesh_launches(rs_cuda, rs_xor, rs_bitplane) -> None:
+    _zero_launches(rs_cuda)
+    rs_xor.gf_apply_xor_batched.launches = 0
+    rs_bitplane.bit_unpack.launches = 0
+    rs_bitplane.bit_pack.launches = 0
+
+
+def _mesh_launches(rs_cuda, rs_xor, rs_bitplane) -> dict:
+    return {**_launches(rs_cuda),
+            "gf_xor": rs_xor.gf_apply_xor_batched.launches,
+            "bit_unpack": rs_bitplane.bit_unpack.launches,
+            "bit_pack": rs_bitplane.bit_pack.launches}
+
+
+def mesh_plans(gf256, seed: int) -> list[tuple[str, np.ndarray]]:
+    """The RS(10,4) parity matrix and MESH_PLANS seeded decode plans of 1
+    to 4 lost shards (data and parity, any mix)."""
+    rng = np.random.default_rng(seed)
+    full = gf256.rs_matrix(10, 14)
+    out = [("parity", gf256.rs_parity_matrix(10, 4))]
+    for i in range(MESH_PLANS):
+        lost = tuple(sorted(int(x) for x in
+                            rng.choice(14, 1 + i % 4, replace=False)))
+        present = [j for j in range(14) if j not in lost]
+        out.append((f"plan{list(lost)}",
+                    gf256.decode_plan_for(full, 10, present, lost)))
+    return out
+
+
+def mesh_kernels_vs_plain(rs_xor, rs_bitplane, plans, gen,
+                          widths=MESH_WIDTHS) -> dict:
+    """gf_xor (one entry and batched), bit_unpack, bit_pack and the whole
+    bit-plane route against their plain versions on the card, for every
+    matrix of `plans` at every width of `widths`; batched entries are
+    1-byte-offset views (unaligned rows and entry strides).  -> the
+    largest error of each (0, or the run has already failed)."""
+    t0 = time.perf_counter()
+    worst = {"gf_xor": 0, "bit_unpack": 0, "bit_pack": 0, "bitplane": 0}
+    cases = 0
+
+    def check(name, got, want, what):
+        nonlocal cases
+        if got.device.type == "cuda":
+            torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        cases += 1
+        if err:
+            raise AssertionError(f"{name} != plain for {what}: "
+                                 f"max_abs_err {err}")
+        worst[name] = max(worst[name], err)
+
+    for b in widths:
+        w = rs_bitplane.padded_width(b)
+        data = random_u8((10, b), gen)
+        batch = random_u8((3, 10, b + 1), gen)[:, :, 1:]
+        for view, what in ((data, "aligned"), (batch[1], "offset 1")):
+            check("bit_unpack", rs_bitplane.bit_unpack(view, w),
+                  rs_bitplane.bit_unpack_reference(view, w), f"B={b} {what}")
+        for r in (1, 2, 3, 4):
+            sums = torch.randint(0, 161, (max(8 * r, 24), w + 8),
+                                 dtype=torch.int32, device=gen.device,
+                                 generator=gen)[:8 * r]
+            check("bit_pack", rs_bitplane.bit_pack(sums, b),
+                  rs_bitplane.bit_pack_reference(sums, b),
+                  f"R={r} B={b} row stride {w + 8}")
+            del sums
+        for name, m in plans:
+            check("gf_xor", rs_xor.gf_apply_xor(m, data),
+                  rs_xor.gf_apply_xor_reference(m, data), f"{name} B={b}")
+            check("gf_xor", rs_xor.gf_apply_xor_batched(m, batch),
+                  rs_xor.gf_apply_xor_batched_reference(m, batch),
+                  f"{name} V=3 B={b} offset 1")
+            check("bitplane", rs_bitplane.gf_apply_bitplane(m, data),
+                  rs_bitplane.gf_apply_bitplane_reference(m, data),
+                  f"{name} B={b}")
+        del data, batch
+        torch.cuda.empty_cache()
+    row = {"phase": "mesh_kernels_vs_plain", "matrices": len(plans),
+           "widths": list(widths), "cases": cases, "byte_equal": True,
+           "max_abs_err": worst, "wall_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def _timed(fn, plain=None, plain_reps: int = 3) -> dict:
+    out = {"ms": time_ms(fn), "back_to_back_ms": time_back_to_back_ms(fn)}
+    if plain is not None:
+        out["plain_ms"] = time_ms(plain, reps=plain_reps, warmup=1)
+    return out
+
+
+def _bound_row(t_bytes_ms: float, t_ops_ms: float) -> dict:
+    return {"bound_ms": max(t_bytes_ms, t_ops_ms),
+            "bound_by": "bytes" if t_bytes_ms >= t_ops_ms else "operations",
+            "bytes_ms": t_bytes_ms, "ops_ms": t_ops_ms}
+
+
+def mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, gen,
+                       power: str) -> dict:
+    """RS(10,4) parity at 16 MiB per shard through each kernel: one launch
+    (`ms`) and back to back, beside its bound, its plain version's time
+    and, for the bit-plane route, torch._int_mm's time alone at the same
+    shape; gf_bitslice (gf_apply) on the same data beside them."""
+    m = gf256.rs_parity_matrix(10, 4)
+    r, s = m.shape
+    b = 16 * MIB
+    w = rs_bitplane.padded_width(b)
+    data = random_u8((s, b), gen)
+    rows = {}
+
+    def ms_of(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    # gf_xor and gf_bitslice compute one function, so they share its bound:
+    # each input and output byte once, and the fewest operations known to
+    # compute it (the bit-sliced network's).  The doubling chain's own
+    # count (rs_xor.xor_ops, coefficient tests included) is what the xor
+    # kernel chose to issue, not a bound: it is reported beside it.
+    bd = bound(gf_network, m, b)
+    t = _timed(lambda: rs_xor.gf_apply_xor(m, data),
+               lambda: rs_xor.gf_apply_xor_reference(m, data))
+    ops = rs_xor.xor_ops(m, b)
+    rows["gf_xor"] = {**t, **_bound_row(bd["bytes_ms"], bd["alu_ms"]),
+                      "kernel_ops": ops,
+                      "kernel_ops_ms": ops / INT32_OPS_PER_S * 1e3}
+    bits = rs_bitplane.bit_unpack(data, w)
+    rows["bit_unpack"] = {**_timed(
+        lambda: rs_bitplane.bit_unpack(data, w),
+        lambda: rs_bitplane.bit_unpack_reference(data, w)),
+        **_bound_row(ms_of(s * b + 8 * s * w), 0.0)}
+    a = rs_bitplane.bit_matrix_tensor(m, data.device,
+                                      rs_bitplane._INT_MM_MIN_ROWS)
+    mm_ops = 2 * a.shape[0] * a.shape[1] * w
+    rows["int_mm"] = {**_timed(lambda: torch._int_mm(a, bits)),
+                      **_bound_row(ms_of(a.numel() + bits.numel()
+                                         + 4 * a.shape[0] * w),
+                                   mm_ops / INT8_OPS_PER_S * 1e3),
+                      "shape": [list(a.shape), list(bits.shape)]}
+    acc = torch._int_mm(a, bits)
+    rows["bit_pack"] = {**_timed(
+        lambda: rs_bitplane.bit_pack(acc[:8 * r], b),
+        lambda: rs_bitplane.bit_pack_reference(acc[:8 * r], b)),
+        **_bound_row(ms_of(4 * 8 * r * b + r * b), 0.0)}
+    del acc, bits
+    rows["bitplane"] = {**_timed(
+        lambda: rs_bitplane.gf_apply_bitplane(m, data),
+        lambda: rs_bitplane.gf_apply_bitplane_reference(m, data)),
+        # the function's own bound: each input and output byte once
+        **_bound_row(ms_of((s + r) * b), 0.0),
+        "route_bytes": s * b + 8 * s * w + a.numel() + 4 * a.shape[0] * w
+        + 4 * 8 * r * b + r * b}
+    rows["gf_bitslice"] = {**_timed(lambda: rs_cuda.gf_apply(m, data)),
+                           **_bound_row(bd["bytes_ms"], bd["alu_ms"])}
+    for name, row in rows.items():
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_bound_back_to_back"] = (row["bound_ms"]
+                                              / row["back_to_back_ms"])
+        row["GBps"] = (s + r) * b / row["back_to_back_ms"] / 1e6
+    out = {"phase": "mesh_kernel_timing", "matrix": "parity",
+           "bytes_per_shard": b, "kernels": rows, "card": power}
+    emit(out)
+    del data
+    torch.cuda.empty_cache()
+    return out
+
+
+def make_raw_volumes(work: str, count: int, sizes: tuple, seed: int,
+                     gen, prefix: str) -> list[str]:
+    """`count` .dat files of seeded random bytes, sizes uniform in `sizes`
+    (bytes, uneven), made on the card; -> their base paths."""
+    rng = np.random.default_rng(seed)
+    bases = []
+    for i in range(count):
+        size = int(rng.integers(sizes[0], sizes[1] + 1))
+        base = os.path.join(work, f"{prefix}{i}")
+        with open(base + ".dat", "wb") as f:
+            f.write(random_u8((size,), gen).cpu().numpy().tobytes())
+        bases.append(base)
+    return bases
+
+
+def _shard_paths(bases: list[str]) -> list[str]:
+    return [b + f".ec{i:02d}" for b in bases for i in range(14)]
+
+
+def _remove_shards(bases: list[str], ids=range(14)) -> None:
+    for b in bases:
+        for i in ids:
+            os.remove(b + f".ec{i:02d}")
+
+
+def mesh_file_flows(rs_cuda, rs_xor, rs_bitplane, enc, pbatch, mesh,
+                    bases: list[str], label: str, power: str,
+                    codec_flows: bool) -> dict:
+    """The config-4 flows on `mesh` over `bases`: each volume encoded alone
+    with generate_ec_files on `cuda` (the shards to hold against, sha256),
+    then batch_generate_ec_files over all of them (byte-identical), then
+    one volume's .ec00-.ec03 lost and rebuilt with mesh_rebuild_ec_files
+    (byte-identical).  With `codec_flows`, that volume is also encoded on
+    `cuda_xor` and rebuilt on `cuda_bitplane` (their direct routes, their
+    kernels).  Counts are zeroed just before each flow and read just
+    after.  -> the rows and each flow's launches."""
+    rows, paths = {}, {}
+    dat_bytes = sum(os.path.getsize(b + ".dat") for b in bases)
+    os.environ["SEAWEEDFS_TPU_EC_SERVICE"] = "0"  # the direct route
+    try:
+        t0 = time.perf_counter()
+        for b in bases:
+            enc.generate_ec_files(b, codec_name="cuda")
+        serial_s = time.perf_counter() - t0
+    finally:
+        del os.environ["SEAWEEDFS_TPU_EC_SERVICE"]
+    t0 = time.perf_counter()
+    want = dict(zip(_shard_paths(bases), _sha_many(_shard_paths(bases))))
+    serial_sha_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _remove_shards(bases)
+    remove_s = time.perf_counter() - t0
+
+    def flow(name, fn, nbytes, check_paths, **extra):
+        _zero_mesh_launches(rs_cuda, rs_xor, rs_bitplane)
+        t0 = time.perf_counter()
+        result = fn()
+        wall = time.perf_counter() - t0
+        launches = _mesh_launches(rs_cuda, rs_xor, rs_bitplane)
+        t0 = time.perf_counter()
+        got = _sha_many(check_paths)
+        sha_s = time.perf_counter() - t0
+        bad = [p for p, h in zip(check_paths, got) if h != want[p]]
+        if bad:
+            raise AssertionError(f"{label} {name}: {len(bad)} shard files "
+                                 f"differ, first {bad[0]}")
+        row = {"phase": f"mesh_{label}_{name}", "mesh": dict(mesh.shape),
+               "volumes": len(bases), "seconds": wall,
+               "GBps": nbytes / wall / 1e9, "launches": launches,
+               "sha256_equal": len(check_paths), "sha256_s": sha_s,
+               **extra, "card": power}
+        emit(row)
+        rows[name] = row
+        paths[name] = launches
+        return result
+
+    flow("batch_encode", lambda: pbatch.batch_generate_ec_files(
+        bases, mesh=mesh), dat_bytes, _shard_paths(bases),
+        serial_cuda_seconds=serial_s,
+        serial_cuda_GBps=dat_bytes / serial_s / 1e9,
+        serial_sha256_s=serial_sha_s, serial_remove_s=remove_s)
+    if paths["batch_encode"]["gf_matmul_batched"] < 1:
+        raise AssertionError(f"{label}: the batch encode launched nothing")
+    one = max(bases, key=lambda b: os.path.getsize(b + ".dat"))
+    shard = os.path.getsize(one + ".ec04")
+    lost = [one + f".ec{i:02d}" for i in range(4)]
+    _remove_shards([one], range(4))
+    got = flow("mesh_rebuild", lambda: pbatch.mesh_rebuild_ec_files(
+        one, mesh=mesh), 10 * shard, lost)
+    if got != [0, 1, 2, 3] or not (paths["mesh_rebuild"]["bit_unpack"]
+                                   and paths["mesh_rebuild"]["bit_pack"]):
+        raise AssertionError(f"{label} mesh rebuild: {got}, "
+                             f"{paths['mesh_rebuild']}")
+    if codec_flows:
+        _remove_shards([one])
+        flow("cuda_xor_encode", lambda: enc.generate_ec_files(
+            one, codec_name="cuda_xor"), os.path.getsize(one + ".dat"),
+            _shard_paths([one]))
+        _remove_shards([one], range(4))
+        flow("cuda_bitplane_rebuild", lambda: enc.rebuild_ec_files(
+            one, codec_name="cuda_bitplane"), 10 * shard, lost)
+        if not paths["cuda_xor_encode"]["gf_xor"] or not (
+                paths["cuda_bitplane_rebuild"]["bit_unpack"]):
+            raise AssertionError(f"codec flows missed their kernels: "
+                                 f"{paths}")
+    return {"rows": rows, "launches_by_path": paths}
+
+
+def mesh_service(rs_cuda, gf256, codec_service, metrics, mesh, label: str,
+                 gen, widths=tuple(4 * MIB + 11 * i for i in range(6))
+                 ) -> dict:
+    """A burst of encode and decode jobs through a device-mode
+    CodecService on `mesh` (None: the service's own make_mesh(), every
+    card; on a CPU generator the 1x1 mesh of the CPU), each
+    result equal to the host `cpu` codec's; one vectored submit per kind
+    to the idle service, so the launches are exact: one per batch on a
+    1x1 mesh, one per entry holding work and batch on a larger one."""
+    from seaweedfs_tpu_torch.ops.codec import get_codec
+
+    cpu = get_codec("cpu")
+    plan = rebuild_plan(gf256)
+    jobs = [random_u8((10, wd), gen).cpu().numpy() for wd in widths]
+    svc = codec_service.CodecService(
+        mode="device", mesh=mesh,
+        device=None if mesh or gen.device.type == "cuda" else gen.device)
+    child = metrics.EC_SERVICE_BATCH_JOBS.labels()
+    try:
+        out = {}
+        for kind in ("parity", "apply"):
+            _, n0 = hist_snapshot(child)
+            l0 = rs_cuda.gf_apply_batched.launches
+            if kind == "parity":
+                futs = svc.submit_parity_many(jobs)
+                want = [cpu.parity_of(j) for j in jobs]
+            else:
+                futs = svc.submit_apply_many(plan, jobs)
+                want = [np.stack(cpu.apply_rows(plan, list(j))) for j in jobs]
+            got = [np.stack([np.asarray(r) for r in f.result(120)])
+                   for f in futs]
+            launches = rs_cuda.gf_apply_batched.launches - l0
+            batches = hist_snapshot(child)[1] - n0
+            if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{label} service {kind}: a job "
+                                     "differs from the cpu codec")
+            per_batch = 1 if svc.mesh.size == 1 else svc.mesh.size
+            if launches != per_batch * batches:
+                raise AssertionError(
+                    f"{label} service {kind}: {launches} launches for "
+                    f"{batches} batches on a {svc.mesh.shape} mesh")
+            out[kind] = {"jobs": len(jobs), "batches": batches,
+                         "launches": launches}
+    finally:
+        svc.close()
+    row = {"phase": f"mesh_{label}_service", "mesh": dict(svc.mesh.shape),
+           **out, "equal_to_cpu": True}
+    emit(row)
+    return row
+
+
+def phase_mesh(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, enc,
+               codec_service, metrics, work: str, seed: int, gen,
+               power: str, reduced: list[str], widths=MESH_WIDTHS,
+               config4=(MESH_VOLUMES, MESH_VOLUME_BYTES),
+               virtual_volumes=(VIRTUAL_VOLUMES, VIRTUAL_VOLUME_BYTES),
+               burst_widths=None) -> dict:
+    """parallel/ on the card: the new kernels against their plain versions
+    and timed, BASELINE config 4 on the 1x1 mesh of the card, the same
+    flows on a virtual 2x4 mesh of the one card, dryrun_multidevice(8) and
+    the codec service on make_mesh() and on the virtual mesh.  Everything
+    runs on the generator's device: a CPU generator (the tests' rehearsal)
+    runs the same flows on CPU meshes and times nothing."""
+    from seaweedfs_tpu_torch.parallel import batch as pbatch
+    from seaweedfs_tpu_torch.parallel.dryrun import dryrun_multidevice
+    from seaweedfs_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    steps_s = {}
+
+    def step(name: str) -> None:
+        steps_s[name] = time.perf_counter() - t_phase - sum(steps_s.values())
+    on_card = gen.device.type == "cuda"
+    checked = mesh_kernels_vs_plain(rs_xor, rs_bitplane,
+                                    mesh_plans(gf256, seed), gen, widths)
+    step("kernels_vs_plain")
+    timing = (mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256,
+                                 gf_network, gen, power) if on_card
+              else {"kernels": "not measured: no card"})
+    step("timing")
+    card = make_mesh() if on_card else make_mesh([gen.device])
+    virtual = make_mesh([gen.device] * 8)  # the one device, repeated
+    paths = {}
+    t0 = time.perf_counter()
+    bases = make_raw_volumes(work, config4[0], config4[1], seed, gen, "c4v")
+    emit({"phase": "mesh_config4_volumes", "volumes": len(bases),
+          "bytes": sum(os.path.getsize(b + ".dat") for b in bases),
+          "seconds": time.perf_counter() - t0, "reduced": reduced})
+    step("config4_volumes")
+    c4 = mesh_file_flows(rs_cuda, rs_xor, rs_bitplane, enc, pbatch, card,
+                         bases, "config4", power, codec_flows=True)
+    for b in bases:
+        for p in [b + ".dat"] + _shard_paths([b]):
+            os.remove(p)
+    step("config4_flows")
+    paths.update({f"config4_{k}": v
+                  for k, v in c4["launches_by_path"].items()})
+    vbases = make_raw_volumes(work, virtual_volumes[0], virtual_volumes[1],
+                              seed + 1, gen, "vv")
+    vm = mesh_file_flows(rs_cuda, rs_xor, rs_bitplane, enc, pbatch, virtual,
+                         vbases, "virtual2x4", power, codec_flows=False)
+    paths.update({f"virtual2x4_{k}": v
+                  for k, v in vm["launches_by_path"].items()})
+    step("virtual2x4_flows")
+    _zero_mesh_launches(rs_cuda, rs_xor, rs_bitplane)
+    t0 = time.perf_counter()
+    dry = dryrun_multidevice(8, device=None if on_card else gen.device)
+    paths["dryrun"] = _mesh_launches(rs_cuda, rs_xor, rs_bitplane)
+    emit({"phase": "mesh_dryrun", **dry, "seconds": time.perf_counter() - t0,
+          "launches": paths["dryrun"]})
+    step("dryrun")
+    services = {}
+    for label, mesh in (("card", None), ("virtual2x4", virtual)):
+        _zero_mesh_launches(rs_cuda, rs_xor, rs_bitplane)
+        services[label] = mesh_service(
+            rs_cuda, gf256, codec_service, metrics, mesh, label, gen,
+            **({} if burst_widths is None else {"widths": burst_widths}))
+        paths[f"service_{label}"] = _mesh_launches(rs_cuda, rs_xor,
+                                                   rs_bitplane)
+    step("services")
+    summary = {"phase": "mesh_summary", "wall_s": time.perf_counter()
+               - t_phase, "steps_s": steps_s, "launches_by_path": paths,
+               "card": power}
+    emit(summary)
+    return {"checked": checked, "timing": timing, "config4": c4,
+            "virtual": vm, "dryrun": dry, "services": services,
+            "launches_by_path": paths}
+
+
 def volume_size(work: str, want: int, count: int = 1,
                 per_volume: float = 2.6) -> tuple[int, list[str]]:
     """The size of each of `count` volumes to encode: `want` bytes, cut to
@@ -3930,13 +4410,17 @@ def main() -> int:
     ap.add_argument("--only-maintenance", action="store_true",
                     help="phases 1-2 and the maintenance phase only, no "
                     "kernels line (a quick check)")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="phases 1-2 and the mesh phase only, no kernels "
+                    "line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     from seaweedfs_tpu_torch.ops import (_build, codec_service, gf256,
-                                         gf_network, rs_cuda)
+                                         gf_network, rs_bitplane, rs_cuda,
+                                         rs_xor)
     from seaweedfs_tpu_torch.stats import metrics
     from seaweedfs_tpu_torch.storage.ec import encoder as enc
 
@@ -3946,7 +4430,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     INT32_OPS_PER_S = int32_ops_per_s()
     t0 = time.perf_counter()
-    rs_cuda._lib()  # the host library, nvcc
+    # one nvcc per source, all started together: the GF kernels' host
+    # library and the two kernel libraries of the mesh phase
+    with ThreadPoolExecutor(3) as pool:
+        nvcc_s = dict(zip(("gf_launch", "gf_xor", "gf_bitplane"), pool.map(
+            _timed_build, [_build] * 3, ("gf_launch", "gf_xor",
+                                         "gf_bitplane"))))
+    rs_cuda._lib()
+    rs_xor.build_kernel()
+    rs_bitplane.build_kernel()
     host_lib_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     rs_cuda.build_kernel()  # the RS(10,4) parity kernel, NVRTC
@@ -3955,7 +4447,8 @@ def main() -> int:
     emit({"phase": "card_and_build", "nvidia_smi": power, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "int32_ops_per_s": INT32_OPS_PER_S,
-          "host_lib_nvcc_s": host_lib_s, "parity_kernel_s": parity_kernel_s,
+          "host_lib_nvcc_s": host_lib_s, "nvcc_s": nvcc_s,
+          "parity_kernel_s": parity_kernel_s,
           "nvrtc": _build.nvrtc_path(), "compile_s": compile_seconds(_build),
           "ptxas": [line for log in _build.COMPILE_LOGS.values()
                     for line in log.splitlines() if "Used" in line
@@ -4000,8 +4493,23 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    def mesh() -> dict:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            reduced = [
+                f"{MESH_VOLUMES} volumes of {MESH_VOLUME_BYTES[0] >> 20}-"
+                f"{MESH_VOLUME_BYTES[1] >> 20} MiB of seeded bytes (~4 GiB): "
+                "BASELINE config 4's 64 volumes, each cut from SeaweedFS's "
+                "default 30 GB volume limit for the script's run time"]
+            return phase_mesh(rs_cuda, rs_xor, rs_bitplane, gf256,
+                              gf_network, enc, codec_service, metrics, work,
+                              args.seed, gen, power, reduced)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     for only, phase in (("only_cluster", cluster),
-                        ("only_maintenance", maintenance)):
+                        ("only_maintenance", maintenance),
+                        ("only_mesh", mesh)):
         if getattr(args, only):
             phase()
             emit({"phase": "done", "wall_s": time.perf_counter() - start,
@@ -4097,6 +4605,22 @@ def main() -> int:
                             os.path.join(work, "1"), size)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    meshed = mesh()
+    mesh_paths = meshed["launches_by_path"]
+    mesh_err = meshed["checked"]["max_abs_err"]
+    mesh_times = meshed["timing"]["kernels"]
+
+    def mesh_launches(kernel: str) -> dict:
+        return {p: c[kernel] for p, c in mesh_paths.items() if c[kernel]}
+
+    def mesh_kernel(name: str, source: str, replaces: str, launches: dict,
+                    err: int, times: dict, **extra) -> dict:
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches, "max_abs_err": err,
+                **{k: times[k] for k in (
+                    "ms", "back_to_back_ms", "plain_ms", "bound_ms",
+                    "bound_by")}, "library_ms": None, **extra}
 
     source = "seaweedfs_tpu_torch/ops/csrc/gf_bitslice.cu"
     emit({"kernels": [{
@@ -4132,7 +4656,8 @@ def main() -> int:
         + sum(store_paths["gf_matmul_batched"].values())
         + sum(server_paths["gf_matmul_batched"].values())
         + sum(cluster_paths["gf_matmul_batched"].values())
-        + sum(maint_paths["gf_matmul_batched"].values()),
+        + sum(maint_paths["gf_matmul_batched"].values())
+        + sum(mesh_launches("gf_matmul_batched").values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
             "service_rebuild": svc["rebuild_launches"],
@@ -4140,7 +4665,8 @@ def main() -> int:
             **store_paths["gf_matmul_batched"],
             **server_paths["gf_matmul_batched"],
             **cluster_paths["gf_matmul_batched"],
-            **maint_paths["gf_matmul_batched"]},
+            **maint_paths["gf_matmul_batched"],
+            **mesh_launches("gf_matmul_batched")},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],
         "plain_ms": batched["plain_ms"], "bound_ms": batched["bound_ms"],
@@ -4148,7 +4674,27 @@ def main() -> int:
         "scrub_shape": {k: scrub_kernel[k] for k in (
             "entries", "bytes_per_shard", "ms", "back_to_back_ms",
             "plain_ms", "bound_ms", "bound_by", "alu_ms")},
-        "library_ms": None}]})
+        "library_ms": None},
+        mesh_kernel("gf_xor", "seaweedfs_tpu_torch/ops/csrc/gf_xor.cu",
+                    "seaweedfs_tpu/ops/rs_jax.py:70", mesh_launches("gf_xor"),
+                    mesh_err["gf_xor"], mesh_times["gf_xor"],
+                    kernel_ops_ms=mesh_times["gf_xor"]["kernel_ops_ms"]),
+        mesh_kernel("bit_unpack",
+                    "seaweedfs_tpu_torch/ops/csrc/gf_bitplane.cu",
+                    "seaweedfs_tpu/ops/rs_jax.py:88",
+                    mesh_launches("bit_unpack"), mesh_err["bit_unpack"],
+                    mesh_times["bit_unpack"]),
+        mesh_kernel("bit_pack", "seaweedfs_tpu_torch/ops/csrc/gf_bitplane.cu",
+                    "seaweedfs_tpu/ops/rs_jax.py:97",
+                    mesh_launches("bit_pack"), mesh_err["bit_pack"],
+                    mesh_times["bit_pack"], bitplane_route={
+                        k: mesh_times["bitplane"][k] for k in (
+                            "ms", "back_to_back_ms", "plain_ms", "bound_ms",
+                            "route_bytes")} | {
+                        "max_abs_err": mesh_err["bitplane"],
+                        "int_mm_ms": mesh_times["int_mm"]["ms"],
+                        "int_mm_back_to_back_ms":
+                            mesh_times["int_mm"]["back_to_back_ms"]})]})
     emit({"phase": "done", "wall_s": time.perf_counter() - start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -18,17 +18,30 @@ EC parity and `ec.decode`):
     kernels with NVRTC and the host library ops/csrc/gf_launch.cu with
     nvcc, and caches both under _build/.
   * ops/rs_torch.py — ReedSolomonTorch, the port of rs_jax.ReedSolomonTPU,
-    with its ec.device_put / compute / get spans.
+    with its ec.device_put / compute / get spans and the reference's impl
+    switch: bitslice (rs_cuda), xor and bitplane.
+  * ops/csrc/gf_xor.cu + ops/rs_xor.py — the XOR network of the doubling
+    chain (the port of rs_jax.make_apply_xor), coefficients as a kernel
+    argument, one and batched entries.
+  * ops/csrc/gf_bitplane.cu + ops/rs_bitplane.py — bit_unpack and bit_pack
+    around torch._int_mm (the port of rs_jax.make_apply_mxu and of
+    parallel/mesh.py's _bit_unpack / _bit_pack).
+  * parallel/ — Mesh and make_mesh over torch devices, batch_encode_sharded,
+    batch_apply_sharded, distributed_reconstruct (the int32 psum over dp),
+    train_step; batch.py's batch_generate_ec_files and
+    mesh_rebuild_ec_files; dryrun.py's dryrun_multidevice.
   * native/ — the port's copy of the C++ native library (CRC32-C, the
     GF(2^8) SIMD host codec), built with g++ at first use into _build/;
     ops/crc32c.py and ops/rs_cpu.py (the `cpu` codec) run on it.
-  * ops/codec.py — get_codec("cuda" | "cpu" | "torch_cpu" | "auto"),
+  * ops/codec.py — get_codec("cuda" | "cuda_xor" | "cuda_bitplane" | "cpu"
+    | "torch_cpu" | "auto"),
     effective_codec, available_codecs, InstrumentedCodec and
     DEVICE_CODEC_NAMES.
   * ops/device_probe.py — the killable round-trip probe with a deadline.
   * ops/codec_service.py — the batched, double-buffered codec service:
-    device mode stacks concurrent jobs into one batched kernel launch;
-    host mode runs the cpu codec.
+    device mode stacks concurrent jobs into one batched kernel launch on a
+    1x1 mesh, or dispatches each batch per entry of a larger mesh; host
+    mode runs the cpu codec.
   * stats/metrics.py — the registry and the families of the service, the
     codec, the rebuild, the EC read path and the executors.
   * telemetry/trace.py — spans and the ring the codec and read path use.
@@ -106,11 +119,10 @@ never in protobuf's default pool, where the reference registers the same
 file names: a process importing both packages would fail.
 
 Not ported yet: the tier moves (backend_s3.py, Volume.tier_to_remote /
-tier_to_local), which answer UNIMPLEMENTED; parallel/ (multi-GPU); the
-master's raft quorum, SLO engine and canary, flight recorder and
-federation; the shell's cluster.* and fs.*
-commands; gRPC TLS; the filer, the gateways and the CLI's other
-subcommands; the cuda_xor / cuda_bitplane impls; spans and stage metrics
-inside the encode pipeline; 5-byte offsets.
+tier_to_local), which answer UNIMPLEMENTED; the master's raft quorum, SLO
+engine and canary, flight recorder and federation; the shell's cluster.*
+and fs.* commands; gRPC TLS; the filer, the gateways and the CLI's other
+subcommands; spans and stage metrics inside the encode pipeline; 5-byte
+offsets.
 util/jaxenv.py works around a JAX-only hang and has no counterpart here.
 """

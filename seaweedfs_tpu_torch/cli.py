@@ -10,10 +10,11 @@ Differences from the reference, on purpose:
   * `-ec.codec` resolves flag, then master.toml's `codec.type`, then
     `cuda` (the reference's last default is `cpu`): the volume server runs
     on the card unless asked otherwise.  The choices are the port's codec
-    registry (cuda, cpu, torch_cpu, auto); the reference's TPU names (tpu,
-    tpu_xor, tpu_mxu, pallas, tpu_pallas, jax, mxu) are refused, from the
-    flag or the TOML, with a message naming `cuda`.  A `cuda` volume
-    server on a host without a card exits non-zero naming the card;
+    registry (cuda, cuda_xor, cuda_bitplane, cpu, torch_cpu, auto); the
+    reference's TPU names (tpu, tpu_xor, tpu_mxu, pallas, tpu_pallas, jax,
+    mxu) are refused, from the flag or the TOML, with a message naming
+    `cuda`.  A volume server on a device codec on a host without a card
+    exits non-zero naming the card;
   * a flag of a plane that is not ported (the master's SLO, canary,
     flight-recorder and geo flags, `-peers` with a quorum, the volume's
     `-tierBackends` and `-offset.5bytes`, the server's `-filer` and `-s3`)
@@ -39,7 +40,8 @@ import threading
 VERSION = "seaweedfs_tpu_torch 0.1.0"
 
 # the port's codec registry (ops/codec.py), in the order the help lists it
-CODEC_CHOICES = ("cuda", "cpu", "torch_cpu", "auto")
+CODEC_CHOICES = ("cuda", "cuda_xor", "cuda_bitplane", "cpu", "torch_cpu",
+                 "auto")
 # the reference's device codec names, which name TPU programs
 TPU_CODEC_NAMES = ("tpu", "tpu_xor", "tpu_mxu", "pallas", "tpu_pallas",
                    "jax", "mxu")
@@ -100,15 +102,17 @@ def _resolve_codec(flag: str) -> str:
 
 
 def _require_card(codec: str) -> None:
-    """A `cuda` volume server needs a card; say so before the store opens
-    (the server would raise too, when it builds its codec)."""
-    if codec != "cuda":
+    """A volume server on a device codec needs a card; say so before the
+    store opens (the server would raise too, when it builds its codec)."""
+    from .ops.codec import DEVICE_CODEC_NAMES
+
+    if codec not in DEVICE_CODEC_NAMES:
         return
     import torch
 
     if not torch.cuda.is_available():
         raise CliError(
-            "-ec.codec=cuda (the default) needs an NVIDIA CUDA card, and "
+            f"-ec.codec={codec} needs an NVIDIA CUDA card, and "
             "this host has none (torch.cuda.is_available() is False); "
             "pass -ec.codec=cpu to run the EC codec on the host")
 

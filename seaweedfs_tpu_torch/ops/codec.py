@@ -2,8 +2,13 @@
 `-ec.codec` switch.
 
 Names:
-  * ``cuda``: the RS codec on the card, through the hand-written kernel
-    (ReedSolomonTorch on device "cuda");
+  * ``cuda``: the RS codec on the card, through the hand-written
+    bit-sliced kernel (ReedSolomonTorch on device "cuda");
+  * ``cuda_xor`` and ``cuda_bitplane``: the same codec through the other
+    two kernels, the XOR network of the doubling chain and the bit-plane
+    route (impl ``xor`` and ``bitplane``): the counterparts of the
+    reference's ``jax``/``tpu_xor`` and ``tpu_mxu``/``mxu``, with the
+    ``cuda`` name's rule (no card, an error);
   * ``cpu``: the host codec on the native SIMD library (rs_cpu.ReedSolomon),
     for per-needle work where a launch would dominate the latency;
   * ``torch_cpu``: ReedSolomonTorch on the host, through the kernel's plain
@@ -34,10 +39,15 @@ DATA_SHARDS = 10
 PARITY_SHARDS = 4
 TOTAL_SHARDS = DATA_SHARDS + PARITY_SHARDS
 
-_TORCH_DEVICES = {"cuda": "cuda", "torch_cpu": "cpu"}
+# torch codec name -> its device, and its kernel (rs_torch.IMPLS) where
+# that is not the bit-sliced one
+_TORCH_DEVICES = {"cuda": "cuda", "cuda_xor": "cuda", "cuda_bitplane": "cuda",
+                  "torch_cpu": "cpu"}
+_TORCH_IMPLS = {"cuda_xor": "xor", "cuda_bitplane": "bitplane"}
 # every name get_codec resolves to a codec on the card — the single source
 # of truth shared with ops.codec_service's mode and routing logic
-DEVICE_CODEC_NAMES = frozenset({"cuda"})
+DEVICE_CODEC_NAMES = frozenset(
+    name for name, dev in _TORCH_DEVICES.items() if dev == "cuda")
 
 
 def _nbytes(x) -> int:
@@ -108,12 +118,14 @@ class InstrumentedCodec:
 
 
 def available_codecs() -> list[str]:
-    """Codec names usable with ``get_codec`` on this host: ``cuda`` only
-    where torch sees a card."""
+    """Codec names usable with ``get_codec`` on this host: the device
+    codecs only where torch sees a card."""
     import torch
 
     names = ["auto", "cpu", "torch_cpu"]
-    return names + ["cuda"] if torch.cuda.is_available() else names
+    if not torch.cuda.is_available():
+        return names
+    return names + sorted(DEVICE_CODEC_NAMES)
 
 
 def effective_codec(name: str) -> tuple[str, str]:
@@ -234,7 +246,8 @@ def resolve_codec_name(name: str) -> str:
 def get_codec(name: str = "cuda", data_shards: int = DATA_SHARDS,
               parity_shards: int = PARITY_SHARDS) -> InstrumentedCodec:
     """Return a codec with encode/reconstruct/reconstruct_data/verify,
-    wrapped in InstrumentedCodec.  ``cuda`` raises without a usable card."""
+    wrapped in InstrumentedCodec.  A device codec raises without a usable
+    card."""
     name = resolve_codec_name(name)
     if name == "cpu":
         return InstrumentedCodec(ReedSolomon(data_shards, parity_shards), "cpu")
@@ -244,4 +257,5 @@ def get_codec(name: str = "cuda", data_shards: int = DATA_SHARDS,
             f"{', '.join(_TORCH_DEVICES)}")
     return InstrumentedCodec(
         ReedSolomonTorch(data_shards, parity_shards,
-                         device=_TORCH_DEVICES[name]), name)
+                         device=_TORCH_DEVICES[name],
+                         impl=_TORCH_IMPLS.get(name, "bitslice")), name)

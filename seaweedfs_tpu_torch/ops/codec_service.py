@@ -7,8 +7,11 @@ thread drains it, coalesces jobs that share a matrix (same generator rows
 or same decode plan) into one batch, and dispatches the batch as a single
 compute call:
 
-* **device mode**: each job of a batch is copied straight from the
-  caller's rows into its entry of one ``(V, S, W_pad)`` block on the card
+* **device mode** runs on a mesh of devices (parallel/mesh.py; built
+  when the first batch arrives: the 1x1 mesh of the service's ``device``
+  when one is named, else ``make_mesh()``, every visible card).  On a 1x1 mesh, one card, each job of a batch is copied
+  straight from the caller's rows into its entry of one ``(V, S, W_pad)``
+  block on the card
   (``W_pad`` is the widest job rounded up to 16 bytes, the kernel's vector
   width) on a compute stream, and the batch runs as ONE
   ``rs_cuda.gf_apply_batched`` launch of the hand-written kernel.  Rows
@@ -20,7 +23,13 @@ compute call:
   Each batch reads back into its own buffer, never reused while a
   delivered result still views it; jobs that gave an ``out`` get a copy
   there instead.  A caller's rows are read by the card until its job is
-  delivered, so it must not refill them before.  ``device="cpu"`` runs
+  delivered, so it must not refill them before.  On a mesh of more
+  entries, the reference's layout (ops/codec_service.py:514-547): the
+  batch is padded to the mesh, V to a multiple of ``dp`` and the width to
+  a power-of-two bucket that ``sp`` divides (`_pad_width`), and
+  `mesh.apply_per_entry` has each entry upload its volumes' column
+  block, launch gf_apply_batched on it and read its part back into the
+  page-locked output, all on the entry's own stream.  ``device="cpu"`` runs
   the same batching and dispatch on CPU tensors through the kernel's
   plain version (tests only).
 
@@ -155,7 +164,7 @@ class CodecService:
                  max_queue: "int | None" = None,
                  max_batch_mb: "int | None" = None,
                  coalesce_kb: "int | None" = None,
-                 device=None):
+                 device=None, mesh=None):
         if mode not in ("auto", "host", "device"):
             raise ValueError(f"unknown codec service mode {mode!r}")
         self.fallback_reason = ""
@@ -171,6 +180,13 @@ class CodecService:
             else:
                 mode = "host"
         self.mode = mode
+        # the device mode's mesh (parallel/mesh.py): built by make_mesh()
+        # at the first device batch unless one is given; its first entry is
+        # the service's device
+        self.mesh = mesh
+        self._device_named = device is not None
+        if mesh is not None and device is None:
+            device = mesh.first
         # device mode without a card raises here unless the CPU is asked for
         self.device = (resolve_device("cuda" if device is None else device)
                        if mode == "device" else torch.device("cpu"))
@@ -512,10 +528,32 @@ class CodecService:
 
     # -- device backend ---------------------------------------------------
 
+    def _device_mesh(self):
+        if self.mesh is None:
+            from ..parallel.mesh import make_mesh
+
+            # every visible card only when the caller named no device
+            self.mesh = make_mesh(
+                None if self._on_card and not self._device_named
+                else [self.device])
+        return self.mesh
+
+    @staticmethod
+    def _pad_width(width: int, sp: int) -> int:
+        """The reference's width buckets for a mesh of more entries:
+        powers of two from max(sp, 256), a multiple of sp."""
+        w = max(sp, 256)
+        while w < width:
+            w <<= 1
+        return -(-w // sp) * sp
+
     def _dispatch_device(self, batch: list[_Job]):
-        """Upload and launch one batch; -> (output, event) where the event
-        fires once the (V, R, W_pad) host output holds the result (None
-        when the batch ran on CPU tensors)."""
+        """Upload and launch one batch; -> (output, done) where `done` (an
+        event, or one per mesh entry) fires once the (V, R, W_pad) host
+        output holds the result (None when the batch ran on CPU tensors)."""
+        mesh = self._device_mesh()
+        if mesh.size > 1:
+            return self._dispatch_mesh(batch, mesh)
         rows = batch[0].rows
         s = rows.shape[1]
         w_pad = -(-max(j.width for j in batch) // _VEC_BYTES) * _VEC_BYTES
@@ -560,18 +598,84 @@ class CodecService:
         with _STAGE_COMPUTE.time():
             return gf_apply_batched(rows, block)
 
+    def _dispatch_mesh(self, batch: list[_Job], mesh):
+        """One batch over a mesh of more entries: V padded to a multiple of
+        dp, the width to `_pad_width`, and both split over the mesh by
+        `apply_per_entry`; each entry uploads its block, launches and
+        reads back into its own output on its own stream.  -> (parts,
+        events): each part (v0, b0, host output of that block), and one
+        event per part (None on CPU tensors)."""
+        from ..parallel.mesh import apply_per_entry
+
+        rows = batch[0].rows
+        s = rows.shape[1]
+        dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+        w_pad = self._pad_width(max(j.width for j in batch), sp)
+        v_pad = -(-len(batch) // dp) * dp
+        parts = []
+
+        def fill(dev, v0, v1, b0, b1):
+            with _STAGE_BUILD.time():
+                # padding entries and columns past a job's width stay
+                # unset: their outputs are never delivered
+                block = torch.empty((v1 - v0, s, b1 - b0),
+                                    dtype=torch.uint8, device=dev)
+                for vi in range(v0, min(v1, len(batch))):
+                    j = batch[vi]
+                    cols = min(b1, j.width) - b0
+                    if cols <= 0:
+                        continue
+                    dst = block[vi - v0, :, :cols]
+                    if isinstance(j.data, np.ndarray):
+                        dst.copy_(torch.from_numpy(j.data[:, b0:b0 + cols]),
+                                  non_blocking=True)
+                        continue
+                    for ri, row in enumerate(j.data):
+                        dst[ri].copy_(torch.from_numpy(row[b0:b0 + cols]),
+                                      non_blocking=True)
+            return block
+
+        def take(v0, b0, y):
+            host = torch.empty(y.shape, dtype=torch.uint8,
+                               pin_memory=self._on_card)
+            host.copy_(y, non_blocking=True)
+            parts.append((v0, b0, host))
+
+        with _STAGE_COMPUTE.time():
+            events = apply_per_entry(mesh, rows, v_pad, w_pad, fill, take)
+        return parts, (events if self._on_card else None)
+
     def _complete_device(self, batch: list[_Job], handle) -> None:
         try:
             out, done = handle
             with _STAGE_READBACK.time():  # blocks until compute + D2H done
-                if done is not None:
+                if isinstance(done, list):
+                    for event in done:
+                        event.synchronize()
+                elif done is not None:
                     done.synchronize()
+                if isinstance(out, list):  # a mesh's parts
+                    self._deliver_parts(batch, out)
+                    return
                 host = out.numpy()
             for vi, j in enumerate(batch):
                 self._deliver(j, host[vi, :, :j.width])
         except Exception as e:
             for j in batch:
                 self._fail(j, e)
+
+    def _deliver_parts(self, batch: list[_Job], parts) -> None:
+        """Each job's row blocks from the mesh entries that hold its
+        volume, joined along the columns in column order."""
+        pieces: dict[int, list] = {}
+        for v0, b0, host in sorted(parts, key=lambda p: p[1]):
+            h = host.numpy()
+            for vi in range(v0, min(v0 + h.shape[0], len(batch))):
+                pieces.setdefault(vi, []).append(h[vi - v0])
+        for vi, j in enumerate(batch):
+            cols = pieces[vi]
+            res = cols[0] if len(cols) == 1 else np.concatenate(cols, axis=1)
+            self._deliver(j, res[:, :j.width])
 
 
 # ---------------------------------------------------------------------------
@@ -604,12 +708,14 @@ def get_service(codec_name: str = "cuda") -> "CodecService | None":
 
 
 def service_for_codec(codec_name: str) -> "CodecService | None":
-    """Default routing for the bulk encode/rebuild pipelines: device
-    codecs go through the shared service ONLY when the fast probe confirms
-    a reachable card (otherwise the direct paths keep their tested
-    dispatch).  Callers that KNOW they are concurrent pass an explicit
-    service instead."""
-    if not enabled() or codec_name not in _DEVICE_CODECS:
+    """Default routing for the bulk encode/rebuild pipelines: the ``cuda``
+    codec goes through the shared service ONLY when the fast probe
+    confirms a reachable card (otherwise the direct paths keep their
+    tested dispatch).  The service runs the batched bit-sliced kernel, so
+    the other device codecs (``cuda_xor``, ``cuda_bitplane``) keep their
+    direct route, where their own kernel runs.  Callers that KNOW they
+    are concurrent pass an explicit service instead."""
+    if not enabled() or codec_name != "cuda":
         return None
     if not device_probe.probe().accelerator:
         return None

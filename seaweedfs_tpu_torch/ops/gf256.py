@@ -149,6 +149,16 @@ def rs_parity_matrix(data_shards: int, parity_shards: int) -> np.ndarray:
     return p
 
 
+def decode_matrix_for(
+    matrix: np.ndarray, data_shards: int, present: list[int]
+) -> np.ndarray:
+    """The (data x data) matrix that maps the first `data_shards` present
+    shards back to the data shards (rows of `matrix` are shard ids): the
+    plan whose wanted set is every data shard."""
+    return decode_plan_for(
+        matrix, data_shards, present, tuple(range(data_shards)))
+
+
 def decode_plan_for(
     matrix: np.ndarray,
     data_shards: int,

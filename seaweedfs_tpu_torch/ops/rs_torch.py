@@ -1,8 +1,14 @@
 """Reed-Solomon codec on a torch device — the port of ops/rs_jax.py's
 ReedSolomonTPU.
 
-The GF(2^8) matrix apply is rs_cuda.gf_apply: the hand-written CUDA kernel
-for tensors on the card, its plain PyTorch version for tensors on the CPU.
+The GF(2^8) matrix apply is one of three hand-written CUDA kernels for
+tensors on the card, or its plain PyTorch version for tensors on the CPU,
+chosen by `impl` as rs_jax.py::_impl_fn (:111) chooses among its programs:
+``bitslice`` (rs_cuda.gf_apply, the bit-sliced network built per matrix:
+the port of the Pallas kernel and the default), ``xor`` (rs_xor.gf_apply_xor,
+the doubling chain's XOR network: the port of make_apply_xor) and
+``bitplane`` (rs_bitplane.gf_apply_bitplane, bit-planes through an int8
+matrix product: the port of make_apply_mxu).
 The numpy-level API (encode / reconstruct / reconstruct_data / verify over
 lists of equal-length uint8 arrays) matches the reference codecs, and
 `encode_device` / `apply_rows_device` take tensors already on the device,
@@ -19,7 +25,16 @@ import torch
 
 from ..telemetry import trace
 from . import gf256
+from .rs_bitplane import gf_apply_bitplane
 from .rs_cuda import coefficients, gf_apply
+from .rs_xor import gf_apply_xor
+
+# impl -> the name of its GF apply in this module, (R, S) matrix x (S, B)
+# tensor -> (R, B) tensor, looked up at each call
+IMPLS = {"bitslice": "gf_apply", "xor": "gf_apply_xor",
+         "bitplane": "gf_apply_bitplane"}
+# impl -> the suffix of its codec's name (ops/codec.py): cuda, cuda_xor, ...
+_IMPL_SUFFIX = {"bitslice": "", "xor": "_xor", "bitplane": "_bitplane"}
 
 
 def matrix_from_numpy(matrix: np.ndarray) -> np.ndarray:
@@ -47,13 +62,32 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def apply_matrix(matrix: np.ndarray, data: torch.Tensor,
+                 impl: str = "bitslice") -> torch.Tensor:
+    """GF matmul: (R, S) matrix x (S, B) tensor -> (R, B), on `impl`."""
+    return globals()[_impl_name(impl)](matrix, data)
+
+
+def _impl_name(impl: str) -> str:
+    name = IMPLS.get(impl)
+    if name is None:
+        raise ValueError(f"unknown codec impl {impl!r}; known: "
+                         f"{', '.join(IMPLS)}")
+    return name
+
+
 class ReedSolomonTorch:
-    """RS(data, parity) codec running the GF matmul on `device`."""
+    """RS(data, parity) codec running the GF matmul on `device` through
+    the kernel `impl` names (IMPLS)."""
 
     def __init__(self, data_shards: int = 10, parity_shards: int = 4,
-                 device="cuda"):
+                 device="cuda", impl: str = "bitslice"):
+        _impl_name(impl)  # an unknown impl raises here
         self.device = resolve_device(device)
-        self.impl = "cuda" if self.device.type == "cuda" else "torch_cpu"
+        self.gf_impl = impl
+        # the label of its spans: the codec's name
+        self.impl = ("cuda" if self.device.type == "cuda"
+                     else "torch_cpu") + _IMPL_SUFFIX[impl]
         self.data_shards = data_shards
         self.parity_shards = parity_shards
         self.total_shards = data_shards + parity_shards
@@ -64,12 +98,12 @@ class ReedSolomonTorch:
 
     def encode_device(self, data: torch.Tensor) -> torch.Tensor:
         """(data_shards, B) uint8 on the device -> (parity_shards, B)."""
-        return gf_apply(self.parity_matrix, data)
+        return apply_matrix(self.parity_matrix, data, self.gf_impl)
 
     def apply_rows_device(self, rows: np.ndarray,
                           inputs: torch.Tensor) -> torch.Tensor:
         """Arbitrary GF matrix application (decode plans, rebuild)."""
-        return gf_apply(rows, inputs)
+        return apply_matrix(rows, inputs, self.gf_impl)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)

@@ -517,7 +517,9 @@ EC_SERVICE_STAGE = REGISTRY.histogram(
 CUDA_KERNEL_LAUNCHES = REGISTRY.counter(
     "seaweedfs_cuda_kernel_launches_total",
     "launches of the port's CUDA kernels, by kernel",
-    labels=("kernel",),  # gf_matmul (gf_apply) | gf_matmul_batched
+    # gf_matmul (gf_apply) | gf_matmul_batched | gf_xor (rs_xor) |
+    # bit_unpack | bit_pack (rs_bitplane)
+    labels=("kernel",),
 )
 
 # -- EC codec operations (ops/codec.py::InstrumentedCodec) -------------------

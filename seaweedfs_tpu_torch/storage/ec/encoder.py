@@ -86,8 +86,14 @@ def generate_ec_files(base_name: str,
                       small_block_size: int = SMALL_BLOCK_SIZE,
                       codec_name: str = "cuda",
                       slice_size: int = DEFAULT_SLICE,
-                      service=None) -> int:
+                      service=None, progress=None,
+                      sync: bool = False) -> int:
     """Stripe `<base>.dat` into the 14 shard files; -> slices dispatched.
+
+    `progress(volume_bytes_done)` fires after each slice's shard bytes hit
+    the output files (reference encoder.py:83).  `sync=True` fsyncs every
+    shard file and their directory before returning, so a completed
+    encode survives a crash.
 
     `service` routes the parity compute through a codec service
     (ops.codec_service): slices become jobs the scheduler coalesces with
@@ -103,9 +109,21 @@ def generate_ec_files(base_name: str,
     outs = [open(base_name + to_ext(i), "wb") for i in range(TOTAL_SHARDS)]
     try:
         with open(dat_path, "rb") as f:
-            return _encode_stream_pipelined(
+            slices = _encode_stream_pipelined(
                 f, dat_size, outs, codec, large_block_size, small_block_size,
-                slice_size, service)
+                slice_size, service, progress)
+        if sync:
+            for o in outs:
+                o.flush()
+                os.fsync(o.fileno())
+            # new files also need their directory entry durable
+            dfd = os.open(os.path.dirname(os.path.abspath(dat_path))
+                          or ".", os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        return slices
     finally:
         for o in outs:
             o.close()
@@ -161,6 +179,13 @@ def fill_stripe_rows(f, batch, dest: np.ndarray) -> None:
         for row_start, block, col, width in batch:
             _read_into(f, row_start + i * block + col, row[at:at + width])
             at += width
+
+
+def _read_at(f, offset: int, length: int) -> np.ndarray:
+    """Read with zero-fill past EOF (the reference zero-pads tail buffers)."""
+    arr = np.empty(length, dtype=np.uint8)
+    _read_into(f, offset, memoryview(arr))
+    return arr
 
 
 def _read_into(f, offset: int, dest: memoryview) -> None:
@@ -392,8 +417,10 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
 
 
 def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
-                             slice_size, service=None) -> int:
-    """Encode the .dat open as `f` into the 14 open shard files `outs`."""
+                             slice_size, service=None, progress=None) -> int:
+    """Encode the .dat open as `f` into the 14 open shard files `outs`;
+    `progress(bytes of the .dat done)` after each slice is written."""
+    done = 0
 
     def width_of(batch) -> int:
         return sum(seg[3] for seg in batch)
@@ -402,10 +429,14 @@ def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
         fill_stripe_rows(f, batch, dest)
 
     def write_out(batch, data: np.ndarray, parity: np.ndarray) -> None:
+        nonlocal done
         for i in range(DATA_SHARDS):
             outs[i].write(data[i])
         for j, prow in enumerate(parity):
             outs[DATA_SHARDS + j].write(prow)
+        done += data.shape[1] * DATA_SHARDS
+        if progress is not None:
+            progress(min(done, dat_size))
 
     return _stream_apply(
         codec, codec.parity_matrix,

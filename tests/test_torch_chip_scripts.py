@@ -19,6 +19,7 @@ import chip_ab  # noqa: E402
 
 @pytest.mark.parametrize("argv", [["chip_smoke.py"],
                                   ["chip_smoke.py", "--only-maintenance"],
+                                  ["chip_smoke.py", "--only-mesh"],
                                   ["chip_ab.py", "--tree", "a=."]])
 def test_exits_nonzero_without_a_card(argv):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
@@ -416,3 +417,71 @@ def test_maintenance_phase_rehearsed_on_the_host(tmp_path, capsys):
     # no card: the kernels' launch counters stayed at 0 on every server
     assert out["launches_by_path"] == {"gf_matmul": {},
                                        "gf_matmul_batched": {}}
+
+
+def test_mesh_phase_rehearsed_on_the_host(tmp_path, capsys, monkeypatch):
+    """chip_smoke.py's mesh phase at small sizes on this host, every flow
+    on CPU meshes (the caller asks: a CPU generator), the device codec
+    names mapped to the host for the test: the xor and bit-plane kernels'
+    plain versions against themselves at the listed shapes, config 4's
+    batch encode and mesh rebuild byte-identical on the 1x1 and the
+    virtual 2x4 mesh, the codec flows, dryrun_multidevice(8) and the
+    service bursts with their exact launch counts.  On the CPU the
+    wrappers count no launches, so counting wrappers stand in for them."""
+    import chip_smoke
+    import torch
+    from seaweedfs_tpu_torch.ops import (codec, codec_service, gf256,
+                                         gf_network, rs_bitplane, rs_cuda,
+                                         rs_xor)
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+    from seaweedfs_tpu_torch.stats import metrics
+    from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+    for name in ("cuda", "cuda_xor", "cuda_bitplane"):
+        monkeypatch.setitem(codec._TORCH_DEVICES, name, "cpu")
+
+    def counted(module, attr, *more):
+        real = getattr(module, attr)
+
+        def wrapper(*a, **k):
+            wrapper.launches += 1
+            return real(*a, **k)
+        wrapper.launches = 0
+        for m in (module, *more):
+            monkeypatch.setattr(m, attr, wrapper)
+        return wrapper
+    counted(rs_cuda, "gf_apply_batched", pmesh, codec_service)
+    counted(rs_xor, "gf_apply_xor_batched")
+    counted(rs_bitplane, "bit_unpack", pmesh)
+    counted(rs_bitplane, "bit_pack", pmesh)
+    gen = torch.Generator().manual_seed(0)
+    out = chip_smoke.phase_mesh(
+        rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, enc, codec_service,
+        metrics, str(tmp_path), 0, gen, "test card", ["test sizes"],
+        widths=(1, 7, 4099), config4=(6, (1 << 20, 3 << 20)),
+        virtual_volumes=(4, (200_000, 600_000)),
+        burst_widths=(5000, 7011))
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert rows["mesh_kernels_vs_plain"]["byte_equal"]
+    assert rows["mesh_kernels_vs_plain"]["cases"] == 3 * (2 + 4 + 21 * 3)
+    for label, shape in (("config4", {"dp": 1, "sp": 1}),
+                         ("virtual2x4", {"dp": 2, "sp": 4})):
+        enc_row = rows[f"mesh_{label}_batch_encode"]
+        assert enc_row["mesh"] == shape and enc_row["sha256_equal"] > 0
+        assert enc_row["launches"]["gf_matmul_batched"] >= 1
+        reb = rows[f"mesh_{label}_mesh_rebuild"]
+        assert reb["sha256_equal"] == 4 and reb["launches"]["bit_pack"] >= 1
+    assert rows["mesh_config4_cuda_xor_encode"]["launches"]["gf_xor"] >= 1
+    assert rows["mesh_config4_cuda_bitplane_rebuild"]["launches"][
+        "bit_unpack"] >= 1
+    assert rows["mesh_dryrun"]["mesh"] == {"dp": 2, "sp": 4}
+    assert rows["mesh_card_service"]["parity"]["launches"] == \
+        rows["mesh_card_service"]["parity"]["batches"] == 1
+    assert rows["mesh_virtual2x4_service"]["apply"]["launches"] == 8
+    assert out["timing"] == {"kernels": "not measured: no card"}
+    assert set(out["launches_by_path"]) >= {
+        "config4_batch_encode", "virtual2x4_mesh_rebuild", "dryrun",
+        "service_card", "service_virtual2x4"}

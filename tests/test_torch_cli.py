@@ -149,6 +149,17 @@ def test_volume_without_a_codec_needs_the_card(tmp_path):
     assert len(out.stderr.strip().splitlines()) == 1
 
 
+@pytest.mark.parametrize("name", ["cuda_xor", "cuda_bitplane"])
+def test_the_other_device_codecs_need_the_card(tmp_path, name):
+    """-ec.codec=cuda_xor | cuda_bitplane are device codecs: on a host
+    without a card the volume exits naming the card, as `cuda` does."""
+    out = _cli(["volume", "-dir", str(tmp_path), "-port", str(free_port()),
+                "-mserver", "127.0.0.1:1", f"-ec.codec={name}"],
+               str(tmp_path), CUDA_VISIBLE_DEVICES="")
+    assert out.returncode != 0
+    assert "CUDA card" in out.stderr and f"-ec.codec={name}" in out.stderr
+
+
 @pytest.mark.parametrize("name", ["tpu", "tpu_xor", "tpu_mxu", "pallas",
                                   "tpu_pallas", "jax", "mxu"])
 def test_tpu_codec_names_are_refused_naming_cuda(tmp_path, name):

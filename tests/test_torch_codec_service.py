@@ -130,7 +130,12 @@ def test_failed_probe_degrades_auto_service_not_the_cuda_codec():
 def test_device_codec_names_gate_the_probe(monkeypatch):
     from seaweedfs_tpu.ops.codec import effective_codec
 
-    assert DEVICE_CODEC_NAMES == frozenset({"cuda"})
+    assert DEVICE_CODEC_NAMES == frozenset(
+        {"cuda", "cuda_xor", "cuda_bitplane"})
+    # the shared service runs the bit-sliced kernel: only `cuda` routes
+    # through it, the other device codecs keep their own kernel's route
+    assert codec_service.service_for_codec("cuda_xor") is None
+    assert codec_service.service_for_codec("cuda_bitplane") is None
 
     def boom(*a, **k):
         raise AssertionError("a host codec name ran the probe")
@@ -761,3 +766,133 @@ def test_degraded_read_via_service(tmp_path, monkeypatch):
     finally:
         ev.close()
     assert jobs.value > before
+
+
+# -- the mesh route (parallel/mesh.py) ----------------------------------------
+
+
+def _cpu_mesh(dp, sp):
+    from seaweedfs_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cpu")] * (dp * sp), dp=dp)
+
+
+def test_device_mode_on_a_virtual_mesh_matches_reference():
+    """Mirrors the reference's device-mode test (test_codec_service.py:164)
+    on a virtual 2x4 CPU mesh: each batch is padded to the mesh (V to dp,
+    the width to a bucket sp divides) and dispatched per entry."""
+    svc = CodecService(mode="device", mesh=_cpu_mesh(2, 4))
+    assert svc.device.type == "cpu" and svc.mesh.shape == {"dp": 2, "sp": 4}
+    ref = ref_service.CodecService(mode="device", codec_name="tpu_xor")
+    rng = np.random.default_rng(6)
+    blocks = [_rand_block(rng, w) for w in (64, 200, 256, 1000, 3)]
+    plan = _plan((2,))
+    ablock = _rand_block(rng, 513)
+    futs = svc.submit_parity_many(blocks)
+    afut = svc.submit_apply(plan, list(ablock))
+    rfuts = ref.submit_parity_many(blocks)
+    rafut = ref.submit_apply(plan, ablock)
+    for fut, rfut in zip(futs, rfuts):
+        assert np.array_equal(_as2d(fut.result(120)), _as2d(rfut.result(120)))
+    assert np.array_equal(_as2d(afut.result(120)), _as2d(rafut.result(120)))
+    assert CodecService._pad_width(1000, 4) == \
+        ref_service.CodecService._pad_width(1000, 4) == 1024
+    svc.close()
+    ref.close()
+
+
+def test_generate_via_a_mesh_device_service(tmp_path):
+    """Mirrors test_codec_service.py:386: the pipelined encode with an
+    explicit device-mode service, here on a virtual 2x4 CPU mesh, equal to
+    the reference's `cpu` encode."""
+    from seaweedfs_tpu.storage.ec.encoder import generate_ec_files
+
+    base = str(tmp_path / "v")
+    large, small = 1 << 20, 64 << 10
+    _write_dat(base + ".dat", 3 * (1 << 20) + 999)
+    generate_ec_files(base, large_block_size=large, small_block_size=small,
+                      codec_name="cpu", slice_size=256 << 10)
+    ref = {i: _read(base + to_ext(i)) for i in range(14)}
+    svc = CodecService(mode="device", mesh=_cpu_mesh(2, 4))
+    tenc.generate_ec_files(base, large, small, codec_name="torch_cpu",
+                           slice_size=256 << 10, service=svc)
+    for i in range(14):
+        assert _read(base + to_ext(i)) == ref[i], i
+    for sid in (0, 1, 2, 13):
+        os.remove(base + to_ext(sid))
+    assert sorted(tenc.rebuild_ec_files(base, codec_name="torch_cpu",
+                                        slice_size=128 << 10,
+                                        service=svc)) == [0, 1, 2, 13]
+    for i in range(14):
+        assert _read(base + to_ext(i)) == ref[i], i
+    svc.close()
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 4)], ids=str)
+def test_mesh_route_launches_per_batch(monkeypatch, shape):
+    """On a 1x1 mesh (the default on one card) a batch is ONE batched call
+    on the service's own block, as before the mesh route; on a 2x4 mesh it
+    is one call per entry that holds work."""
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+
+    calls = []
+    real = codec_service.gf_apply_batched
+
+    def counting(m, data):
+        calls.append(tuple(data.shape))
+        return real(m, data)
+    # the 1x1 route launches from the service, a larger mesh's per-entry
+    # launches from mesh.apply_per_entry
+    monkeypatch.setattr(codec_service, "gf_apply_batched", counting)
+    monkeypatch.setattr(pmesh, "gf_apply_batched", counting)
+    mesh = None if shape == (1, 1) else _cpu_mesh(*shape)
+    svc = CodecService(mode="device", device="cpu", mesh=mesh)
+    rng = np.random.default_rng(8)
+    blocks = [_rand_block(rng, w) for w in (100, 300, 5000)]
+    want = [ReedSolomon().parity_of(b) for b in blocks]
+    # one vectored submit to an idle service: one batch
+    for fut, exp in zip(svc.submit_parity_many(blocks), want):
+        assert np.array_equal(_as2d(fut.result(60)), exp)
+    assert svc.mesh.shape == {"dp": shape[0], "sp": shape[1]}
+    if shape == (1, 1):
+        assert calls == [(3, 10, 5008)]  # the widest job, 16-byte rounded
+    else:
+        # V 3 -> 4 over dp 2, width 5000 -> 8192 over sp 4: 8 entries
+        assert sorted(calls) == [(2, 10, 2048)] * 8
+    svc.close()
+
+
+@pytest.mark.parametrize("named", [True, False], ids=["named", "unnamed"])
+def test_device_mode_mesh_defaults_to_the_named_device(monkeypatch, named):
+    """A device-mode service built for one device keeps the 1x1 mesh of
+    that device, so every batch takes the one-launch route there; only a
+    service that named no device spreads over every visible card
+    (make_mesh() with no list)."""
+    from seaweedfs_tpu_torch.parallel import mesh as pmesh
+
+    seen = []
+    real = pmesh.make_mesh
+
+    def recording(devices=None, **kw):
+        seen.append(devices)
+        # no card here: "every visible card" stands as a virtual 2x4 mesh
+        return real([torch.device("cpu")] * 8 if devices is None
+                    else devices, **kw)
+    monkeypatch.setattr(pmesh, "make_mesh", recording)
+    svc = CodecService(mode="device", device="cpu")
+    if named:
+        rng = np.random.default_rng(9)
+        block = _rand_block(rng, 300)
+        fut = svc.submit_parity_many([block])[0]
+        assert np.array_equal(_as2d(fut.result(60)),
+                              ReedSolomon().parity_of(block))
+        assert seen == [[svc.device]]
+        assert svc.mesh.shape == {"dp": 1, "sp": 1}
+        assert svc.mesh.first == svc.device
+    else:
+        # as a service on a card that was given no device
+        svc._device_named, svc._on_card = False, True
+        assert svc._device_mesh().shape == {"dp": 2, "sp": 4}
+        assert seen == [None]
+        svc._on_card = False
+    svc.close()

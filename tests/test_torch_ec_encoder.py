@@ -153,3 +153,46 @@ def test_needle_map_replay_matches_reference(tmp_path):
     assert _read(tmp_path / "port.ecx") == _read(tmp_path / "jax.ecx")
     assert len(NeedleMap.load_from_idx(idx)) == \
         len(_read(tmp_path / "port.ecx")) // 16
+
+
+@pytest.mark.parametrize("codec", ["cpu", "torch_cpu"])
+def test_generate_progress_and_sync_match_reference(tmp_path, monkeypatch,
+                                                    codec):
+    """`progress` fires after each slice with the .dat bytes done, the same
+    calls as the reference's; `sync=True` fsyncs the 14 shard files and
+    their directory, as the reference does, and the bytes are the same."""
+    rng = np.random.default_rng(21)
+    bases = []
+    for side in ("ref", "port"):
+        (tmp_path / side).mkdir()
+        base = str(tmp_path / side / "1")
+        with open(base + ".dat", "wb") as f:
+            f.write(rng.integers(0, 256, 123_457, dtype=np.uint8).tobytes()
+                    if side == "ref" else _read(bases[0] + ".dat"))
+        bases.append(base)
+    ref_base, base = bases
+    synced = {"ref": [], "port": []}
+    real_fsync = os.fsync
+    side = ["ref"]
+
+    def fsync(fd):
+        synced[side[0]].append(os.fstat(fd).st_mode)
+        real_fsync(fd)
+    monkeypatch.setattr(os, "fsync", fsync)
+    want, got = [], []
+    jenc.generate_ec_files(ref_base, large_block_size=LARGE,
+                           small_block_size=SMALL, slice_size=512,
+                           codec_name="cpu", progress=want.append, sync=True)
+    side[0] = "port"
+    tenc.generate_ec_files(base, LARGE, SMALL, codec_name=codec,
+                           slice_size=512, progress=got.append, sync=True)
+    assert got == want and got[-1] == os.path.getsize(base + ".dat")
+    assert len(synced["port"]) == len(synced["ref"]) == TOTAL_SHARDS + 1
+    assert synced["port"] == synced["ref"]  # 14 files, then the directory
+    for i in range(TOTAL_SHARDS):
+        assert _read(base + to_ext(i)) == _read(ref_base + to_ext(i)), i
+    # without sync nothing is fsynced
+    synced["port"].clear()
+    tenc.generate_ec_files(base, LARGE, SMALL, codec_name=codec,
+                           slice_size=512)
+    assert synced["port"] == []

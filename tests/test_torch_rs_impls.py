@@ -1,0 +1,355 @@
+"""The port's two other GF(2^8) codecs held against the JAX package, on the
+CPU: `impl="xor"` (the XOR network of the doubling chain,
+csrc/gf_xor.cu) against ReedSolomonTPU(impl="xor"), and
+`impl="bitplane"` (bit-planes through an int8 product,
+csrc/gf_bitplane.cu) against ReedSolomonTPU(impl="mxu").
+
+Inputs come from numpy with a fixed seed.  On the CPU each wrapper runs
+its plain PyTorch version; the CUDA sources are also compiled with the
+host C++ compiler, their CUDA keywords defined away, and run thread by
+thread against those plain versions.  GF arithmetic is exact, so every
+comparison is byte equality.
+"""
+
+import ctypes
+import itertools
+import os
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seaweedfs_tpu.ops import gf256 as jgf
+from seaweedfs_tpu.ops.rs_jax import ReedSolomonTPU, _multiples
+from seaweedfs_tpu.parallel import mesh as jmesh
+from seaweedfs_tpu_torch.ops import _build, rs_bitplane, rs_cuda, rs_xor
+from seaweedfs_tpu_torch.ops.codec import (
+    DEVICE_CODEC_NAMES,
+    available_codecs,
+    effective_codec,
+    get_codec,
+)
+from seaweedfs_tpu_torch.ops.rs_torch import IMPLS, ReedSolomonTorch
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+# port impl -> the reference's
+REF_IMPL = {"xor": "xor", "bitplane": "mxu"}
+WIDTH = 203
+# a seeded sample of the 1001 four-loss patterns of RS(10,4)
+FOUR_LOSSES = [tuple(p) for p in np.random.default_rng(11).permutation(
+    np.array(list(itertools.combinations(range(14), 4))))[:4]]
+
+
+def _shards(seed: int, width: int = WIDTH) -> list[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, width, dtype=np.uint8) for _ in range(10)] \
+        + [np.zeros(width, np.uint8) for _ in range(4)]
+
+
+@pytest.mark.parametrize("impl", ["xor", "bitplane"])
+def test_encode_matches_reference(impl):
+    ref = ReedSolomonTPU(impl=REF_IMPL[impl])
+    port = ReedSolomonTorch(device="cpu", impl=impl)
+    want, got = _shards(1), _shards(1)
+    ref.encode(want)
+    port.encode(got)
+    for i in range(14):
+        assert np.array_equal(got[i], want[i]), i
+    assert port.verify(got) and port.impl == f"torch_cpu_{impl}"
+
+
+@pytest.mark.parametrize("impl", ["xor", "bitplane"])
+@pytest.mark.parametrize("lost", FOUR_LOSSES, ids=str)
+def test_reconstruct_four_losses_matches_reference(impl, lost):
+    ref = ReedSolomonTPU(impl=REF_IMPL[impl])
+    port = ReedSolomonTorch(device="cpu", impl=impl)
+    full = _shards(sum(lost))
+    ref.encode(full)
+    holed = [None if i in lost else s for i, s in enumerate(full)]
+    for method in ("reconstruct", "reconstruct_data"):
+        want = getattr(ref, method)(list(holed))
+        got = getattr(port, method)(list(holed))
+        for i in range(14):
+            if want[i] is None:
+                assert got[i] is None, (method, i)
+            else:
+                assert np.array_equal(np.asarray(got[i]),
+                                      np.asarray(want[i])), (method, i)
+        for i in range(10):  # the data rows are the originals
+            assert np.array_equal(np.asarray(got[i]), full[i]), (method, i)
+
+
+def test_impls_are_named_and_unknown_raises():
+    assert set(IMPLS) == {"bitslice", "xor", "bitplane"}
+    with pytest.raises(ValueError, match="impl"):
+        ReedSolomonTorch(device="cpu", impl="mxu")
+
+
+@pytest.mark.parametrize("b", [1, 7, 16, 33, 4099])
+def test_xor_plain_version_is_the_reference_network(b):
+    m = jgf.rs_parity_matrix(10, 4)
+    data = np.random.default_rng(b).integers(0, 256, (10, b), dtype=np.uint8)
+    t = torch.from_numpy(data)
+    # the doubling chain, step by step
+    for got, want in zip(rs_xor._multiples(t), _multiples(jnp.asarray(data))):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    want = rs_cuda.gf_apply_reference(m, t)
+    assert torch.equal(rs_xor.gf_apply_xor_reference(m, t), want)
+    assert torch.equal(rs_xor.gf_apply_xor(m, t), want)
+    batch = torch.from_numpy(np.stack([data, data[::-1].copy()]))
+    assert torch.equal(rs_xor.gf_apply_xor_batched(m, batch),
+                       rs_cuda.gf_apply_batched_reference(m, batch))
+
+
+@pytest.mark.parametrize("b", [1, 7, 16, 33, 4099])
+def test_bitplane_unpack_and_pack_match_the_mesh_reference(b):
+    rng = np.random.default_rng(b + 1)
+    data = rng.integers(0, 256, (10, b), dtype=np.uint8)
+    want = np.asarray(jmesh._bit_unpack(jnp.asarray(data)))
+    got = rs_bitplane.bit_unpack(torch.from_numpy(data))
+    assert got.dtype == torch.int8 and np.array_equal(got.numpy(), want)
+    # padded to a multiple of 8: the extra columns are zero
+    wide = rs_bitplane.bit_unpack(torch.from_numpy(data),
+                                  rs_bitplane.padded_width(b))
+    assert np.array_equal(wide[:, :b].numpy(), want)
+    assert not wide[:, b:].any()
+    planes = rng.integers(0, 2, (32, b)).astype(np.int32)
+    want = np.asarray(jmesh._bit_pack(jnp.asarray(planes)))
+    got = rs_bitplane.bit_pack(torch.from_numpy(planes))
+    assert got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
+    # sums, not just bits: the pack takes their parity
+    sums = planes + 2 * rng.integers(0, 40, planes.shape).astype(np.int32)
+    assert np.array_equal(rs_bitplane.bit_pack(torch.from_numpy(sums))
+                          .numpy(), want)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 16])
+def test_bitplane_route_pads_small_plans(rows):
+    """A plan of 1-2 rows is padded to 24 planes for torch._int_mm; the
+    padded rows never reach the output."""
+    m = np.random.default_rng(rows).integers(0, 256, (rows, 10),
+                                             dtype=np.uint8)
+    a = rs_bitplane.bit_matrix_tensor(m, "cpu", 24)
+    assert a.shape == (max(8 * rows, 24), 80) and not a[8 * rows:].any()
+    data = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (10, 77), dtype=np.uint8))
+    assert torch.equal(rs_bitplane.gf_apply_bitplane(m, data),
+                       rs_cuda.gf_apply_reference(m, data))
+
+
+def test_codec_names_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    assert {"cuda", "cuda_xor", "cuda_bitplane"} == DEVICE_CODEC_NAMES
+    assert not DEVICE_CODEC_NAMES & set(available_codecs())
+    for name in ("cuda_xor", "cuda_bitplane"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_codec(name)
+        assert effective_codec(name)[0] == "cpu"
+    # the host versions of the three impls give the same bytes
+    block = _shards(5)
+    outs = []
+    for impl in IMPLS:
+        shards = [s.copy() for s in block]
+        ReedSolomonTorch(device="cpu", impl=impl).encode(shards)
+        outs.append(shards[10:])
+    assert all(np.array_equal(a, b) for o in outs[1:]
+               for a, b in zip(o, outs[0]))
+
+
+# -- the CUDA sources on the host compiler ----------------------------------
+
+_PRELUDE = r"""
+// the CUDA sources on the host: one thread at a time, in grid order
+#include <stdint.h>
+#include <string.h>
+#define GF_HOST_TEST
+struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
+struct D3 { unsigned x, y, z; };
+static D3 blockIdx, threadIdx, gridDim;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+#define __grid_constant__
+#define __shared__ static
+static void __syncthreads() {}
+"""
+
+_XOR_HARNESS = _PRELUDE + r"""
+#include "gf_xor.cu"
+template <int R>
+static void grid(const u8* in, i64 is, i64 ib, u8* out, i64 os, i64 ob,
+                 i64 B, i64 V, int S, int mode, const GfCoef& c,
+                 unsigned gy) {
+  const i64 per = (i64)XOR_THREADS * XOR_CHUNK;
+  gridDim = {(unsigned)((B + per - 1) / per), gy, 1};
+  for (unsigned y = 0; y < gy; ++y)
+    for (unsigned x = 0; x < gridDim.x; ++x)
+      for (unsigned t = 0; t < XOR_THREADS; ++t) {
+        blockIdx = {x, y, 0};
+        threadIdx = {t, 0, 0};
+        gf_xor_kernel<R>(in, is, ib, out, os, ob, B, V, S, mode, c);
+      }
+}
+extern "C" int run(const u8* in, i64 is, i64 ib, u8* out, i64 os, i64 ob,
+                   i64 B, i64 V, int R, int S, const u8* coef, unsigned gy) {
+  const GfCoef c = pack_coef(R, S, coef);
+  const int mode = access_mode(in, is, ib, out, os, ob);
+  switch (R) {
+    case 1: grid<1>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
+    case 3: grid<3>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
+    case 4: grid<4>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
+    case 16: grid<16>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
+  }
+  return mode;
+}
+"""
+
+_BITPLANE_HARNESS = _PRELUDE + r"""
+#include "gf_bitplane.cu"
+// each block's two steps, every thread of the first before the second:
+// the barrier between them
+extern "C" int unpack(const u8* in, i64 is, i8* out, i64 S, i64 B, i64 W) {
+  static u8 tile[UNPACK_MAX_S][UNPACK_PITCH];
+  const int words = unpack_words(in, is);
+  for (i64 c0 = 0; c0 < W; c0 += UNPACK_TILE) {
+    memset(tile, 0xA5, sizeof tile);
+    for (int t = 0; t < BP_THREADS; ++t)
+      unpack_load(tile, in, is, S, B, c0, words, t);
+    for (int t = 0; t < BP_THREADS; ++t)
+      unpack_store(tile, out, S, W, c0, t);
+  }
+  return words;
+}
+extern "C" int pack(const int* in, i64 is, u8* out, i64 os, i64 R, i64 B,
+                    unsigned gy) {
+  int in_vec, out_word;
+  pack_modes(in, is, out, os, &in_vec, &out_word);
+  const i64 per = (i64)BP_THREADS * PACK_CHUNK;
+  gridDim = {(unsigned)((B + per - 1) / per), gy, 1};
+  for (unsigned y = 0; y < gy; ++y)
+    for (unsigned x = 0; x < gridDim.x; ++x)
+      for (unsigned t = 0; t < BP_THREADS; ++t) {
+        blockIdx = {x, y, 0};
+        threadIdx = {t, 0, 0};
+        bit_pack_kernel(in, is, out, os, R, B, in_vec, out_word);
+      }
+  return 2 * in_vec + out_word;
+}
+"""
+
+
+def _host_lib(tmp_path, harness: str) -> ctypes.CDLL:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    (tmp_path / "harness.cpp").write_text(harness)
+    so = tmp_path / "kernel_host.so"
+    subprocess.run([gxx, "-O1", "-shared", "-fPIC", "-w", "-I",
+                    _build.CSRC_DIR, "-o", str(so),
+                    str(tmp_path / "harness.cpp")], check=True)
+    return ctypes.CDLL(str(so))
+
+
+def _aligned(rng, shape, offset: int) -> np.ndarray:
+    """Random uint8 rows whose start is `offset` bytes past 16-byte
+    alignment, row stride the last dimension + offset."""
+    *lead, b = shape
+    n = int(np.prod(lead)) if lead else 1
+    buf = np.zeros(n * (b + offset) + 64, np.uint8)
+    start = (-buf.ctypes.data) % 16 + offset
+    rows = buf[start:start + n * (b + offset)].reshape(n, b + offset)[:, :b]
+    rows[...] = rng.integers(0, 256, rows.shape, dtype=np.uint8)
+    return rows.reshape(*lead, b) if lead else rows[0]
+
+
+def test_xor_kernel_on_the_host_compiler(tmp_path):
+    lib = _host_lib(tmp_path, _XOR_HARNESS)
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.run.argtypes = [p, ll, ll, p, ll, ll, ll, ll, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_char_p, ctypes.c_uint]
+    rng = np.random.default_rng(3)
+    plan = jgf.decode_plan_for(jgf.rs_matrix(10, 14), 10,
+                               [1, 3, 4, 5, 6, 7, 8, 9, 10, 12], (0, 2, 11))
+    mats = [jgf.rs_parity_matrix(10, 4), plan,
+            rng.integers(0, 256, (1, 10), dtype=np.uint8),
+            rng.integers(0, 256, (16, 16), dtype=np.uint8)]
+    # widths about the 16-byte chunk and the 4096-column block, each
+    # access path: row starts 16-aligned (2), word-aligned (1), odd (0)
+    for m in mats:
+        r, s = m.shape
+        coef = np.ascontiguousarray(m).tobytes()
+        for b in (1, 7, 16, 33, 4099):
+            for offset, mode in ((0, 2), (4, 1), (1, 0)):
+                data = _aligned(rng, (s, b), offset)
+                out = np.full((r, b), 0xA5, np.uint8)
+                stride = data.strides[0] if s > 1 else b
+                got_mode = lib.run(data.ctypes.data, stride, 0,
+                                   out.ctypes.data, b, r * b, b, 1, r, s,
+                                   coef, 1)
+                want = rs_cuda.gf_apply_reference(
+                    m, torch.from_numpy(np.ascontiguousarray(data)))
+                assert np.array_equal(out, want.numpy()), (m.shape, b, mode)
+                if b == 16 and out.ctypes.data % 16 == 0:
+                    assert got_mode == mode, (m.shape, offset)
+    # batched: entries at a stride, fewer grid rows than entries
+    m = mats[0]
+    v, b = 5, 4099
+    batch = rng.integers(0, 256, (v, 10, b), dtype=np.uint8)
+    out = np.zeros((v, 4, b), np.uint8)
+    lib.run(batch.ctypes.data, b, 10 * b, out.ctypes.data, b, 4 * b, b, v, 4,
+            10, np.ascontiguousarray(m).tobytes(), 2)
+    want = rs_cuda.gf_apply_batched_reference(m, torch.from_numpy(batch))
+    assert np.array_equal(out, want.numpy())
+
+
+def test_bitplane_kernels_on_the_host_compiler(tmp_path):
+    lib = _host_lib(tmp_path, _BITPLANE_HARNESS)
+    ll, p, u = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint
+    lib.unpack.argtypes = [p, ll, p, ll, ll, ll]
+    lib.pack.argtypes = [p, ll, p, ll, ll, ll, u]
+    rng = np.random.default_rng(4)
+    for s in (1, 2, 10, 16):
+        for b in (1, 7, 16, 33, 1024, 4099):
+            w = rs_bitplane.padded_width(b)
+            for offset in (0, 4, 1):
+                data = _aligned(rng, (s, b), offset)
+                # the planes column by column: a (W, 8S) array
+                out = np.full((w, 8 * s), 77, np.int8)
+                words = lib.unpack(data.ctypes.data,
+                                   data.strides[0] if s > 1 else b,
+                                   out.ctypes.data, s, b, w)
+                want = rs_bitplane.bit_unpack_reference(
+                    torch.from_numpy(np.ascontiguousarray(data)), w)
+                assert np.array_equal(out.T, want.numpy()), (s, b, offset)
+                if offset == 1:
+                    assert words == 0
+    for r in (1, 3, 4):
+        for b in (1, 7, 16, 33, 4099):
+            stride = rs_bitplane.padded_width(b) + 8
+            sums = rng.integers(0, 200, (8 * r, stride)).astype(np.int32)
+            for offset in (0, 1):
+                out = np.full((r, b + offset), 0x5A, np.uint8)
+                dst = out[:, offset:]
+                lib.pack(sums.ctypes.data, stride,
+                         dst.ctypes.data, b + offset, r, b, 2)
+                want = rs_bitplane.bit_pack_reference(
+                    torch.from_numpy(sums), b)
+                assert np.array_equal(dst, want.numpy()), (r, b, offset)
+
+
+def test_gf_xor_source_is_built_by_name():
+    """The two sources build with nvcc by name into their own libraries
+    (ops/_build.py), each keyed by its own hash."""
+    paths = {n: _build.library_path(n) for n in
+             ("gf_launch", "gf_xor", "gf_bitplane")}
+    assert len(set(paths.values())) == 3
+    for name, path in paths.items():
+        assert os.path.basename(path).startswith(f"lib{name}-")

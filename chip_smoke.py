@@ -31,8 +31,9 @@ their slices into one batched launch (`gf_apply_batched`, named
 `gf_matmul_batched`, also the port of bench.py:104's sweep kernel).  The
 mesh phase adds the JAX package's other two device programs, the XOR
 network of the doubling chain (`gf_xor`, csrc/gf_xor.cu) and the
-bit-plane route (`bit_unpack` and `bit_pack`, csrc/gf_bitplane.cu,
-around torch._int_mm), and parallel/ over a mesh of the card.
+bit-plane route as one kernel on the int8 tensor cores
+(`gf_bitplane_mma`, csrc/gf_bitplane.cu), and parallel/ over a mesh of
+the card.
 
 Phases, each printing one JSON line:
   1. card and build: the card's name and power limit, the host library's
@@ -208,13 +209,17 @@ Phases, each printing one JSON line:
      default route a user gets with no arguments (the shared service, its
      default batch cap), each checked by sha256 and its launches;
   9. mesh: parallel/ on the card and the JAX package's other two device
-     programs.  (a) gf_xor (csrc/gf_xor.cu, one entry and batched),
-     bit_unpack and bit_pack (csrc/gf_bitplane.cu) and the whole
-     bit-plane route against their plain versions for the parity matrix
-     and 20 seeded decode plans of 1-4 lost shards at 1, 7, 4099 and 16
-     MiB per shard; (b) each timed at 16 MiB per shard, one launch and
-     back to back, beside its bound, its plain version, torch._int_mm
-     alone and gf_bitslice on the same data; (c) BASELINE config 4 on the
+     programs.  (a) gf_xor (csrc/gf_xor.cu, one entry and batched) and
+     gf_bitplane_mma (csrc/gf_bitplane.cu) against their plain versions
+     for the parity matrix and 20 seeded decode plans of 1-4 lost shards
+     at 1, 7, 4099 and 16 MiB per shard, and gf_bitplane_mma for seeded
+     (R, S) matrices of R in {1, 2, 3, 4, 10, 14}, S in {1, 2, 5, 10, 14,
+     16} at widths 1-4099 on rows 16-byte aligned, 4 and 1 bytes past;
+     (b) each timed at 16 MiB per shard, one launch and back to back,
+     beside its bound and its plain version (gf_bitplane_mma also on the
+     mesh rebuild's (4, 10) plan and the (4, 5) partial of a dp = 2
+     mesh), with torch._int_mm of the same bit-plane product alone as a
+     yardstick and gf_bitslice on the same data; (c) BASELINE config 4 on the
      1x1 mesh of the card: 64 seeded volumes of 32-96 MiB (~4 GiB), each
      encoded alone on `cuda`, then batch_generate_ec_files over all 64
      (every shard file equal by sha256), one volume's .ec00-.ec03 rebuilt
@@ -363,6 +368,19 @@ def _timed_build(_build, name: str) -> float:
     t0 = time.perf_counter()
     _build.build(name)
     return time.perf_counter() - t0
+
+
+def ptxas_report(_build, name: str) -> list[str]:
+    """ptxas's registers, shared memory and spills for csrc/<name>.cu: the
+    library's nvcc build again with -Xptxas -v, into a scratch file."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, "lib.so"),
+             os.path.join(_build.CSRC_DIR, name + ".cu")],
+            capture_output=True, text=True, check=True)
+    return [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            if "Used" in line or "spill" in line]
 
 
 def compile_seconds(_build) -> dict:
@@ -3967,15 +3985,13 @@ def _sha_many(paths: list[str]) -> list[str]:
 def _zero_mesh_launches(rs_cuda, rs_xor, rs_bitplane) -> None:
     _zero_launches(rs_cuda)
     rs_xor.gf_apply_xor_batched.launches = 0
-    rs_bitplane.bit_unpack.launches = 0
-    rs_bitplane.bit_pack.launches = 0
+    rs_bitplane.gf_apply_bitplane.launches = 0
 
 
 def _mesh_launches(rs_cuda, rs_xor, rs_bitplane) -> dict:
     return {**_launches(rs_cuda),
             "gf_xor": rs_xor.gf_apply_xor_batched.launches,
-            "bit_unpack": rs_bitplane.bit_unpack.launches,
-            "bit_pack": rs_bitplane.bit_pack.launches}
+            "gf_bitplane_mma": rs_bitplane.gf_apply_bitplane.launches}
 
 
 def mesh_plans(gf256, seed: int) -> list[tuple[str, np.ndarray]]:
@@ -3993,15 +4009,22 @@ def mesh_plans(gf256, seed: int) -> list[tuple[str, np.ndarray]]:
     return out
 
 
+BITPLANE_SHAPES = ((1, 2, 3, 4, 10, 14), (1, 2, 5, 10, 14, 16),
+                   (1, 7, 16, 33, 1024, 1028, 4099),  # 1028: 4-byte rows
+                   (0, 4, 1))  # R, S, B, offset
+
+
 def mesh_kernels_vs_plain(rs_xor, rs_bitplane, plans, gen,
                           widths=MESH_WIDTHS) -> dict:
-    """gf_xor (one entry and batched), bit_unpack, bit_pack and the whole
-    bit-plane route against their plain versions on the card, for every
-    matrix of `plans` at every width of `widths`; batched entries are
-    1-byte-offset views (unaligned rows and entry strides).  -> the
-    largest error of each (0, or the run has already failed)."""
+    """gf_xor (one entry and batched) and gf_bitplane_mma against their
+    plain versions on the card, for every matrix of `plans` at every width
+    of `widths` (batched entries are 1-byte-offset views: unaligned rows
+    and entry strides), and gf_bitplane_mma for a seeded matrix of each
+    (R, S) of BITPLANE_SHAPES at each width, on rows 16-byte aligned and
+    4 and 1 bytes past (each of its access paths, input and output).  ->
+    the largest error of each (0, or the run has already failed)."""
     t0 = time.perf_counter()
-    worst = {"gf_xor": 0, "bit_unpack": 0, "bit_pack": 0, "bitplane": 0}
+    worst = {"gf_xor": 0, "gf_bitplane_mma": 0}
     cases = 0
 
     def check(name, got, want, what):
@@ -4016,34 +4039,39 @@ def mesh_kernels_vs_plain(rs_xor, rs_bitplane, plans, gen,
         worst[name] = max(worst[name], err)
 
     for b in widths:
-        w = rs_bitplane.padded_width(b)
         data = random_u8((10, b), gen)
         batch = random_u8((3, 10, b + 1), gen)[:, :, 1:]
-        for view, what in ((data, "aligned"), (batch[1], "offset 1")):
-            check("bit_unpack", rs_bitplane.bit_unpack(view, w),
-                  rs_bitplane.bit_unpack_reference(view, w), f"B={b} {what}")
-        for r in (1, 2, 3, 4):
-            sums = torch.randint(0, 161, (max(8 * r, 24), w + 8),
-                                 dtype=torch.int32, device=gen.device,
-                                 generator=gen)[:8 * r]
-            check("bit_pack", rs_bitplane.bit_pack(sums, b),
-                  rs_bitplane.bit_pack_reference(sums, b),
-                  f"R={r} B={b} row stride {w + 8}")
-            del sums
         for name, m in plans:
             check("gf_xor", rs_xor.gf_apply_xor(m, data),
                   rs_xor.gf_apply_xor_reference(m, data), f"{name} B={b}")
             check("gf_xor", rs_xor.gf_apply_xor_batched(m, batch),
                   rs_xor.gf_apply_xor_batched_reference(m, batch),
                   f"{name} V=3 B={b} offset 1")
-            check("bitplane", rs_bitplane.gf_apply_bitplane(m, data),
+            check("gf_bitplane_mma", rs_bitplane.gf_apply_bitplane(m, data),
                   rs_bitplane.gf_apply_bitplane_reference(m, data),
                   f"{name} B={b}")
         del data, batch
-        torch.cuda.empty_cache()
+        if gen.device.type == "cuda":
+            torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    rows_r, rows_s, shape_widths, offsets = BITPLANE_SHAPES
+    for r in rows_r:
+        for s in rows_s:
+            m = rng.integers(0, 256, (r, s), dtype=np.uint8)
+            for b in shape_widths:
+                for off in offsets:
+                    # rows of stride b + 16 + off starting `off` bytes past
+                    # a 16-byte boundary: the kernel's output rows are its
+                    # own, so the input carries the unaligned paths
+                    view = random_u8((s, b + 16 + off), gen)[:, off:off + b]
+                    check("gf_bitplane_mma",
+                          rs_bitplane.gf_apply_bitplane(m, view),
+                          rs_bitplane.gf_apply_bitplane_reference(m, view),
+                          f"R={r} S={s} B={b} offset {off}")
     row = {"phase": "mesh_kernels_vs_plain", "matrices": len(plans),
-           "widths": list(widths), "cases": cases, "byte_equal": True,
-           "max_abs_err": worst, "wall_s": time.perf_counter() - t0}
+           "widths": list(widths), "bitplane_shapes": BITPLANE_SHAPES,
+           "cases": cases, "byte_equal": True, "max_abs_err": worst,
+           "wall_s": time.perf_counter() - t0}
     emit(row)
     return row
 
@@ -4064,13 +4092,17 @@ def _bound_row(t_bytes_ms: float, t_ops_ms: float) -> dict:
 def mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, gen,
                        power: str) -> dict:
     """RS(10,4) parity at 16 MiB per shard through each kernel: one launch
-    (`ms`) and back to back, beside its bound, its plain version's time
-    and, for the bit-plane route, torch._int_mm's time alone at the same
-    shape; gf_bitslice (gf_apply) on the same data beside them."""
+    (`ms`) and back to back, beside its bound and its plain version's
+    time.  gf_bitplane_mma also on the mesh rebuild's plans at 16 MiB: the
+    (4, 10) decode of .ec00-.ec03 and its first 5 sources, the partial of
+    a dp = 2 mesh; beside it torch._int_mm of the parity's bit-plane
+    product alone (int32 sums of the (8R, 8S) bit matrix, at least 24
+    rows, and the (8S, B) planes, column-major as cuBLASLt takes them), a
+    yardstick the port never calls; gf_bitslice (gf_apply) on the same
+    data."""
     m = gf256.rs_parity_matrix(10, 4)
     r, s = m.shape
     b = 16 * MIB
-    w = rs_bitplane.padded_width(b)
     data = random_u8((s, b), gen)
     rows = {}
 
@@ -4089,39 +4121,42 @@ def mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, gen,
     rows["gf_xor"] = {**t, **_bound_row(bd["bytes_ms"], bd["alu_ms"]),
                       "kernel_ops": ops,
                       "kernel_ops_ms": ops / INT32_OPS_PER_S * 1e3}
-    bits = rs_bitplane.bit_unpack(data, w)
-    rows["bit_unpack"] = {**_timed(
-        lambda: rs_bitplane.bit_unpack(data, w),
-        lambda: rs_bitplane.bit_unpack_reference(data, w)),
-        **_bound_row(ms_of(s * b + 8 * s * w), 0.0)}
-    a = rs_bitplane.bit_matrix_tensor(m, data.device,
-                                      rs_bitplane._INT_MM_MIN_ROWS)
-    mm_ops = 2 * a.shape[0] * a.shape[1] * w
+    plan = rebuild_plan(gf256)
+    for name, pm in (("gf_bitplane_mma", m), ("gf_bitplane_mma_decode",
+                                              plan),
+                     ("gf_bitplane_mma_partial",
+                      np.ascontiguousarray(plan[:, :5]))):
+        x = data[:pm.shape[1]]
+        pr, ps = pm.shape
+        # its bound: each input and output byte once, and the product's
+        # 2 * 8R * 8S int8 operations a column at the tensor cores' rate
+        int8_ops = 2 * 8 * pr * 8 * ps * b
+        rows[name] = {**_timed(
+            lambda: rs_bitplane.gf_apply_bitplane(pm, x),
+            lambda: rs_bitplane.gf_apply_bitplane_reference(pm, x)),
+            **_bound_row(ms_of((ps + pr) * b),
+                         int8_ops / INT8_OPS_PER_S * 1e3),
+            "shape": [pr, ps], "int8_ops": int8_ops,
+            "function_bytes": (ps + pr) * b}
+    a = torch.zeros((max(8 * r, 24), 8 * s), dtype=torch.int8,
+                    device=data.device)  # _int_mm wants more than 16 rows
+    a[:8 * r] = torch.from_numpy(gf256.bit_matrix(m).astype(np.int8))
+    bits = rs_bitplane.bit_unpack_reference(data).t().contiguous().t()
+    mm_ops = 2 * a.shape[0] * a.shape[1] * b
     rows["int_mm"] = {**_timed(lambda: torch._int_mm(a, bits)),
                       **_bound_row(ms_of(a.numel() + bits.numel()
-                                         + 4 * a.shape[0] * w),
+                                         + 4 * a.shape[0] * b),
                                    mm_ops / INT8_OPS_PER_S * 1e3),
                       "shape": [list(a.shape), list(bits.shape)]}
-    acc = torch._int_mm(a, bits)
-    rows["bit_pack"] = {**_timed(
-        lambda: rs_bitplane.bit_pack(acc[:8 * r], b),
-        lambda: rs_bitplane.bit_pack_reference(acc[:8 * r], b)),
-        **_bound_row(ms_of(4 * 8 * r * b + r * b), 0.0)}
-    del acc, bits
-    rows["bitplane"] = {**_timed(
-        lambda: rs_bitplane.gf_apply_bitplane(m, data),
-        lambda: rs_bitplane.gf_apply_bitplane_reference(m, data)),
-        # the function's own bound: each input and output byte once
-        **_bound_row(ms_of((s + r) * b), 0.0),
-        "route_bytes": s * b + 8 * s * w + a.numel() + 4 * a.shape[0] * w
-        + 4 * 8 * r * b + r * b}
+    del bits
     rows["gf_bitslice"] = {**_timed(lambda: rs_cuda.gf_apply(m, data)),
                            **_bound_row(bd["bytes_ms"], bd["alu_ms"])}
-    for name, row in rows.items():
+    for row in rows.values():
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["share_of_bound_back_to_back"] = (row["bound_ms"]
                                               / row["back_to_back_ms"])
-        row["GBps"] = (s + r) * b / row["back_to_back_ms"] / 1e6
+        row["GBps"] = (row.get("function_bytes", (s + r) * b)
+                       / row["back_to_back_ms"] / 1e6)
     out = {"phase": "mesh_kernel_timing", "matrix": "parity",
            "bytes_per_shard": b, "kernels": rows, "card": power}
     emit(out)
@@ -4219,10 +4254,12 @@ def mesh_file_flows(rs_cuda, rs_xor, rs_bitplane, enc, pbatch, mesh,
     _remove_shards([one], range(4))
     got = flow("mesh_rebuild", lambda: pbatch.mesh_rebuild_ec_files(
         one, mesh=mesh), 10 * shard, lost)
-    if got != [0, 1, 2, 3] or not (paths["mesh_rebuild"]["bit_unpack"]
-                                   and paths["mesh_rebuild"]["bit_pack"]):
+    # one distributed_reconstruct per slice, one launch per mesh entry
+    slices = -(-shard // enc.DEFAULT_SLICE)
+    if got != [0, 1, 2, 3] or paths["mesh_rebuild"]["gf_bitplane_mma"] \
+            != slices * mesh.size:
         raise AssertionError(f"{label} mesh rebuild: {got}, "
-                             f"{paths['mesh_rebuild']}")
+                             f"{paths['mesh_rebuild']}, {slices} slices")
     if codec_flows:
         _remove_shards([one])
         flow("cuda_xor_encode", lambda: enc.generate_ec_files(
@@ -4231,8 +4268,10 @@ def mesh_file_flows(rs_cuda, rs_xor, rs_bitplane, enc, pbatch, mesh,
         _remove_shards([one], range(4))
         flow("cuda_bitplane_rebuild", lambda: enc.rebuild_ec_files(
             one, codec_name="cuda_bitplane"), 10 * shard, lost)
-        if not paths["cuda_xor_encode"]["gf_xor"] or not (
-                paths["cuda_bitplane_rebuild"]["bit_unpack"]):
+        # the codec's rebuild: one gf_apply_bitplane, one launch, a slice
+        if not paths["cuda_xor_encode"]["gf_xor"] or (
+                paths["cuda_bitplane_rebuild"]["gf_bitplane_mma"]
+                != slices):
             raise AssertionError(f"codec flows missed their kernels: "
                                  f"{paths}")
     return {"rows": rows, "launches_by_path": paths}
@@ -4431,11 +4470,14 @@ def main() -> int:
     INT32_OPS_PER_S = int32_ops_per_s()
     t0 = time.perf_counter()
     # one nvcc per source, all started together: the GF kernels' host
-    # library and the two kernel libraries of the mesh phase
-    with ThreadPoolExecutor(3) as pool:
+    # library and the two kernel libraries of the mesh phase, and the
+    # bit-plane kernel's ptxas report
+    with ThreadPoolExecutor(4) as pool:
+        ptxas_bitplane = pool.submit(ptxas_report, _build, "gf_bitplane")
         nvcc_s = dict(zip(("gf_launch", "gf_xor", "gf_bitplane"), pool.map(
             _timed_build, [_build] * 3, ("gf_launch", "gf_xor",
                                          "gf_bitplane"))))
+        ptxas_bitplane = ptxas_bitplane.result()
     rs_cuda._lib()
     rs_xor.build_kernel()
     rs_bitplane.build_kernel()
@@ -4453,7 +4495,8 @@ def main() -> int:
           "ptxas": [line for log in _build.COMPILE_LOGS.values()
                     for line in log.splitlines() if "Used" in line
                     or "spill" in line],
-          "cache": rs_cuda.cache_stats()})
+          "cache": rs_cuda.cache_stats(),
+          "ptxas_gf_bitplane": ptxas_bitplane})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     err = phase_correctness(rs_cuda, gf256, _build, gen)
@@ -4679,22 +4722,25 @@ def main() -> int:
                     "seaweedfs_tpu/ops/rs_jax.py:70", mesh_launches("gf_xor"),
                     mesh_err["gf_xor"], mesh_times["gf_xor"],
                     kernel_ops_ms=mesh_times["gf_xor"]["kernel_ops_ms"]),
-        mesh_kernel("bit_unpack",
+        mesh_kernel("gf_bitplane_mma",
                     "seaweedfs_tpu_torch/ops/csrc/gf_bitplane.cu",
-                    "seaweedfs_tpu/ops/rs_jax.py:88",
-                    mesh_launches("bit_unpack"), mesh_err["bit_unpack"],
-                    mesh_times["bit_unpack"]),
-        mesh_kernel("bit_pack", "seaweedfs_tpu_torch/ops/csrc/gf_bitplane.cu",
-                    "seaweedfs_tpu/ops/rs_jax.py:97",
-                    mesh_launches("bit_pack"), mesh_err["bit_pack"],
-                    mesh_times["bit_pack"], bitplane_route={
-                        k: mesh_times["bitplane"][k] for k in (
-                            "ms", "back_to_back_ms", "plain_ms", "bound_ms",
-                            "route_bytes")} | {
-                        "max_abs_err": mesh_err["bitplane"],
-                        "int_mm_ms": mesh_times["int_mm"]["ms"],
-                        "int_mm_back_to_back_ms":
-                            mesh_times["int_mm"]["back_to_back_ms"]})]})
+                    "seaweedfs_tpu/ops/rs_jax.py:81, "
+                    "seaweedfs_tpu/parallel/mesh.py:156",
+                    mesh_launches("gf_bitplane_mma"),
+                    mesh_err["gf_bitplane_mma"],
+                    mesh_times["gf_bitplane_mma"],
+                    # no PyTorch call computes the GF(2^8) product: the
+                    # yardstick is torch._int_mm of its bit-plane product
+                    # alone (int32 sums, no unpack, no pack)
+                    library_ms=mesh_times["int_mm"]["ms"],
+                    library_call="torch._int_mm, the (32, 80) x (80, 16 Mi)"
+                    " int8 bit-plane product alone",
+                    mesh_rebuild_plans={
+                        k: {f: mesh_times[k][f] for f in (
+                            "shape", "ms", "back_to_back_ms", "plain_ms",
+                            "bound_ms", "bound_by")}
+                        for k in ("gf_bitplane_mma_decode",
+                                  "gf_bitplane_mma_partial")})]})
     emit({"phase": "done", "wall_s": time.perf_counter() - start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -23,12 +23,13 @@ EC parity and `ec.decode`):
   * ops/csrc/gf_xor.cu + ops/rs_xor.py — the XOR network of the doubling
     chain (the port of rs_jax.make_apply_xor), coefficients as a kernel
     argument, one and batched entries.
-  * ops/csrc/gf_bitplane.cu + ops/rs_bitplane.py — bit_unpack and bit_pack
-    around torch._int_mm (the port of rs_jax.make_apply_mxu and of
-    parallel/mesh.py's _bit_unpack / _bit_pack).
+  * ops/csrc/gf_bitplane.cu + ops/rs_bitplane.py — the bit-plane route as
+    one kernel on the int8 tensor cores, gf_bitplane_mma (the port of
+    rs_jax.make_apply_mxu and of parallel/mesh.py's _bit_unpack /
+    _bit_pack around its psum).
   * parallel/ — Mesh and make_mesh over torch devices, batch_encode_sharded,
-    batch_apply_sharded, distributed_reconstruct (the int32 psum over dp),
-    train_step; batch.py's batch_generate_ec_files and
+    batch_apply_sharded, distributed_reconstruct (packed partials XORed
+    over dp), train_step; batch.py's batch_generate_ec_files and
     mesh_rebuild_ec_files; dryrun.py's dryrun_multidevice.
   * native/ — the port's copy of the C++ native library (CRC32-C, the
     GF(2^8) SIMD host codec), built with g++ at first use into _build/;

@@ -102,8 +102,8 @@ def mesh_rebuild_ec_files(
     progress=None,
 ) -> list[int]:
     """Regenerate missing `.ecNN` files with the decode sharded over the
-    mesh: the survivors' shard axis splits over ``dp`` (partial bit-plane
-    products summed over ``dp``), columns over ``sp``.
+    mesh: the survivors' shard axis splits over ``dp`` (packed partial
+    bit-plane products XORed over ``dp``), columns over ``sp``.
 
     The same file semantics as storage.ec.encoder.rebuild_ec_files and
     byte-identical output, but the GF work runs as one distributed decode

@@ -1,7 +1,7 @@
 """The multi-device dry run — the port of
 `__graft_entry__.py::dryrun_multichip`: one sharded step over an n-entry
 mesh (volumes over ``dp``, columns over ``sp``, and the distributed decode
-whose shard axis splits over ``dp`` with the int32 sum), then the file
+whose shard axis splits over ``dp``, its partials XORed), then the file
 flows on the same mesh (a 16-volume batch encode of uneven sizes and a
 4-data-shard rebuild), every result checked against the host `cpu`
 codec.

@@ -1,5 +1,5 @@
-"""Multi-device EC: sharded batch encode and the psum decode over a mesh
-of torch devices — the port of seaweedfs_tpu/parallel/mesh.py.
+"""Multi-device EC: sharded batch encode and the split-shard decode over a
+mesh of torch devices — the port of seaweedfs_tpu/parallel/mesh.py.
 
 * `batch_encode_sharded` / `batch_apply_sharded`: (V, S, B) inputs with V
   split over the mesh's ``dp`` axis and the columns B over ``sp``.  Parity
@@ -8,20 +8,21 @@ of torch devices — the port of seaweedfs_tpu/parallel/mesh.py.
   batched bit-sliced kernel; the counterpart of the reference's
   `jax.vmap(make_apply_xor(rows))` under a NamedSharding).
 * `distributed_reconstruct`: the decode with the SHARD axis S split over
-  ``dp`` and B over ``sp``.  GF addition is XOR, which an integer sum
-  cannot carry across devices, but in bit-planes XOR is addition mod 2:
-  each entry computes the int32 partial bit-matrix product of its S/dp
-  shards and B/sp columns (rs_bitplane: `bit_unpack`, `torch._int_mm`),
-  the partials of a column block are summed (the reference's `psum` over
-  ``dp``) onto the block's first device, and the parity of the sum is
-  packed (`bit_pack`).
+  ``dp`` and B over ``sp``.  In bit-planes GF addition is addition mod 2,
+  and the parity of a sum is the XOR of its terms' parities: each entry
+  computes the packed partial of its S/dp shards and B/sp columns, (R,
+  B/sp) bytes, in one launch of the bit-plane kernel
+  (rs_bitplane.gf_apply_bitplane), and the partials of a column block are
+  XORed onto the block's first device.  The reference sums int32 partials
+  there (its `psum` over ``dp``) and takes the parity after: the same
+  bytes, for R bytes a column handed over instead of 32R.
 
 One process drives every device of the mesh, as JAX's single controller
-does: the partitioning, the uploads and the cross-device sum are torch
+does: the partitioning, the uploads and the cross-device XOR are torch
 copies between the entries' devices, each entry's work on its own CUDA
 stream.  A mesh may name one device many times (a virtual mesh: the one
 card repeated, or the CPU for tests), which runs the same partitioning,
-padding and int32 sum on that device.
+padding and XOR combine on that device.
 """
 
 from __future__ import annotations
@@ -30,14 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import gf256
-from ..ops.rs_bitplane import (
-    _INT_MM_MIN_ROWS,
-    bit_matmul,
-    bit_matrix_tensor,
-    bit_pack,
-    bit_unpack,
-    padded_width,
-)
+from ..ops.rs_bitplane import gf_apply_bitplane
 from ..ops.rs_cuda import coefficients, gf_apply_batched
 from ..ops.rs_torch import resolve_device
 
@@ -241,18 +235,18 @@ def batch_encode_sharded(mesh: Mesh, volumes, data_shards: int = 10,
 
 
 # ---------------------------------------------------------------------------
-# Distributed decode: shard axis split over dp, the int32 psum, mod 2.
+# Distributed decode: shard axis split over dp, packed partials XORed.
 # ---------------------------------------------------------------------------
 
 
 def distributed_reconstruct(mesh: Mesh, matrix: np.ndarray, inputs
                             ) -> torch.Tensor:
     """Apply an (R, S) GF matrix to (S, B) inputs with S split over ``dp``
-    and B over ``sp``: each entry's int32 partial bit-matrix product, the
-    partials of a column block summed over ``dp`` on the block's first
-    device, then `& 1` and packed.  -> (R, B) uint8 on the mesh's first
-    device.  S must divide by dp (10 and 2 in practice); B that does not
-    divide by sp gives its last entries less."""
+    and B over ``sp``: each entry's packed partial, one gf_apply_bitplane
+    of its S/dp rows and B/sp columns on its own stream, the partials of a
+    column block XORed on the block's first device.  -> (R, B) uint8 on
+    the mesh's first device.  S must divide by dp (10 and 2 in practice);
+    B that does not divide by sp gives its last entries less."""
     m = coefficients(matrix)
     inputs = _as_tensor(inputs)
     r, s = m.shape
@@ -268,23 +262,19 @@ def distributed_reconstruct(mesh: Mesh, matrix: np.ndarray, inputs
     for sc, (b0, b1) in enumerate(_split(b, sp)):
         if b0 == b1:
             continue
-        width = padded_width(b1 - b0)
         total = None
         for d in range(dp):
             dev = mesh.devices[d][sc]
             with _OnEntry(mesh, d, sc):
                 x = inputs[d * sl:(d + 1) * sl, b0:b1]
-                bits = bit_unpack(x.to(dev, non_blocking=True), width)
-                a = bit_matrix_tensor(
-                    m[:, d * sl:(d + 1) * sl], dev,
-                    _INT_MM_MIN_ROWS if dev.type == "cuda" else 0)
-                partial = bit_matmul(a, bits)
+                partial = gf_apply_bitplane(m[:, d * sl:(d + 1) * sl],
+                                            x.to(dev, non_blocking=True))
                 if total is None:
                     total = partial
                     root = (d, sc)
                     continue
-            # the psum: this entry's partial joins the block's first one,
-            # on that entry's stream, after this entry's work
+            # the combine: this entry's partial joins the block's first
+            # one, on that entry's stream, after this entry's work
             with _OnEntry(mesh, *root):
                 stream = mesh.stream(d, sc)
                 if stream is not None:
@@ -292,10 +282,9 @@ def distributed_reconstruct(mesh: Mesh, matrix: np.ndarray, inputs
                         stream)
                     partial.record_stream(
                         torch.cuda.current_stream(total.device))
-                total += partial.to(total.device, non_blocking=True)
+                total ^= partial.to(total.device, non_blocking=True)
         with _OnEntry(mesh, *root):
-            packed = bit_pack(total[:8 * r], b1 - b0)
-            out[:, b0:b1].copy_(packed, non_blocking=True)
+            out[:, b0:b1].copy_(total, non_blocking=True)
     _join_entries(mesh, out)
     return out
 

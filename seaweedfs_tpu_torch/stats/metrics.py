@@ -518,7 +518,7 @@ CUDA_KERNEL_LAUNCHES = REGISTRY.counter(
     "seaweedfs_cuda_kernel_launches_total",
     "launches of the port's CUDA kernels, by kernel",
     # gf_matmul (gf_apply) | gf_matmul_batched | gf_xor (rs_xor) |
-    # bit_unpack | bit_pack (rs_bitplane)
+    # gf_bitplane_mma (rs_bitplane)
     labels=("kernel",),
 )
 

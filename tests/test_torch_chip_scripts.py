@@ -452,8 +452,8 @@ def test_mesh_phase_rehearsed_on_the_host(tmp_path, capsys, monkeypatch):
         return wrapper
     counted(rs_cuda, "gf_apply_batched", pmesh, codec_service)
     counted(rs_xor, "gf_apply_xor_batched")
-    counted(rs_bitplane, "bit_unpack", pmesh)
-    counted(rs_bitplane, "bit_pack", pmesh)
+    from seaweedfs_tpu_torch.ops import rs_torch
+    counted(rs_bitplane, "gf_apply_bitplane", pmesh, rs_torch)
     gen = torch.Generator().manual_seed(0)
     out = chip_smoke.phase_mesh(
         rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, enc, codec_service,
@@ -466,17 +466,23 @@ def test_mesh_phase_rehearsed_on_the_host(tmp_path, capsys, monkeypatch):
         row = json.loads(line)
         rows[row["phase"]] = row
     assert rows["mesh_kernels_vs_plain"]["byte_equal"]
-    assert rows["mesh_kernels_vs_plain"]["cases"] == 3 * (2 + 4 + 21 * 3)
+    shapes = chip_smoke.BITPLANE_SHAPES
+    assert rows["mesh_kernels_vs_plain"]["cases"] == 3 * 21 * 3 + int(
+        np.prod([len(x) for x in shapes]))
     for label, shape in (("config4", {"dp": 1, "sp": 1}),
                          ("virtual2x4", {"dp": 2, "sp": 4})):
         enc_row = rows[f"mesh_{label}_batch_encode"]
         assert enc_row["mesh"] == shape and enc_row["sha256_equal"] > 0
         assert enc_row["launches"]["gf_matmul_batched"] >= 1
         reb = rows[f"mesh_{label}_mesh_rebuild"]
-        assert reb["sha256_equal"] == 4 and reb["launches"]["bit_pack"] >= 1
+        # one launch per slice and mesh entry (the 1 MiB-3 MiB volumes
+        # have one slice)
+        assert reb["sha256_equal"] == 4
+        assert reb["launches"]["gf_bitplane_mma"] == \
+            shape["dp"] * shape["sp"]
     assert rows["mesh_config4_cuda_xor_encode"]["launches"]["gf_xor"] >= 1
     assert rows["mesh_config4_cuda_bitplane_rebuild"]["launches"][
-        "bit_unpack"] >= 1
+        "gf_bitplane_mma"] == 1
     assert rows["mesh_dryrun"]["mesh"] == {"dp": 2, "sp": 4}
     assert rows["mesh_card_service"]["parity"]["launches"] == \
         rows["mesh_card_service"]["parity"]["batches"] == 1

@@ -243,9 +243,14 @@ def test_lifecycle_flags_are_live(tmp_path):
             cwd=str(tmp_path), env=_env(), stdout=log,
             stderr=subprocess.STDOUT)
         try:
-            doc = _wait(lambda: _get_json(
-                f"http://127.0.0.1:{port}/cluster/lifecycle"),
-                "/cluster/lifecycle", [p])
+            # the master serves HTTP before it starts its lifecycle thread
+            # (as the reference's does), so wait for a document that shows
+            # the loop running, not for the first answer
+            def lifecycle():
+                doc = _get_json(
+                    f"http://127.0.0.1:{port}/cluster/lifecycle")
+                return doc if doc["enabled"] and doc["running"] else None
+            doc = _wait(lifecycle, "/cluster/lifecycle running", [p])
             assert doc["enabled"] and doc["running"]
             assert (doc["intervalSeconds"], doc["rateMBps"]) == (7.0, 8.0)
             assert doc["journalPath"] == str(

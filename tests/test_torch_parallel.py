@@ -3,10 +3,10 @@ the JAX package's on its virtual 8-device CPU mesh.
 
 Mirrors tests/test_parallel.py:16-60 and :110-215.  The port runs on
 virtual meshes of CPU entries of the shapes (1, 1), (2, 4), (5, 1) and
-(10, 1): the partitioning, the padding and the int32 sum over ``dp`` run
-as on a card, through the kernels' plain versions.  The reference runs on
-its own 8-device mesh.  GF arithmetic is exact, so every comparison is
-byte equality.
+(10, 1): the partitioning, the padding and the XOR of the packed
+partials over ``dp`` run as on a card, through the kernels' plain
+versions.  The reference runs on its own 8-device mesh.  GF arithmetic is
+exact, so every comparison is byte equality: the tolerance is zero.
 """
 
 import os
@@ -115,8 +115,8 @@ def test_distributed_reconstruct_psum_matches_reference(shape, ref_mesh):
     assert np.array_equal(got.numpy(), want)
     for i in range(10):
         assert np.array_equal(got[i].numpy(), full[i]), i
-    # a one-row plan (8 planes: padded for _int_mm on a card) and a width
-    # that neither sp nor 8 divides
+    # a one-row plan (padded to 4 rows in the kernel's operand on a card)
+    # and a width that neither sp nor 8 divides
     row = jgf.decode_plan_for(jgf.rs_matrix(10, 14), 10, present, (2,))
     x = rng.integers(0, 256, (10, 77)).astype(np.uint8)
     got = tmesh.distributed_reconstruct(mesh, row, x)

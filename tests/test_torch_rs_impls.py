@@ -1,14 +1,17 @@
 """The port's two other GF(2^8) codecs held against the JAX package, on the
 CPU: `impl="xor"` (the XOR network of the doubling chain,
 csrc/gf_xor.cu) against ReedSolomonTPU(impl="xor"), and
-`impl="bitplane"` (bit-planes through an int8 product,
-csrc/gf_bitplane.cu) against ReedSolomonTPU(impl="mxu").
+`impl="bitplane"` (bit-planes through an int8 product on the tensor
+cores, csrc/gf_bitplane.cu) against ReedSolomonTPU(impl="mxu").
 
 Inputs come from numpy with a fixed seed.  On the CPU each wrapper runs
 its plain PyTorch version; the CUDA sources are also compiled with the
 host C++ compiler, their CUDA keywords defined away, and run thread by
-thread against those plain versions.  GF arithmetic is exact, so every
-comparison is byte equality.
+thread (the bit-plane kernel's product for a warpgroup at once, with a
+plain emulation of wgmma's operand layouts) against those plain
+versions.
+GF arithmetic is exact, so every comparison is byte equality: the
+tolerance is zero.
 """
 
 import ctypes
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from seaweedfs_tpu.ops import gf256 as jgf
-from seaweedfs_tpu.ops.rs_jax import ReedSolomonTPU, _multiples
+from seaweedfs_tpu.ops.rs_jax import ReedSolomonTPU, _multiples, make_apply_mxu
 from seaweedfs_tpu.parallel import mesh as jmesh
 from seaweedfs_tpu_torch.ops import _build, rs_bitplane, rs_cuda, rs_xor
 from seaweedfs_tpu_torch.ops.codec import (
@@ -107,34 +110,72 @@ def test_xor_plain_version_is_the_reference_network(b):
 
 @pytest.mark.parametrize("b", [1, 7, 16, 33, 4099])
 def test_bitplane_unpack_and_pack_match_the_mesh_reference(b):
+    """The plain version's pieces against parallel/mesh.py's."""
     rng = np.random.default_rng(b + 1)
     data = rng.integers(0, 256, (10, b), dtype=np.uint8)
     want = np.asarray(jmesh._bit_unpack(jnp.asarray(data)))
-    got = rs_bitplane.bit_unpack(torch.from_numpy(data))
+    got = rs_bitplane.bit_unpack_reference(torch.from_numpy(data))
     assert got.dtype == torch.int8 and np.array_equal(got.numpy(), want)
-    # padded to a multiple of 8: the extra columns are zero
-    wide = rs_bitplane.bit_unpack(torch.from_numpy(data),
-                                  rs_bitplane.padded_width(b))
-    assert np.array_equal(wide[:, :b].numpy(), want)
-    assert not wide[:, b:].any()
     planes = rng.integers(0, 2, (32, b)).astype(np.int32)
     want = np.asarray(jmesh._bit_pack(jnp.asarray(planes)))
-    got = rs_bitplane.bit_pack(torch.from_numpy(planes))
+    got = rs_bitplane.bit_pack_reference(torch.from_numpy(planes))
     assert got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
     # sums, not just bits: the pack takes their parity
     sums = planes + 2 * rng.integers(0, 40, planes.shape).astype(np.int32)
-    assert np.array_equal(rs_bitplane.bit_pack(torch.from_numpy(sums))
-                          .numpy(), want)
+    assert np.array_equal(rs_bitplane.bit_pack_reference(
+        torch.from_numpy(sums)).numpy(), want)
+
+
+_PRESENT = [1, 3, 4, 5, 6, 7, 8, 9, 10, 12]
+MXU_PLANS = {
+    "parity": jgf.rs_parity_matrix(10, 4),
+    "decode1": jgf.decode_plan_for(jgf.rs_matrix(10, 14), 10, _PRESENT,
+                                   (2,)),
+    "decode2": jgf.decode_plan_for(jgf.rs_matrix(10, 14), 10, _PRESENT,
+                                   (0, 13)),
+    "decode4": jgf.decode_plan_for(jgf.rs_matrix(10, 14), 10, _PRESENT,
+                                   (0, 2, 11, 13)),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(MXU_PLANS))
+def test_bitplane_apply_matches_make_apply_mxu(plan):
+    """gf_apply_bitplane on the CPU against rs_jax.make_apply_mxu's XLA
+    program, byte for byte, on the parity plan and 1-, 2- and 4-row
+    decode plans."""
+    m = MXU_PLANS[plan]
+    apply = make_apply_mxu(tuple(tuple(int(c) for c in row) for row in m))
+    for b in (1, 63, 65, 4099):
+        data = np.random.default_rng(b).integers(0, 256, (10, b),
+                                                 dtype=np.uint8)
+        want = np.asarray(apply(jnp.asarray(data)))
+        got = rs_bitplane.gf_apply_bitplane(m, torch.from_numpy(data))
+        assert got.dtype == torch.uint8 and np.array_equal(got.numpy(),
+                                                           want), b
 
 
 @pytest.mark.parametrize("rows", [1, 2, 4, 16])
 def test_bitplane_route_pads_small_plans(rows):
-    """A plan of 1-2 rows is padded to 24 planes for torch._int_mm; the
-    padded rows never reach the output."""
+    """The kernel's operand rounds a plan's rows up to a multiple of 4 with
+    zero columns, which never reach the output: the route gives the
+    reference's bytes for plans of every size."""
     m = np.random.default_rng(rows).integers(0, 256, (rows, 10),
                                              dtype=np.uint8)
-    a = rs_bitplane.bit_matrix_tensor(m, "cpu", 24)
-    assert a.shape == (max(8 * rows, 24), 80) and not a[8 * rows:].any()
+    ngroups = -(-rows // 4)
+    # 3 source groups (10 rows, the last two zero) x the output groups
+    tiles = rs_bitplane.operand_tiles(m).reshape(3, ngroups, 1024)
+    # operand column N of output group r4 is output row 4 r4 + (N % 8) // 2,
+    # its 32 bytes at (N // 8) * 256 + (N % 8) * 16 + (K // 16) * 128 + K % 16
+    for r4 in range(ngroups):
+        for n in range(32):
+            col = [(n // 8) * 256 + (n % 8) * 16 + (k // 16) * 128 + k % 16
+                   for k in range(32)]
+            if 4 * r4 + (n % 8) // 2 >= rows:
+                assert not tiles[:, r4, col].any(), (r4, n)
+    # source rows 10 and 11 (K 4u + 2, 4u + 3 of the third group) are zero
+    assert not tiles[2][:, [(n // 8) * 256 + (n % 8) * 16 + (k // 16) * 128
+                            + k % 16 for n in range(32) for k in range(32)
+                            if k % 4 >= 2]].any()
     data = torch.from_numpy(np.random.default_rng(9).integers(
         0, 256, (10, 77), dtype=np.uint8))
     assert torch.equal(rs_bitplane.gf_apply_bitplane(m, data),
@@ -214,34 +255,42 @@ extern "C" int run(const u8* in, i64 is, i64 ib, u8* out, i64 os, i64 ob,
 
 _BITPLANE_HARNESS = _PRELUDE + r"""
 #include "gf_bitplane.cu"
-// each block's two steps, every thread of the first before the second:
-// the barrier between them
-extern "C" int unpack(const u8* in, i64 is, i8* out, i64 S, i64 B, i64 W) {
-  static u8 tile[UNPACK_MAX_S][UNPACK_PITCH];
-  const int words = unpack_words(in, is);
-  for (i64 c0 = 0; c0 < W; c0 += UNPACK_TILE) {
-    memset(tile, 0xA5, sizeof tile);
-    for (int t = 0; t < BP_THREADS; ++t)
-      unpack_load(tile, in, is, S, B, c0, words, t);
-    for (int t = 0; t < BP_THREADS; ++t)
-      unpack_store(tile, out, S, W, c0, t);
+// the kernel's loop for each block, step by step: each thread's part of a
+// step before any thread's part of the next (the barriers), the product
+// for the warpgroup's 128 threads at once (NL = 128)
+extern "C" int run(const u8* in, i64 is, u8* out, i64 os, int S, int R,
+                   i64 B, const u32* tiles_b, unsigned grid) {
+  static u8 smem[16 * 1024 + BPM_STAGES * BPM_MAX * BPM_TILE +
+                 BPM_MAX * BPM_TILE + BPM_MAX * BPM_OUT_PITCH];
+  const Smem m = carve(smem, S, R);
+  const int in_mode = access_mode(in, is), out_mode = access_mode(out, os);
+  const i64 tiles = (B + BPM_TILE - 1) / BPM_TILE;
+  for (unsigned blk = 0; blk < grid; ++blk) {
+    memset(smem, 0xA5, sizeof smem);
+    memcpy(m.bop, tiles_b, (S + 3) / 4 * ((R + 3) / 4) * BPM_B_TILE);
+    for (int k = 0; k < BPM_STAGES - 1; ++k) {
+      const i64 tile = blk + (i64)k * grid;
+      if (tile < tiles)
+        for (int t = 0; t < BPM_THREADS; ++t)
+          fetch(m.ring + k * S * BPM_TILE, in, is, S, B, tile * BPM_TILE,
+                in_mode, t);
+    }
+    int slot = 0;
+    for (i64 tile = blk; tile < tiles; tile += grid) {
+      const i64 ahead = tile + (i64)(BPM_STAGES - 1) * grid;
+      if (ahead < tiles)
+        for (int t = 0; t < BPM_THREADS; ++t)
+          fetch(m.ring + (slot + BPM_STAGES - 1) % BPM_STAGES * S * BPM_TILE,
+                in, is, S, B, ahead * BPM_TILE, in_mode, t);
+      for (int t = 0; t < BPM_THREADS; ++t)
+        transpose(m.ring + slot * S * BPM_TILE, m.grp, S, t);
+      product(m.grp, m.bop, m.outs, S, R, 0);
+      for (int t = 0; t < BPM_THREADS; ++t)
+        store_out(m.outs, out, os, R, B, tile * BPM_TILE, out_mode, t);
+      slot = (slot + 1) % BPM_STAGES;
+    }
   }
-  return words;
-}
-extern "C" int pack(const int* in, i64 is, u8* out, i64 os, i64 R, i64 B,
-                    unsigned gy) {
-  int in_vec, out_word;
-  pack_modes(in, is, out, os, &in_vec, &out_word);
-  const i64 per = (i64)BP_THREADS * PACK_CHUNK;
-  gridDim = {(unsigned)((B + per - 1) / per), gy, 1};
-  for (unsigned y = 0; y < gy; ++y)
-    for (unsigned x = 0; x < gridDim.x; ++x)
-      for (unsigned t = 0; t < BP_THREADS; ++t) {
-        blockIdx = {x, y, 0};
-        threadIdx = {t, 0, 0};
-        bit_pack_kernel(in, is, out, os, R, B, in_vec, out_word);
-      }
-  return 2 * in_vec + out_word;
+  return 4 * in_mode + out_mode;
 }
 """
 
@@ -252,7 +301,8 @@ def _host_lib(tmp_path, harness: str) -> ctypes.CDLL:
         pytest.skip("no host C++ compiler")
     (tmp_path / "harness.cpp").write_text(harness)
     so = tmp_path / "kernel_host.so"
-    subprocess.run([gxx, "-O1", "-shared", "-fPIC", "-w", "-I",
+    subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-w",
+                    "-fno-strict-aliasing", "-I",
                     _build.CSRC_DIR, "-o", str(so),
                     str(tmp_path / "harness.cpp")], check=True)
     return ctypes.CDLL(str(so))
@@ -310,39 +360,36 @@ def test_xor_kernel_on_the_host_compiler(tmp_path):
     assert np.array_equal(out, want.numpy())
 
 
-def test_bitplane_kernels_on_the_host_compiler(tmp_path):
+@pytest.mark.parametrize("s", [1, 2, 5, 10, 14, 16])
+def test_bitplane_mma_kernel_on_the_host_compiler(tmp_path, s):
+    """gf_bitplane_mma on the host compiler against the plain version for
+    plans of S sources and R in {1, 2, 3, 4, 10, 14} rows, widths about
+    the 16-byte copies and the 256-column tile, rows 16-byte aligned, 4
+    bytes past and 1 byte past (each access path), 2 blocks looping over
+    the tiles through the copy ring: the planes, the operand tiles'
+    layout, the padding, the merge of each byte, the masks and the
+    stores."""
     lib = _host_lib(tmp_path, _BITPLANE_HARNESS)
-    ll, p, u = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_uint
-    lib.unpack.argtypes = [p, ll, p, ll, ll, ll]
-    lib.pack.argtypes = [p, ll, p, ll, ll, ll, u]
-    rng = np.random.default_rng(4)
-    for s in (1, 2, 10, 16):
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    lib.run.argtypes = [p, ll, p, ll, ctypes.c_int, ctypes.c_int, ll, p,
+                        ctypes.c_uint]
+    rng = np.random.default_rng(s)
+    for r in (1, 2, 3, 4, 10, 14):
+        m = rng.integers(0, 256, (r, s), dtype=np.uint8)
+        tiles = rs_bitplane.operand_tiles(m).view(np.uint32).copy()
         for b in (1, 7, 16, 33, 1024, 4099):
-            w = rs_bitplane.padded_width(b)
-            for offset in (0, 4, 1):
+            for offset, mode in ((0, 2), (4, 1), (1, 0)):
                 data = _aligned(rng, (s, b), offset)
-                # the planes column by column: a (W, 8S) array
-                out = np.full((w, 8 * s), 77, np.int8)
-                words = lib.unpack(data.ctypes.data,
-                                   data.strides[0] if s > 1 else b,
-                                   out.ctypes.data, s, b, w)
-                want = rs_bitplane.bit_unpack_reference(
-                    torch.from_numpy(np.ascontiguousarray(data)), w)
-                assert np.array_equal(out.T, want.numpy()), (s, b, offset)
-                if offset == 1:
-                    assert words == 0
-    for r in (1, 3, 4):
-        for b in (1, 7, 16, 33, 4099):
-            stride = rs_bitplane.padded_width(b) + 8
-            sums = rng.integers(0, 200, (8 * r, stride)).astype(np.int32)
-            for offset in (0, 1):
-                out = np.full((r, b + offset), 0x5A, np.uint8)
-                dst = out[:, offset:]
-                lib.pack(sums.ctypes.data, stride,
-                         dst.ctypes.data, b + offset, r, b, 2)
-                want = rs_bitplane.bit_pack_reference(
-                    torch.from_numpy(sums), b)
-                assert np.array_equal(dst, want.numpy()), (r, b, offset)
+                out = _aligned(rng, (r, b), offset)
+                got_modes = lib.run(
+                    data.ctypes.data, data.strides[0] if s > 1 else b,
+                    out.ctypes.data, out.strides[0] if r > 1 else b, s, r,
+                    b, tiles.ctypes.data, 2)
+                want = rs_bitplane.gf_apply_bitplane_reference(
+                    m, torch.from_numpy(np.ascontiguousarray(data)))
+                assert np.array_equal(out, want.numpy()), (r, b, offset)
+                if b == 16:
+                    assert got_modes == 4 * mode + mode, (r, offset)
 
 
 def test_gf_xor_source_is_built_by_name():

@@ -30,7 +30,7 @@ runs), and many volumes at once through the codec service, which stacks
 their slices into one batched launch (`gf_apply_batched`, named
 `gf_matmul_batched`, also the port of bench.py:104's sweep kernel).  The
 mesh phase adds the JAX package's other two device programs, the XOR
-network of the doubling chain (`gf_xor`, csrc/gf_xor.cu) and the
+network of doubling chains (`gf_xor`, csrc/gf_xor.cu) and the
 bit-plane route as one kernel on the int8 tensor cores
 (`gf_bitplane_mma`, csrc/gf_bitplane.cu), and parallel/ over a mesh of
 the card.
@@ -212,13 +212,16 @@ Phases, each printing one JSON line:
      programs.  (a) gf_xor (csrc/gf_xor.cu, one entry and batched) and
      gf_bitplane_mma (csrc/gf_bitplane.cu) against their plain versions
      for the parity matrix and 20 seeded decode plans of 1-4 lost shards
-     at 1, 7, 4099 and 16 MiB per shard, and gf_bitplane_mma for seeded
-     (R, S) matrices of R in {1, 2, 3, 4, 10, 14}, S in {1, 2, 5, 10, 14,
-     16} at widths 1-4099 on rows 16-byte aligned, 4 and 1 bytes past;
+     at 1, 7, 4099 and 16 MiB per shard, and both for seeded (R, S)
+     matrices of R in {1, 2, 3, 4, 10, 14}, S in {1, 2, 5, 10, 14, 16}
+     at widths 1-4099 on rows 16-byte aligned, 4 and 1 bytes past (gf_xor
+     on both of its kernels), with no compile per matrix;
      (b) each timed at 16 MiB per shard, one launch and back to back,
-     beside its bound and its plain version (gf_bitplane_mma also on the
-     mesh rebuild's (4, 10) plan and the (4, 5) partial of a dp = 2
-     mesh), with torch._int_mm of the same bit-plane product alone as a
+     beside its bound and its plain version (gf_xor and gf_bitplane_mma
+     also on the mesh rebuild's (4, 10) plan, gf_bitplane_mma on the
+     (4, 5) partial of a dp = 2
+     mesh; gf_xor's two kernels on 20 seeded (R, S) shapes, the times
+     behind its choice of side), with torch._int_mm of the same bit-plane product alone as a
      yardstick and gf_bitslice on the same data; (c) BASELINE config 4 on the
      1x1 mesh of the card: 64 seeded volumes of 32-96 MiB (~4 GiB), each
      encoded alone on `cuda`, then batch_generate_ec_files over all 64
@@ -379,8 +382,15 @@ def ptxas_report(_build, name: str) -> list[str]:
              os.path.join(tmp, "lib.so"),
              os.path.join(_build.CSRC_DIR, name + ".cu")],
             capture_output=True, text=True, check=True)
-    return [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-            if "Used" in line or "spill" in line]
+    out, entry = [], ""
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Compiling entry function" in line \
+                or "Function properties for" in line:
+            entry = (line.split("'")[1] if "'" in line
+                     else line.rsplit(" ", 1)[-1])
+        elif "Used" in line or "spill" in line:
+            out.append(f"{entry}: {line.strip()}" if entry else line.strip())
+    return out
 
 
 def compile_seconds(_build) -> dict:
@@ -1505,17 +1515,25 @@ VS_RPC_TIMEOUT = 1800.0
 
 
 def free_port_pair() -> int:
-    """A port p whose gRPC sibling p + 10000 (the servers' convention) was
-    free a moment ago; the servers bind only the sibling."""
+    """A port p that was free a moment ago with its gRPC sibling p + 10000
+    (the servers' convention): both are bound to check, since p itself
+    may lie in the range the kernel hands to outgoing connections."""
     import socket
 
     for _ in range(64):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             grpc_port = s.getsockname()[1]
-        if grpc_port > 10000 + 1024:
-            return grpc_port - 10000
-    raise RuntimeError("no free port above 11024")
+        if grpc_port <= 10000 + 1024:
+            continue
+        try:
+            with socket.socket() as s, socket.socket() as sibling:
+                s.bind(("127.0.0.1", grpc_port - 10000))
+                sibling.bind(("127.0.0.1", grpc_port))
+        except OSError:
+            continue
+        return grpc_port - 10000
+    raise RuntimeError("no free port pair above 11024")
 
 
 class MiniMaster:
@@ -3006,9 +3024,13 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
                         checked, "shard_bytes": shard_size,
                         "counts": counts})
 
-        # 3. healthy GETs through the master's lookup
+        # 3. healthy GETs through the master's lookup, once it lists all
+        # three holders: a pass through A alone (the master missed B's
+        # and C's pulses) would leave every needle in A's needle cache,
+        # and A would decode nothing after C dies
         before = scrape_all()
-        healthy = _cluster_get_pass("healthy", cl, 1, keys, records)
+        healthy = _cluster_get_pass("healthy", cl, 1, keys, records,
+                                    holders={a_url, b_url, c_url})
         step("healthy_gets", {**healthy, "counts": counted(
             "healthy_gets", before, scrape_all())})
 
@@ -4014,18 +4036,24 @@ BITPLANE_SHAPES = ((1, 2, 3, 4, 10, 14), (1, 2, 5, 10, 14, 16),
                    (0, 4, 1))  # R, S, B, offset
 
 
-def mesh_kernels_vs_plain(rs_xor, rs_bitplane, plans, gen,
+def mesh_kernels_vs_plain(rs_cuda, rs_xor, rs_bitplane, plans, gen,
                           widths=MESH_WIDTHS) -> dict:
     """gf_xor (one entry and batched) and gf_bitplane_mma against their
     plain versions on the card, for every matrix of `plans` at every width
     of `widths` (batched entries are 1-byte-offset views: unaligned rows
-    and entry strides), and gf_bitplane_mma for a seeded matrix of each
+    and entry strides), and both kernels for a seeded matrix of each
     (R, S) of BITPLANE_SHAPES at each width, on rows 16-byte aligned and
-    4 and 1 bytes past (each of its access paths, input and output).  ->
-    the largest error of each (0, or the run has already failed)."""
+    4 and 1 bytes past (each of their access paths; gf_xor on the side
+    rs_xor.horner_side picks, one entry and a batch of 2, and one entry
+    on the other side, so both of its kernels run at every shape).
+    gf_xor compiles
+    nothing per matrix: the kernel cache's compile count
+    (rs_cuda.cache_stats) must not move.  -> the largest error of each
+    (0, or the run has already failed)."""
     t0 = time.perf_counter()
     worst = {"gf_xor": 0, "gf_bitplane_mma": 0}
     cases = 0
+    compiles = rs_cuda.cache_stats()["compiles"]
 
     def check(name, got, want, what):
         nonlocal cases
@@ -4060,18 +4088,35 @@ def mesh_kernels_vs_plain(rs_xor, rs_bitplane, plans, gen,
             m = rng.integers(0, 256, (r, s), dtype=np.uint8)
             for b in shape_widths:
                 for off in offsets:
-                    # rows of stride b + 16 + off starting `off` bytes past
-                    # a 16-byte boundary: the kernel's output rows are its
-                    # own, so the input carries the unaligned paths
-                    view = random_u8((s, b + 16 + off), gen)[:, off:off + b]
+                    # 2 entries of rows of stride b + 16 + off starting
+                    # `off` bytes past a 16-byte boundary: the kernels'
+                    # output rows are their own, so the input carries the
+                    # unaligned paths
+                    views = random_u8((2, s, b + 16 + off),
+                                      gen)[:, :, off:off + b]
+                    what = f"R={r} S={s} B={b} offset {off}"
                     check("gf_bitplane_mma",
-                          rs_bitplane.gf_apply_bitplane(m, view),
-                          rs_bitplane.gf_apply_bitplane_reference(m, view),
-                          f"R={r} S={s} B={b} offset {off}")
+                          rs_bitplane.gf_apply_bitplane(m, views[0]),
+                          rs_bitplane.gf_apply_bitplane_reference(
+                              m, views[0]), what)
+                    want = torch.stack([rs_xor.gf_apply_xor_reference(m, x)
+                                        for x in views])
+                    check("gf_xor", rs_xor.gf_apply_xor(m, views[0]),
+                          want[0], what)
+                    check("gf_xor", rs_xor.gf_apply_xor_batched(m, views),
+                          want, f"{what} V=2")
+                    other = not rs_xor.horner_side(r, s)
+                    check("gf_xor", rs_xor.gf_apply_xor(m, views[0], other),
+                          want[0], f"{what} horner={other}")
+    if rs_cuda.cache_stats()["compiles"] != compiles:
+        raise AssertionError("the xor and bit-plane kernels compiled per "
+                             "matrix: rs_cuda.cache_stats() compiles "
+                             f"{compiles} -> "
+                             f"{rs_cuda.cache_stats()['compiles']}")
     row = {"phase": "mesh_kernels_vs_plain", "matrices": len(plans),
            "widths": list(widths), "bitplane_shapes": BITPLANE_SHAPES,
            "cases": cases, "byte_equal": True, "max_abs_err": worst,
-           "wall_s": time.perf_counter() - t0}
+           "compiles": compiles, "wall_s": time.perf_counter() - t0}
     emit(row)
     return row
 
@@ -4089,11 +4134,48 @@ def _bound_row(t_bytes_ms: float, t_ops_ms: float) -> dict:
             "bytes_ms": t_bytes_ms, "ops_ms": t_ops_ms}
 
 
+XOR_SIDE_SHAPES = ((1, 4, 10, 16), (1, 2, 4, 10, 16))  # R, S
+
+
+def xor_sides(rs_xor, gen, b: int) -> list:
+    """gf_xor's two kernels back to back on a seeded (R, S) matrix of each
+    shape of XOR_SIDE_SHAPES at `b` bytes per shard: the chains on the
+    outputs (`horner_ms`) and on the sources (`sources_ms`), each beside
+    the operations rs_xor.xor_ops counts for it, and whether the side
+    rs_xor.horner_side picks was the faster in this run."""
+    rng = np.random.default_rng(7)
+    rows_r, rows_s = XOR_SIDE_SHAPES
+    data = random_u8((max(rows_s), b), gen)
+    out = []
+    for r in rows_r:
+        for s in rows_s:
+            m = rng.integers(1, 256, (r, s), dtype=np.uint8)
+            x = data[:s]
+            row = {"shape": [r, s],
+                   "bytes_ms": (r + s) * b / HBM_BYTES_PER_S * 1e3}
+            for side, horner in (("horner", True), ("sources", False)):
+                row[f"{side}_ms"] = time_back_to_back_ms(
+                    lambda: rs_xor.gf_apply_xor(m, x, horner))
+                row[f"{side}_ops"] = rs_xor.xor_ops(m, b, horner=horner)
+            picked = rs_xor.horner_side(r, s)
+            row["picked"] = "horner" if picked else "sources"
+            row["picked_faster"] = (row["horner_ms"] <= row["sources_ms"]
+                                    ) == picked
+            out.append(row)
+    del data
+    return out
+
+
 def mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, gen,
                        power: str) -> dict:
     """RS(10,4) parity at 16 MiB per shard through each kernel: one launch
     (`ms`) and back to back, beside its bound and its plain version's
-    time.  gf_bitplane_mma also on the mesh rebuild's plans at 16 MiB: the
+    time.  gf_xor also on the (4, 10) decode of .ec00-.ec03 at 16 MiB,
+    with the operations it issues for each (rs_xor.xor_ops, the chains on
+    the outputs for both), and both of its kernels back to back on seeded
+    matrices of XOR_SIDE_SHAPES (`gf_xor_sides`: the times behind
+    rs_xor.horner_side's choice).  gf_bitplane_mma also on the mesh
+    rebuild's plans at 16 MiB: the
     (4, 10) decode of .ec00-.ec03 and its first 5 sources, the partial of
     a dp = 2 mesh; beside it torch._int_mm of the parity's bit-plane
     product alone (int32 sums of the (8R, 8S) bit matrix, at least 24
@@ -4111,17 +4193,21 @@ def mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, gen,
 
     # gf_xor and gf_bitslice compute one function, so they share its bound:
     # each input and output byte once, and the fewest operations known to
-    # compute it (the bit-sliced network's).  The doubling chain's own
-    # count (rs_xor.xor_ops, coefficient tests included) is what the xor
-    # kernel chose to issue, not a bound: it is reported beside it.
-    bd = bound(gf_network, m, b)
-    t = _timed(lambda: rs_xor.gf_apply_xor(m, data),
-               lambda: rs_xor.gf_apply_xor_reference(m, data))
-    ops = rs_xor.xor_ops(m, b)
-    rows["gf_xor"] = {**t, **_bound_row(bd["bytes_ms"], bd["alu_ms"]),
-                      "kernel_ops": ops,
-                      "kernel_ops_ms": ops / INT32_OPS_PER_S * 1e3}
+    # compute it (the bit-sliced network's).  The xor kernel's own count
+    # (rs_xor.xor_ops: the doublings, the combination tables and the XORs
+    # of their reads) is what it chose to issue, not a bound: it is
+    # reported beside it.  The (4, 10) decode of .ec00-.ec03 beside the
+    # parity: the same shape, another matrix.
     plan = rebuild_plan(gf256)
+    for name, xm in (("gf_xor", m), ("gf_xor_decode", plan)):
+        bd = bound(gf_network, xm, b)
+        ops = rs_xor.xor_ops(xm, b)
+        rows[name] = {**_timed(
+            lambda: rs_xor.gf_apply_xor(xm, data),
+            lambda: rs_xor.gf_apply_xor_reference(xm, data)),
+            **_bound_row(bd["bytes_ms"], bd["alu_ms"]),
+            "shape": list(xm.shape), "kernel_ops": ops,
+            "kernel_ops_ms": ops / INT32_OPS_PER_S * 1e3}
     for name, pm in (("gf_bitplane_mma", m), ("gf_bitplane_mma_decode",
                                               plan),
                      ("gf_bitplane_mma_partial",
@@ -4158,7 +4244,8 @@ def mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, gen,
         row["GBps"] = (row.get("function_bytes", (s + r) * b)
                        / row["back_to_back_ms"] / 1e6)
     out = {"phase": "mesh_kernel_timing", "matrix": "parity",
-           "bytes_per_shard": b, "kernels": rows, "card": power}
+           "bytes_per_shard": b, "kernels": rows,
+           "gf_xor_sides": xor_sides(rs_xor, gen, b), "card": power}
     emit(out)
     del data
     torch.cuda.empty_cache()
@@ -4350,7 +4437,7 @@ def phase_mesh(rs_cuda, rs_xor, rs_bitplane, gf256, gf_network, enc,
     def step(name: str) -> None:
         steps_s[name] = time.perf_counter() - t_phase - sum(steps_s.values())
     on_card = gen.device.type == "cuda"
-    checked = mesh_kernels_vs_plain(rs_xor, rs_bitplane,
+    checked = mesh_kernels_vs_plain(rs_cuda, rs_xor, rs_bitplane,
                                     mesh_plans(gf256, seed), gen, widths)
     step("kernels_vs_plain")
     timing = (mesh_kernel_timing(rs_cuda, rs_xor, rs_bitplane, gf256,
@@ -4471,13 +4558,15 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc per source, all started together: the GF kernels' host
     # library and the two kernel libraries of the mesh phase, and the
-    # bit-plane kernel's ptxas report
-    with ThreadPoolExecutor(4) as pool:
+    # bit-plane and xor kernels' ptxas reports (registers, spills)
+    with ThreadPoolExecutor(5) as pool:
         ptxas_bitplane = pool.submit(ptxas_report, _build, "gf_bitplane")
+        ptxas_xor = pool.submit(ptxas_report, _build, "gf_xor")
         nvcc_s = dict(zip(("gf_launch", "gf_xor", "gf_bitplane"), pool.map(
             _timed_build, [_build] * 3, ("gf_launch", "gf_xor",
                                          "gf_bitplane"))))
         ptxas_bitplane = ptxas_bitplane.result()
+        ptxas_xor = ptxas_xor.result()
     rs_cuda._lib()
     rs_xor.build_kernel()
     rs_bitplane.build_kernel()
@@ -4496,7 +4585,7 @@ def main() -> int:
                     for line in log.splitlines() if "Used" in line
                     or "spill" in line],
           "cache": rs_cuda.cache_stats(),
-          "ptxas_gf_bitplane": ptxas_bitplane})
+          "ptxas_gf_bitplane": ptxas_bitplane, "ptxas_gf_xor": ptxas_xor})
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     err = phase_correctness(rs_cuda, gf256, _build, gen)
@@ -4721,7 +4810,9 @@ def main() -> int:
         mesh_kernel("gf_xor", "seaweedfs_tpu_torch/ops/csrc/gf_xor.cu",
                     "seaweedfs_tpu/ops/rs_jax.py:70", mesh_launches("gf_xor"),
                     mesh_err["gf_xor"], mesh_times["gf_xor"],
-                    kernel_ops_ms=mesh_times["gf_xor"]["kernel_ops_ms"]),
+                    decode_plan={f: mesh_times["gf_xor_decode"][f] for f in (
+                        "shape", "ms", "back_to_back_ms", "plain_ms",
+                        "bound_ms", "bound_by")}),
         mesh_kernel("gf_bitplane_mma",
                     "seaweedfs_tpu_torch/ops/csrc/gf_bitplane.cu",
                     "seaweedfs_tpu/ops/rs_jax.py:81, "

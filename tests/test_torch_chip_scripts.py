@@ -467,7 +467,10 @@ def test_mesh_phase_rehearsed_on_the_host(tmp_path, capsys, monkeypatch):
         rows[row["phase"]] = row
     assert rows["mesh_kernels_vs_plain"]["byte_equal"]
     shapes = chip_smoke.BITPLANE_SHAPES
-    assert rows["mesh_kernels_vs_plain"]["cases"] == 3 * 21 * 3 + int(
+    # the plans: gf_xor one entry and batched, gf_bitplane_mma; the
+    # seeded (R, S) sweep: the same three checks and gf_xor on its other
+    # side
+    assert rows["mesh_kernels_vs_plain"]["cases"] == 3 * 21 * 3 + 4 * int(
         np.prod([len(x) for x in shapes]))
     for label, shape in (("config4", {"dp": 1, "sp": 1}),
                          ("virtual2x4", {"dp": 2, "sp": 4})):

@@ -108,6 +108,29 @@ def test_xor_plain_version_is_the_reference_network(b):
                        rs_cuda.gf_apply_batched_reference(m, batch))
 
 
+def test_xor_ops_counts_the_side_the_kernel_takes():
+    """rs_xor.xor_ops: for RS(10,4) parity the chains on the outputs
+    (Horner's rule: 7 doublings of 16 words, the 3 groups' tables, 4 XORs
+    for each of the 96 reads, 952 operations per 16 columns, as
+    csrc/gf_xor.cu's header counts), and the chains on the sources (7
+    doublings of 4 words a source, a test and 4 XORs for each coefficient
+    bit); rs_xor.horner_side picks the side that counts fewer."""
+    m = jgf.rs_parity_matrix(10, 4)
+    horner = 7 * 16 * 4 + (14 + 14 + 2) * 4 + 96 * 4
+    assert rs_xor.xor_ops(m, 16) == rs_xor.xor_ops(m, 16, horner=True) \
+        == horner
+    assert rs_xor.xor_ops(m, 17, entries=3) == 2 * 3 * 952
+    assert rs_xor.xor_ops(m, 16, horner=False) == (10 * 7 * 4 * 4
+                                                   + 8 * 4 * 10 * 5)
+    tall = np.ones((10, 1), np.uint8)
+    sources = 1 * 7 * 4 * 4 + 8 * 10 * 1 * 5
+    assert rs_xor.xor_ops(tall, 16) == sources
+    assert rs_xor.xor_ops(tall, 16, horner=True) == 10 * 7 * 16 + 8 * 10 * 4
+    assert [rs_xor.horner_side(r, s) for r, s in (
+        (4, 10), (3, 10), (10, 10), (16, 16), (16, 4), (1, 1), (1, 2),
+        (10, 1), (16, 2), (4, 2), (4, 1))] == [True] * 7 + [False] * 4
+
+
 @pytest.mark.parametrize("b", [1, 7, 16, 33, 4099])
 def test_bitplane_unpack_and_pack_match_the_mesh_reference(b):
     """The plain version's pieces against parallel/mesh.py's."""
@@ -216,7 +239,8 @@ static D3 blockIdx, threadIdx, gridDim;
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __noinline__
+#define __launch_bounds__(...)
 #define __restrict__
 #define __grid_constant__
 #define __shared__ static
@@ -225,32 +249,50 @@ static void __syncthreads() {}
 
 _XOR_HARNESS = _PRELUDE + r"""
 #include "gf_xor.cu"
-template <int R>
+// gx blocks across the columns (0: as many as they need), gy across the
+// entries; each thread runs to its end before the next starts (the
+// output-side kernel's shared-memory entries are the thread's own)
+template <int R, bool H>
 static void grid(const u8* in, i64 is, i64 ib, u8* out, i64 os, i64 ob,
                  i64 B, i64 V, int S, int mode, const GfCoef& c,
-                 unsigned gy) {
-  const i64 per = (i64)XOR_THREADS * XOR_CHUNK;
-  gridDim = {(unsigned)((B + per - 1) / per), gy, 1};
+                 unsigned gx, unsigned gy) {
+  const unsigned threads = H ? XOR_HORNER_THREADS : XOR_THREADS;
+  const i64 per = (i64)threads * XOR_CHUNK;
+  const unsigned need = (unsigned)((B + per - 1) / per);
+  gridDim = {gx && gx < need ? gx : need, gy, 1};
   for (unsigned y = 0; y < gy; ++y)
     for (unsigned x = 0; x < gridDim.x; ++x)
-      for (unsigned t = 0; t < XOR_THREADS; ++t) {
+      for (unsigned t = 0; t < threads; ++t) {
         blockIdx = {x, y, 0};
         threadIdx = {t, 0, 0};
-        gf_xor_kernel<R>(in, is, ib, out, os, ob, B, V, S, mode, c);
+        if (H)
+          gf_xor_horner<R>(in, is, ib, out, os, ob, B, V, S, mode, c);
+        else
+          gf_xor_sources<R>(in, is, ib, out, os, ob, B, V, S, mode, c);
       }
 }
+// h: 1 runs the chains on the outputs (Horner), 0 on the sources, as the
+// launcher's `horner`; -> the access path
 extern "C" int run(const u8* in, i64 is, i64 ib, u8* out, i64 os, i64 ob,
-                   i64 B, i64 V, int R, int S, const u8* coef, unsigned gy) {
+                   i64 B, i64 V, int R, int S, const u8* coef, int h,
+                   unsigned gx, unsigned gy) {
   const GfCoef c = pack_coef(R, S, coef);
   const int mode = access_mode(in, is, ib, out, os, ob);
   switch (R) {
-    case 1: grid<1>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
-    case 3: grid<3>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
-    case 4: grid<4>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
-    case 16: grid<16>(in, is, ib, out, os, ob, B, V, S, mode, c, gy); break;
+#define SIDE(n)                                                          \
+    case n:                                                              \
+      if (h)                                                             \
+        grid<n, true>(in, is, ib, out, os, ob, B, V, S, mode, c, gx, gy); \
+      else                                                               \
+        grid<n, false>(in, is, ib, out, os, ob, B, V, S, mode, c, gx, gy); \
+      break;
+    SIDE(1) SIDE(3) SIDE(4) SIDE(14) SIDE(15) SIDE(16)
+#undef SIDE
+    default: return -1;
   }
   return mode;
 }
+extern "C" int chunk_columns() { return XOR_CHUNK; }
 """
 
 _BITPLANE_HARNESS = _PRELUDE + r"""
@@ -321,43 +363,59 @@ def _aligned(rng, shape, offset: int) -> np.ndarray:
 
 
 def test_xor_kernel_on_the_host_compiler(tmp_path):
+    """gf_xor.cu on the host compiler against the plain version, each
+    matrix on both sides (the chains on the outputs, Horner, and on the
+    sources): RS(10,4) parity, a (3, 10) decode plan, a (1, 10) row,
+    (16, 16), (16, 1), (14, 10) and (15, 16); widths about the chunk and
+    the block, each access path, and the batched entry with fewer grid
+    rows than entries.  rs_xor's operation count uses the kernel's
+    chunk."""
     lib = _host_lib(tmp_path, _XOR_HARNESS)
     ll, p = ctypes.c_longlong, ctypes.c_void_p
     lib.run.argtypes = [p, ll, ll, p, ll, ll, ll, ll, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_char_p, ctypes.c_uint]
+                        ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+                        ctypes.c_uint, ctypes.c_uint]
+    assert lib.chunk_columns() == rs_xor.CHUNK_COLUMNS
     rng = np.random.default_rng(3)
     plan = jgf.decode_plan_for(jgf.rs_matrix(10, 14), 10,
                                [1, 3, 4, 5, 6, 7, 8, 9, 10, 12], (0, 2, 11))
     mats = [jgf.rs_parity_matrix(10, 4), plan,
             rng.integers(0, 256, (1, 10), dtype=np.uint8),
-            rng.integers(0, 256, (16, 16), dtype=np.uint8)]
-    # widths about the 16-byte chunk and the 4096-column block, each
-    # access path: row starts 16-aligned (2), word-aligned (1), odd (0)
+            rng.integers(0, 256, (16, 16), dtype=np.uint8),
+            rng.integers(0, 256, (16, 1), dtype=np.uint8),
+            rng.integers(0, 256, (14, 10), dtype=np.uint8),
+            rng.integers(0, 256, (15, 16), dtype=np.uint8)]
+    # widths about the chunk and the 256-thread block, each access path:
+    # row starts 16-aligned (2), word-aligned (1), odd (0)
     for m in mats:
         r, s = m.shape
         coef = np.ascontiguousarray(m).tobytes()
         for b in (1, 7, 16, 33, 4099):
             for offset, mode in ((0, 2), (4, 1), (1, 0)):
                 data = _aligned(rng, (s, b), offset)
-                out = np.full((r, b), 0xA5, np.uint8)
-                stride = data.strides[0] if s > 1 else b
-                got_mode = lib.run(data.ctypes.data, stride, 0,
-                                   out.ctypes.data, b, r * b, b, 1, r, s,
-                                   coef, 1)
                 want = rs_cuda.gf_apply_reference(
                     m, torch.from_numpy(np.ascontiguousarray(data)))
-                assert np.array_equal(out, want.numpy()), (m.shape, b, mode)
-                if b == 16 and out.ctypes.data % 16 == 0:
-                    assert got_mode == mode, (m.shape, offset)
+                stride = data.strides[0] if s > 1 else b
+                for h in (1, 0):
+                    out = np.full((r, b), 0xA5, np.uint8)
+                    got = lib.run(data.ctypes.data, stride, 0,
+                                  out.ctypes.data, b, r * b, b, 1, r, s,
+                                  coef, h, 2, 1)
+                    assert np.array_equal(out, want.numpy()), (
+                        m.shape, b, mode, h)
+                    if b == 16 and out.ctypes.data % 16 == 0:
+                        assert got == mode, (m.shape, offset)
     # batched: entries at a stride, fewer grid rows than entries
-    m = mats[0]
-    v, b = 5, 4099
-    batch = rng.integers(0, 256, (v, 10, b), dtype=np.uint8)
-    out = np.zeros((v, 4, b), np.uint8)
-    lib.run(batch.ctypes.data, b, 10 * b, out.ctypes.data, b, 4 * b, b, v, 4,
-            10, np.ascontiguousarray(m).tobytes(), 2)
-    want = rs_cuda.gf_apply_batched_reference(m, torch.from_numpy(batch))
-    assert np.array_equal(out, want.numpy())
+    for m in (mats[0], mats[5]):
+        r, s = m.shape
+        v, b = 5, 4099
+        batch = rng.integers(0, 256, (v, s, b), dtype=np.uint8)
+        want = rs_cuda.gf_apply_batched_reference(m, torch.from_numpy(batch))
+        for h in (1, 0):
+            out = np.zeros((v, r, b), np.uint8)
+            lib.run(batch.ctypes.data, b, s * b, out.ctypes.data, b, r * b,
+                    b, v, r, s, np.ascontiguousarray(m).tobytes(), h, 2, 2)
+            assert np.array_equal(out, want.numpy()), (m.shape, h)
 
 
 @pytest.mark.parametrize("s", [1, 2, 5, 10, 14, 16])

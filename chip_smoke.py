@@ -1,12 +1,13 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--volume-gib 12] [--service-volume-gib 3]
-                          [--store-volume-gib 12] [--seed 0]
-                          [--cluster-volume-gib 4] [--cluster-codec cuda]
+    python3 chip_smoke.py [--volume-gib 10.5] [--service-volume-gib 2]
+                          [--store-volume-gib 6] [--seed 0]
+                          [--cluster-volume-gib 6] [--cluster-codec cuda]
                           [--maintenance-volume-gib 1]
+                          [--tier-volume-gib 1]
                           [--only-ec-reads | --only-store |
                            --only-volume-server | --only-cluster |
-                           --only-maintenance | --only-mesh]
+                           --only-maintenance | --only-mesh | --only-tier]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
@@ -16,8 +17,8 @@ lifecycle driven over gRPC through the volume server's rpcs, the
 system as operators start it: a master, volume servers and the admin
 shell, each a `python -m seaweedfs_tpu_torch` process, and the master's
 maintenance plane doing the same with no operator: sealing and encoding
-volumes by policy, and rebuilding a dead server's shards on the
-survivors.  A full volume
+volumes by policy, rebuilding a dead server's shards on the survivors,
+and moving sealed `.dat` files to an S3 remote tier.  A full volume
 `.dat` of needle records is striped into the RS(10,4) shards
 `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
 ones are rebuilt, and needles are read back, lost intervals decoded on
@@ -51,10 +52,10 @@ Phases, each printing one JSON line:
      a device-to-device copy of the same bytes (`achievable_GBps`) and the
      plain version's time;
   4. end to end: a volume of real needle records (version 3, seeded data of
-     1 B to 256 KiB, the port's CRC32-C, a real superblock; 12 GiB by
+     1 B to 256 KiB, the port's CRC32-C, a real superblock; 10.5 GiB by
      default: SeaweedFS's default 30 GB volume limit cut so that one 1
-     GB-block row and 2 GiB of 1 MB-block rows still run; the time to make
-     it on its own line) encoded with write_ec_files +
+     GB-block row and 0.5 GiB of 1 MB-block rows still run, and the whole
+     script within its time limit; the time to make it on its own line) encoded with write_ec_files +
      write_sorted_file_from_idx, every slice's parity checked against the
      plain version on the card, then .ec00-.ec03 deleted, rebuilt with
      rebuild_ec_files and checked by sha256.  This phase takes the direct
@@ -83,7 +84,8 @@ Phases, each printing one JSON line:
      to phase 4's;
   4c. store_lifecycle, in a fresh directory after 4b's is removed: one
      Store([dir]) on the default `cuda` codec and service settings, a
-     volume of --store-volume-gib (12 by default, the source of phase 4)
+     volume of --store-volume-gib (6 by default: 1 MB-block rows only,
+     phase 4 keeps the 1 GB-block row)
      written through Store.write_needle (seeded needles of 1 B..256 KiB,
      each needle's length and CRC kept) and sealed; generate_ec_shards on
      the default route (.ecx = key-sorted .idx, sampled slices' parity =
@@ -138,7 +140,7 @@ Phases, each printing one JSON line:
      gf_matmul launch per degraded interval) and 64 HEADs; (h3) after step
      8, the GETs on the decoded volume, the sendfile counter moving by the
      bytes served, then 64 Range GETs on the fallback path; (h4) volume 2
-     (replication 001) on A and B, 1 GiB of seeded needles (256 JSON-lines
+     (replication 001) on A and B, 512 MiB of seeded needles (256 JSON-lines
      ones, then 1 B..256 KiB) POSTed to A by 16 threads with write JWTs and
      fanned out to B, a POST without a token refused 401, every needle read
      back equal from B, 16 DELETEs at A then 404 on both; (h5) 64 needles
@@ -150,7 +152,7 @@ Phases, each printing one JSON line:
      mass repair switched off by SEAWEEDFS_TPU_MASS_REPAIR=0: this phase's
      subject is the shell's rebuild) and three volume processes (`-max
      40`, no -ec.codec: their default `cuda`; A alone in rack1 holding a
-     sealed volume of --cluster-volume-gib, 8 by default, made before it
+     sealed volume of --cluster-volume-gib, 6 by default, made before it
      starts; B and C in rack0), started in that order; (1)
      256 MiB of seeded needles by /dir/assign?replication=001, POSTed by
      16 threads and read back through /dir/lookup; (2) `shell -c
@@ -189,13 +191,37 @@ Phases, each printing one JSON line:
      fetch, the master's seaweedfs_repair_batch_* counters,
      `volume.lifecycle` and `volume.repair` showing every job done; (5)
      SIGTERM: clean exits;
+  4h. tier, in a fresh directory after 4g's is removed: a local
+     S3-compatible endpoint (a child process running serve_s3_endpoint,
+     disk-backed, SigV4 checked by its own hashlib/hmac code, 403 on a
+     mismatch), a master (`-volumeSizeLimitMB` the volumes' size,
+     `-lifecycleInterval 3`, `-lifecyclePolicy` {"tier":
+     {"ec_cooldown_seconds": 5, "tier_backend": "s3.tier",
+     "tier_idle_seconds": 5}}) and two volume processes (`-offset.5bytes
+     -tierBackends <json> -ec.codec=cuda`), A and B, each holding one
+     volume of collection `tier` of --tier-volume-gib (1 by default) with
+     a 17-byte-entry .idx, made before it starts; (a) the controller seals
+     both, encodes each on its node's card keeping the source (batched
+     launches on each node) and tiers its .dat (multipart uploads of 8
+     MiB parts); (b) each object equals its .dat by sha256, the local .dat
+     is gone, the .vif names the object, .ec00-.ec13 pass the parity
+     check, every .ecx is 17 bytes a needle; (c) 2048 GETs from 16
+     threads a volume from the remote tier (ranged GETs at the endpoint),
+     rate and p50/p99; (d) 256 needles GET from the node holding only EC
+     shards of the volume (the 17-byte .ecx searched); (e) `shell -c
+     volume.tier.download` and `volume.tier.upload` of volume 1, equal by
+     sha256, each move's GB/s; (f) a wrong secret answers 403, a move to
+     an unregistered backend fails FAILED_PRECONDITION and leaves the .dat
+     as it was; (g) SIGTERM: clean exits, the endpoint's too.  The 5-byte
+     offsets live in the volume processes only: this script's own process
+     stays at 4 bytes;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
   6. kernel_sweep: bench.py:104's leg, K parity sweeps over windows
      shifted by 128 KiB in one gf_sweep launch per stage, timed beside
      gf_apply at the same width and the memory bound;
-  7. service_concurrent: 4 volumes (3 GiB each) encoded from 4 threads
+  7. service_concurrent: 4 volumes (2 GiB each) encoded from 4 threads
      through one device-mode CodecService with its default settings,
      .ec00-.ec03 of each deleted and rebuilt from 4 threads through it,
      checked by sha256, .ecx and sampled parity.  Launch counts are zeroed
@@ -248,7 +274,9 @@ check: `--only-cluster --cluster-volume-gib 0.5`), and prints no kernels
 line; `--only-maintenance` runs phases 1-2 and 4g alone (a quick check:
 `--only-maintenance --maintenance-volume-gib 0.25`), and prints no
 kernels line; `--only-mesh` runs phases 1-2 and the mesh phase alone, and prints
-no kernels line; `--cluster-codec` passes -ec.codec to 4f's and 4g's volume
+no kernels line; `--only-tier` runs phases 1-2 and 4h alone (a quick
+check: `--only-tier --tier-volume-gib 0.25`), and prints no kernels line;
+`--cluster-codec` passes -ec.codec to 4f's, 4g's and 4h's volume
 processes (a CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
 or without the package beside this script.  Data comes from --seed;
 nothing is downloaded.
@@ -520,12 +548,31 @@ def _plan_needles(avail: int, rng) -> np.ndarray:
     return np.concatenate([lens[:keep], np.asarray(tail, np.int64) - 41])
 
 
-def make_volume(base: str, size: int, seed: int, device: str = "cuda") -> int:
+def idx_dtype(offset_bytes: int = 4) -> np.dtype:
+    """An .idx / .ecx entry: key, offset / 8 and size, big-endian; with
+    5-byte offsets the offset's high byte follows its 4 lower bytes
+    (offset_5bytes.go), 17 bytes an entry."""
+    if offset_bytes == 4:
+        return np.dtype([("k", ">u8"), ("o", ">u4"), ("s", ">u4")])
+    return np.dtype([("k", ">u8"), ("o", ">u4"), ("h", "u1"), ("s", ">u4")])
+
+
+def idx_offsets(entries: np.ndarray) -> np.ndarray:
+    """The entries' actual byte offsets."""
+    stored = entries["o"].astype(np.int64)
+    if "h" in entries.dtype.names:
+        stored |= entries["h"].astype(np.int64) << 32
+    return stored * 8
+
+
+def make_volume(base: str, size: int, seed: int, device: str = "cuda",
+                offset_bytes: int = 4) -> int:
     """A sealed volume of real needle records, `size` bytes of `<base>.dat`:
     the port's superblock (version 3), then version-3 needles of seeded
     random data (1 B..256 KiB, drawn on `device`) with the port's native
-    CRC32-C, filling the volume exactly; and one .idx entry per needle, keys
-    in shuffled order so the .ecx sort does real work.  -> needle count."""
+    CRC32-C, filling the volume exactly; and one .idx entry per needle
+    (`offset_bytes` 4 or 5: 16 or 17 bytes each), keys in shuffled order
+    so the .ecx sort does real work.  -> needle count."""
     import struct
 
     from seaweedfs_tpu_torch.ops import crc32c
@@ -569,18 +616,26 @@ def make_volume(base: str, size: int, seed: int, device: str = "cuda") -> int:
                 at += ln
             f.write(chunk)
             i = j
-    entries = np.empty(n, dtype=[("k", ">u8"), ("o", ">u4"), ("s", ">u4")])
-    entries["k"], entries["o"], entries["s"] = keys, offsets // 8, lens + 5
+    entries = np.empty(n, dtype=idx_dtype(offset_bytes))
+    stored = offsets.astype(np.int64) // 8
+    entries["k"], entries["s"] = keys, lens + 5
+    entries["o"] = stored & 0xFFFFFFFF
+    if offset_bytes == 5:
+        entries["h"] = stored >> 32
     entries.tofile(base + ".idx")
     return n
 
 
-def check_ecx(base: str) -> None:
-    raw = np.fromfile(base + ".idx", dtype=[("k", ">u8"), ("o", ">u4"),
-                                            ("s", ">u4")])
+def check_ecx(base: str, offset_bytes: int = 4,
+              idx_base: "str | None" = None) -> int:
+    """The .ecx is the key-sorted .idx (of `idx_base`, default `base`),
+    entry for entry; -> entries."""
+    raw = np.fromfile((idx_base or base) + ".idx",
+                      dtype=idx_dtype(offset_bytes))
     ecx = np.fromfile(base + ".ecx", dtype=raw.dtype)
     if not np.array_equal(ecx, np.sort(raw, order="k")):
-        raise AssertionError(".ecx is not the key-sorted .idx")
+        raise AssertionError(f"{base}.ecx is not the key-sorted .idx")
+    return len(ecx)
 
 
 def check_layout(base: str, dat_size: int, rng, enc) -> None:
@@ -1636,25 +1691,25 @@ def _bits_of(shards) -> int:
     return sum(1 << s for s in shards)
 
 
-def _needle_records(base: str, seed: int,
-                    sample: int = EC_READ_SAMPLE) -> tuple[int, dict]:
-    """`sample` seeded keys of the volume's .idx, each with its .dat
-    record's offset, length, sha256, its data's sha256, cookie, data length
-    and CRC (the port's needle parser verifies that CRC) — what the reads
-    over the wire are held against once the .dat is gone.  -> (.dat size,
-    {key: record})."""
+def _needle_records(base: str, seed: int, sample: int = EC_READ_SAMPLE,
+                    offset_bytes: int = 4) -> tuple[int, dict]:
+    """`sample` seeded keys of the volume's .idx (`offset_bytes` 4 or 5),
+    each with its .dat record's offset, length, sha256, its data's sha256,
+    cookie, data length and CRC (the port's needle parser verifies that
+    CRC) — what the reads over the wire are held against once the .dat is
+    gone.  -> (.dat size, {key: record})."""
     from seaweedfs_tpu_torch.storage.needle import Needle, actual_size
 
-    raw = np.fromfile(base + ".idx", dtype=[("k", ">u8"), ("o", ">u4"),
-                                            ("s", ">u4")])
-    live = raw[(raw["o"] > 0) & (raw["s"] > 0)
+    raw = np.fromfile(base + ".idx", dtype=idx_dtype(offset_bytes))
+    live = raw[(idx_offsets(raw) > 0) & (raw["s"] > 0)
                & (raw["s"] != np.uint32(0xFFFFFFFF))]
     pick = np.random.default_rng(seed + 15).choice(
         len(live), min(sample, len(live)), replace=False)
     out = {}
+    chosen = live[np.sort(pick)]
     with open(base + ".dat", "rb") as f:
-        for e in live[np.sort(pick)]:
-            off, n = int(e["o"]) * 8, actual_size(int(e["s"]), 3)
+        for e, off in zip(chosen, idx_offsets(chosen).tolist()):
+            n = actual_size(int(e["s"]), 3)
             f.seek(off)
             rec = f.read(n)
             nd = Needle.from_bytes(rec, 3)
@@ -1682,7 +1737,9 @@ def _latency_row(name: str, lat: list, wall: float, **extra) -> dict:
 
 # -- phase 4e: http_plane ----------------------------------------------------
 
-HTTP_WRITE_BYTES = GIB  # h4: seeded needles POSTed to A, replicated to B
+# h4: seeded needles POSTed to A, replicated to B; one process hosts the
+# clients and both servers (~0.017-0.021 GB/s on the H100 machine)
+HTTP_WRITE_BYTES = 512 * MIB
 HTTP_JSON_NEEDLES = 256  # h4's first needles are JSON lines, for h6's Query
 HTTP_SAMPLE = 64  # h2's HEADs, h3's Range GETs, h5's TCP needles
 HTTP_DELETES = 16
@@ -1740,15 +1797,17 @@ def _fid(vid: int, key: int, cookie: int) -> str:
 
 
 def _http_get_pass(client: _KeepAlive, name: str, keys: list[int],
-                   records: dict, method: str = "GET") -> dict:
-    """Every key of `keys` fetched from one server by EC_READ_THREADS
-    threads on keep-alive connections, each body and Etag held against the
-    needle's .dat record.  -> the latency row."""
+                   records: dict, method: str = "GET", vid: int = 1,
+                   latencies: list | None = None) -> dict:
+    """Every key of `keys` of volume `vid` fetched from one server by
+    EC_READ_THREADS threads on keep-alive connections, each body and Etag
+    held against the needle's .dat record.  Each request's seconds are
+    also appended to `latencies` when given.  -> the latency row."""
     def get(key: int) -> float:
         r = records[key]
         t0 = time.perf_counter()
         status, headers, body = client.request(
-            method, "/" + _fid(1, key, r["cookie"]))
+            method, "/" + _fid(vid, key, r["cookie"]))
         dt = time.perf_counter() - t0
         if status != 200 or headers.get("Etag") != f'"{r["crc"]:x}"' or (
                 int(headers["Content-Length"]) != r["size"]) or (
@@ -1761,6 +1820,8 @@ def _http_get_pass(client: _KeepAlive, name: str, keys: list[int],
     t0 = time.perf_counter()
     with ThreadPoolExecutor(EC_READ_THREADS) as pool:
         lat = list(pool.map(get, keys))
+    if latencies is not None:
+        latencies.extend(lat)
     return _latency_row(name, lat, time.perf_counter() - t0,
                         bytes=sum(records[k]["size"] for k in keys),
                         byte_equal=True)
@@ -1865,7 +1926,8 @@ def http_plane_writes(rs_cuda, a, b, master, stub_a, stub_b, vs, metrics,
         "p50_ms": float(np.percentile(lat, 50)) * 1e3,
         "p99_ms": float(np.percentile(lat, 99)) * 1e3,
         "replication_errors": errors.value - before,
-        "unsigned_post_status": status}
+        "unsigned_post_status": status,
+        "reduced": [f"{total} bytes of writes: the script's time limit"]}
 
     def read_b(item) -> None:
         key, cookie, payload = item
@@ -2505,7 +2567,7 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
 
 # -- phase 4f: cluster -------------------------------------------------------
 
-CLUSTER_VOLUME_BYTES = 8 * GIB  # the sealed volume A holds before it starts
+CLUSTER_VOLUME_BYTES = 6 * GIB  # the sealed volume A holds before it starts
 CLUSTER_WRITE_BYTES = 256 * MIB  # step 1: replicated writes through assigns
 CLUSTER_DECODE_SAMPLE = 64  # step 6: GETs served from the decoded .dat
 CLUSTER_START_S = 60.0  # every process registered and the volume listed
@@ -2567,16 +2629,17 @@ class _Cluster:
                    "-maintenanceInterval", "0", "-metricsPort",
                    str(self.master_metrics), *flags, env=env)
 
-    def start_volume(self, name: str, rack: str, directory: str) -> None:
+    def start_volume(self, name: str, rack: str, directory: str,
+                     *flags: str) -> None:
         port, metrics_port = self.free_port(), self.free_port()
         self.nodes[name] = {"port": port, "metrics": metrics_port,
                             "dir": directory, "url": f"127.0.0.1:{port}"}
         argv = ["volume", "-dir", directory, "-mserver",
                 f"127.0.0.1:{self.master_port}", "-port", str(port),
                 "-rack", rack, "-max", "40", "-metricsPort",
-                str(metrics_port)]
-        if self.codec != "cuda":  # cuda is the servers' own default
-            argv += ["-ec.codec", self.codec]
+                str(metrics_port), *flags]
+        if self.codec != "cuda" and "-ec.codec" not in flags:
+            argv += ["-ec.codec", self.codec]  # cuda: the servers' default
         self.start(name, *argv)
 
     def http_json(self, path: str, port: int | None = None) -> dict:
@@ -3145,8 +3208,11 @@ MAINT_INTERVAL_S = 6
 # encodes plan from one snapshot (4/4/3/3, the first two nodes in topology
 # order taking 4) and the 4 second ones from the next, after the first
 # wave's sources dropped (2/2/5/5).  D registers first, so rack1 leads the
-# topology order: D and C take 4 and 2, A and B 3 and 5.
-MAINT_WAVE1_S = 40.0
+# topology order: D and C take 4 and 2, A and B 3 and 5.  Every node must
+# have registered two lifecycle cycles before the first wave cools: D's
+# start, then A's, B's and C's together, took 19-22 s on a quiet host and
+# 33 s on a loaded one, so the first wave cools at 60 s (48 s to register).
+MAINT_WAVE1_S = 60.0
 MAINT_WAVE_GAP_S = 10.0
 MAINT_ENCODE_S = 900.0  # every volume sealed, encoded, its source dropped
 MAINT_REPAIR_S = 900.0  # every lost shard rebuilt and mounted
@@ -3590,6 +3656,671 @@ def phase_maintenance(rs_cuda, gf256, work: str, size: int, seed: int,
     finally:
         cl.stop_all()
     summary = {"phase": "maintenance_summary",
+               "wall_s": time.perf_counter() - t_phase,
+               "launches_by_path": paths, "nvidia_smi": power}
+    emit(summary)
+    return {"launches_by_path": paths, "rows": rows}
+
+
+# -- phase 4h: tier ----------------------------------------------------------
+
+TIER_NODES = (("a", "rack0"), ("b", "rack1"))  # one volume each
+TIER_VOLUME_BYTES = GIB  # each; the master's limit is the same size
+TIER_COLLECTION = "tier"
+TIER_BACKEND = ("s3", "tier")  # -tierBackends name "s3.tier", bucket "tier"
+TIER_ACCESS_KEY, TIER_SECRET_KEY = "chipsmoke", "chip-smoke-tier-secret"
+TIER_COOLDOWN_S = 5
+TIER_INTERVAL_S = 3
+TIER_POLICY = {TIER_COLLECTION: {"ec_cooldown_seconds": TIER_COOLDOWN_S,
+                                 "tier_backend": ".".join(TIER_BACKEND),
+                                 "tier_idle_seconds": TIER_COOLDOWN_S}}
+TIER_GETS = 2048  # (c): from the remote tier, across both volumes
+TIER_EC_GETS = 256  # (d): through the EC shards
+TIER_SHELL_GETS = 256  # (e): after the download
+TIER_S = 900.0  # every volume sealed, encoded and tiered
+_EMPTY_SHA256 = hashlib.sha256(b"").hexdigest()
+
+
+def serve_s3_endpoint(root: str, port_file: str, access_key: str,
+                      secret_key: str) -> None:
+    """A disk-backed S3-compatible endpoint on 127.0.0.1, run as a child
+    process of the tier phase: PUT, ranged GET, DELETE and multipart
+    initiate / part / complete / abort, objects under `root/<bucket>/`.
+    Every request must carry a SigV4 header signature by `access_key` /
+    `secret_key`, checked here with hashlib and hmac alone (not the
+    port's signing code), over the body's sha256 too; a mismatch answers
+    403.  GET /_stats (unsigned) answers the counters as JSON.  The bound
+    port is written to `port_file`; SIGTERM stops the server and the
+    process exits 0."""
+    import hmac
+    import threading
+    import urllib.parse
+    import uuid
+    import xml.etree.ElementTree as ET
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    stats = {"puts": 0, "parts": 0, "completes": 0, "aborts": 0,
+             "gets": 0, "range_gets": 0, "deletes": 0, "denied": 0,
+             "bytes_in": 0, "bytes_out": 0}
+    lock = threading.Lock()
+    uploads = os.path.join(root, ".uploads")
+    os.makedirs(uploads, exist_ok=True)
+
+    def count(**kw) -> None:
+        with lock:
+            for k, v in kw.items():
+                stats[k] += v
+
+    def hmac256(key: bytes, msg: str) -> bytes:
+        return hmac.new(key, msg.encode(), hashlib.sha256).digest()
+
+    def enc(x: str) -> str:
+        return urllib.parse.quote(x, safe="-._~")
+
+    class Denied(Exception):
+        pass
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            pass
+
+        def reply(self, code: int, body: bytes = b"", headers=()) -> None:
+            self.send_response(code)
+            for k, v in headers:
+                self.send_header(k, v)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def verify(self, body: bytes) -> None:
+            """SigV4 (AWS4-HMAC-SHA256, header form) over the request as
+            received: method, raw path, sorted re-encoded query, the
+            signed headers, and the body's sha256."""
+            auth = self.headers.get("Authorization", "")
+            if not auth.startswith("AWS4-HMAC-SHA256 "):
+                raise Denied("no SigV4 signature")
+            fields = dict(p.strip().split("=", 1) for p in
+                          auth[len("AWS4-HMAC-SHA256 "):].split(","))
+            ak, date, region, service, term = fields["Credential"].split("/")
+            if ak != access_key or term != "aws4_request":
+                raise Denied("unknown access key")
+            payload = self.headers.get("x-amz-content-sha256", "")
+            if payload != hashlib.sha256(body).hexdigest():
+                raise Denied("payload hash mismatch")
+            path, _, query = self.path.partition("?")
+            pairs = []
+            for part in query.split("&"):
+                if part:
+                    k, _, v = part.partition("=")
+                    pairs.append((enc(urllib.parse.unquote_plus(k)),
+                                  enc(urllib.parse.unquote_plus(v))))
+            signed = fields["SignedHeaders"].split(";")
+            canon = "\n".join([
+                self.command, path,
+                "&".join(f"{k}={v}" for k, v in sorted(pairs)),
+                "".join(f"{h}:{' '.join(self.headers.get(h, '').split())}\n"
+                        for h in signed),
+                ";".join(signed), payload])
+            scope = f"{date}/{region}/{service}/aws4_request"
+            sts = "\n".join(["AWS4-HMAC-SHA256",
+                             self.headers.get("x-amz-date", ""), scope,
+                             hashlib.sha256(canon.encode()).hexdigest()])
+            k = hmac256(("AWS4" + secret_key).encode(), date)
+            for part in (region, service, "aws4_request"):
+                k = hmac256(k, part)
+            want = hmac.new(k, sts.encode(), hashlib.sha256).hexdigest()
+            if not hmac.compare_digest(want, fields["Signature"]):
+                raise Denied("signature mismatch")
+
+        def handle_one(self) -> None:
+            if self.path == "/_stats":
+                with lock:
+                    return self.reply(200, json.dumps(stats).encode())
+            n = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(n) if n else b""
+            try:
+                self.verify(body)
+            except (Denied, KeyError, ValueError) as e:
+                count(denied=1)
+                return self.reply(403, f"<Error><Code>AccessDenied</Code>"
+                                       f"<Message>{e}</Message></Error>"
+                                  .encode())
+            path, _, query = self.path.partition("?")
+            q = urllib.parse.parse_qs(query, keep_blank_values=True)
+            bucket, _, key = urllib.parse.unquote(path).lstrip("/") \
+                .partition("/")
+            bdir = os.path.join(root, bucket)
+            obj = os.path.join(bdir, urllib.parse.quote(key, safe=""))
+            m = self.command
+            if not key:
+                if m == "PUT":
+                    os.makedirs(bdir, exist_ok=True)
+                    return self.reply(200)
+                return self.reply(405)
+            if not os.path.isdir(bdir):
+                return self.reply(404, b"<Error><Code>NoSuchBucket</Code>"
+                                       b"</Error>")
+            if m == "POST" and "uploads" in q:
+                uid = uuid.uuid4().hex
+                os.makedirs(os.path.join(uploads, uid))
+                return self.reply(200, (
+                    "<InitiateMultipartUploadResult><Bucket>"
+                    f"{bucket}</Bucket><Key>{key}</Key><UploadId>{uid}"
+                    "</UploadId></InitiateMultipartUploadResult>").encode())
+            if "uploadId" in q:
+                udir = os.path.join(uploads, q["uploadId"][0])
+                if not os.path.isdir(udir):
+                    return self.reply(404, b"<Error><Code>NoSuchUpload"
+                                           b"</Code></Error>")
+                if m == "PUT":
+                    part = int(q["partNumber"][0])
+                    with open(os.path.join(udir, f"{part:05d}"), "wb") as f:
+                        f.write(body)
+                    count(parts=1, bytes_in=len(body))
+                    etag = hashlib.md5(body).hexdigest()
+                    return self.reply(200, headers=[("ETag", f'"{etag}"')])
+                if m == "POST":
+                    parts = [(int(p.findtext("PartNumber")),
+                              p.findtext("ETag").strip('"'))
+                             for p in ET.fromstring(body).iter("Part")]
+                    tmp = obj + ".part"
+                    with open(tmp, "wb") as out:
+                        for num, etag in parts:
+                            pf = os.path.join(udir, f"{num:05d}")
+                            with open(pf, "rb") as f:
+                                blob = f.read()
+                            if hashlib.md5(blob).hexdigest() != etag:
+                                return self.reply(400, b"<Error><Code>"
+                                                  b"InvalidPart</Code>"
+                                                  b"</Error>")
+                            out.write(blob)
+                    os.replace(tmp, obj)
+                    shutil.rmtree(udir)
+                    count(completes=1)
+                    return self.reply(200, (
+                        "<CompleteMultipartUploadResult><Key>"
+                        f"{key}</Key></CompleteMultipartUploadResult>")
+                        .encode())
+                if m == "DELETE":
+                    shutil.rmtree(udir)
+                    count(aborts=1)
+                    return self.reply(204)
+                return self.reply(405)
+            if m == "PUT":
+                tmp = obj + ".part"
+                with open(tmp, "wb") as f:
+                    f.write(body)
+                os.replace(tmp, obj)
+                count(puts=1, bytes_in=len(body))
+                return self.reply(200, headers=[
+                    ("ETag", f'"{hashlib.md5(body).hexdigest()}"')])
+            if m == "DELETE":
+                if os.path.exists(obj):
+                    os.remove(obj)
+                count(deletes=1)
+                return self.reply(204)
+            if m != "GET":
+                return self.reply(405)
+            if not os.path.exists(obj):
+                return self.reply(404, b"<Error><Code>NoSuchKey</Code>"
+                                       b"</Error>")
+            size = os.path.getsize(obj)
+            lo, hi, code = 0, size - 1, 200
+            rng = self.headers.get("Range", "")
+            if rng.startswith("bytes="):
+                a, _, b = rng[len("bytes="):].partition("-")
+                lo, hi, code = int(a), min(int(b or size - 1), size - 1), 206
+            length = max(0, hi - lo + 1)
+            self.send_response(code)
+            self.send_header("Content-Length", str(length))
+            if code == 206:
+                self.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
+            self.end_headers()
+            with open(obj, "rb") as f:
+                sent = 0
+                while sent < length:
+                    sent += self.connection.sendfile(f, lo + sent,
+                                                     length - sent)
+            count(gets=int(code == 200), range_gets=int(code == 206),
+                  bytes_out=length)
+
+        do_GET = do_PUT = do_POST = do_DELETE = handle_one
+
+    class Server(ThreadingHTTPServer):
+        # a deep accept queue: the volume servers open a connection per
+        # ranged GET, 32 at once in step (c), and a SYN dropped from the
+        # socketserver default of 5 waits out a 1 s retransmit
+        request_queue_size = 1024
+        daemon_threads = True
+
+    httpd = Server(("127.0.0.1", 0), Handler)
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+        target=httpd.shutdown, daemon=True).start())
+    with open(port_file + ".tmp", "w") as f:
+        f.write(str(httpd.server_address[1]))
+    os.replace(port_file + ".tmp", port_file)
+    httpd.serve_forever()
+    httpd.server_close()
+
+
+class _S3Endpoint:
+    """serve_s3_endpoint in a child process of this script's own code."""
+
+    def __init__(self, work: str, env: dict):
+        self.root = os.path.join(work, "s3")
+        os.makedirs(os.path.join(self.root, TIER_BACKEND[1]))
+        port_file = os.path.join(work, "s3.port")
+        self.log = os.path.join(work, "s3.log")
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(self.log, "wb") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; chip_smoke.serve_s3_endpoint("
+                 "*sys.argv[1:])", self.root, port_file, TIER_ACCESS_KEY,
+                 TIER_SECRET_KEY], cwd=here, env=env, stdout=f,
+                stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        while not os.path.exists(port_file):
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > CLUSTER_START_S:
+                raise AssertionError(f"the S3 endpoint did not start: "
+                                     f"{open(self.log).read()[-2000:]}")
+            time.sleep(0.05)
+        with open(port_file) as f:
+            self.port = int(f.read())
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    def stats(self) -> dict:
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + "/_stats", timeout=60) as r:
+            return json.loads(r.read())
+
+    def object_path(self, key: str) -> str:
+        return os.path.join(self.root, TIER_BACKEND[1], key)
+
+    def stop(self) -> int:
+        """SIGTERM: -> the exit code, which must be 0."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=CLUSTER_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+                raise AssertionError("the S3 endpoint ignored SIGTERM")
+        return self.proc.returncode
+
+
+def _tier_get_pass(name: str, url: str, vid: int, keys: list[int],
+                   records: dict, latencies: list | None = None) -> dict:
+    """_http_get_pass of volume `vid`'s `keys` on the server at `url`."""
+    row = _http_get_pass(_KeepAlive(int(url.rsplit(":", 1)[1])), name,
+                         keys, records[vid], vid=vid, latencies=latencies)
+    return {**row, "server": url}
+
+
+def phase_tier(rs_cuda, gf256, work: str, size: int, seed: int, power: str,
+               reduced: list[str], codec: str = "cuda",
+               device: str = "cuda", free_port=free_port_pair,
+               gets: int = TIER_GETS, ec_gets: int = TIER_EC_GETS,
+               shell_gets: int = TIER_SHELL_GETS) -> dict:
+    """The remote tier with 5-byte offsets, driven by the master's
+    lifecycle controller: a local S3-compatible endpoint (serve_s3_endpoint,
+    a child process, SigV4 checked by its own code), a master
+    (`-volumeSizeLimitMB` the volumes' size, `-lifecycleInterval`
+    TIER_INTERVAL_S, `-lifecyclePolicy` TIER_POLICY: collection `tier`
+    encoded after TIER_COOLDOWN_S and tiered to `s3.tier`) and two
+    `volume` processes with `-offset.5bytes -tierBackends <json>
+    -ec.codec=<codec>`, A and B, each holding one volume of collection
+    `tier` of `size` bytes of real needle records with a 17-byte-entry
+    .idx, made before it starts.  Steps, each on its own line: (a) the
+    controller seals both volumes, encodes each on its node's codec
+    keeping the source (the batched kernel's launches on each node, read
+    from /metrics) and tiers its .dat to the endpoint, every job done;
+    (b) each object equals its .dat by sha256 (taken before the move),
+    the local .dat is gone, the .vif names the object, .ec00-.ec13 pass
+    the parity check, every .ecx is the key-sorted 17-byte .idx; (c)
+    `gets` GETs from 16 threads across both volumes, each from the node
+    whose volume's .dat is remote (ranged GETs at the endpoint move),
+    each body equal to its record; (d) `ec_gets` needles of each volume
+    GET from the other node, which holds only EC shards of it (its local
+    shards and the peer's by remote fetch, the 17-byte .ecx searched; the
+    endpoint's ranged GETs do not move), each equal; (e) `shell -c
+    "volume.tier.download -volumeId=1"` (the .dat back, equal by sha256,
+    GETs equal), then `volume.tier.upload -volumeId=1 -dest=s3.tier` (the
+    object equal by sha256), each move's GB/s, and `shell_gets` GETs of
+    keys no earlier step read, from the local .dat, equal; (f) a request signed with
+    a wrong secret answers 403, and a tier move of volume 1 to a backend
+    no server registered fails FAILED_PRECONDITION with the .dat unchanged;
+    (g) SIGTERM: every process, the endpoint's too, exits 0.  Counts are
+    read just before and just after each step.  -> launches by kernel
+    and step, and the rows."""
+    import urllib.error
+
+    import grpc
+
+    from seaweedfs_tpu_torch.pb import rpc as rpclib
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+    from seaweedfs_tpu_torch.storage.backend_s3 import S3Backend
+    from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+    t_phase = time.perf_counter()
+    names = [n for n, _r in TIER_NODES]
+    dirs = {n: os.path.join(work, n) for n in names}
+    vid_of = {n: i + 1 for i, n in enumerate(names)}
+    node_of = {v: n for n, v in vid_of.items()}
+    other = {names[0]: names[1], names[1]: names[0]}
+    bases = {v: os.path.join(dirs[n], f"{TIER_COLLECTION}_{v}")
+             for n, v in vid_of.items()}
+    records: dict[int, dict] = {}
+    needles: dict[int, int] = {}
+    t0 = time.perf_counter()
+    for n, v in vid_of.items():
+        os.makedirs(dirs[n])
+        needles[v] = make_volume(bases[v], size, seed + 70 + v, device,
+                                 offset_bytes=5)
+        # (c) reads the first gets / 2 keys of each volume, (e) the next
+        # shell_gets, which no earlier GET put in a needle cache
+        _size, records[v] = _needle_records(
+            bases[v], seed + 70 + v,
+            sample=gets // len(names) + shell_gets, offset_bytes=5)
+    make_s = time.perf_counter() - t0
+    dat_sha = dict(zip(vid_of.values(), _parallel_sha256(
+        [bases[v] + ".dat" for v in vid_of.values()])))
+    cl = _Cluster(work, codec, free_port)
+    s3 = _S3Endpoint(work, cl.env)
+    backend_name = ".".join(TIER_BACKEND)
+    tier_json = os.path.join(work, "tier.json")
+    with open(tier_json, "w") as f:
+        json.dump({backend_name: {
+            "endpoint": s3.url, "bucket": TIER_BACKEND[1],
+            "access_key": TIER_ACCESS_KEY,
+            "secret_key": TIER_SECRET_KEY}}, f)
+    policy = os.path.join(work, "policy.json")
+    with open(policy, "w") as f:
+        json.dump(TIER_POLICY, f)
+    rows: dict[str, dict] = {}
+    paths: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+
+    def step(name: str, row: dict) -> None:
+        row = {"phase": f"tier_{name}", **row, "nvidia_smi": power}
+        emit(row)
+        rows[name] = row
+
+    def scrape_all() -> dict:
+        return {n: cl.scrape(n) for n in names}
+
+    def counted(name: str, before: dict, after: dict) -> dict:
+        out = {}
+        for n in after:
+            launches = _launches_moved(before[n], after[n])
+            for k, v in launches.items():
+                if v:
+                    paths[k][f"tier_{name}_{n}"] = v
+            out[n] = {"launches": launches,
+                      "host_apply_rows": _moved(
+                          before[n], after[n],
+                          "seaweedfs_ec_op_seconds_count",
+                          op="apply_rows", impl="cpu"),
+                      "service_jobs": _moved(before[n], after[n],
+                                             _SERVICE_FAMILY)}
+        return out
+
+    def url(n: str) -> str:
+        return cl.nodes[n]["url"]
+
+    def items(n_each: int, offset: int = 0) -> dict:
+        """vid -> the first `n_each` of its sampled keys after `offset`."""
+        return {v: sorted(records[v])[offset:offset + n_each]
+                for v in records}
+
+    try:
+        # 0. start: the endpoint (above), the master, A and B
+        t0 = time.perf_counter()
+        cl.start_master("-lifecycleInterval", str(TIER_INTERVAL_S),
+                        "-lifecyclePolicy", policy, limit_mb=size // MIB)
+        t_master = time.perf_counter()
+        for n, rack in TIER_NODES:
+            cl.start_volume(n, rack, dirs[n], "-offset.5bytes",
+                            "-tierBackends", tier_json, "-ec.codec", codec)
+        cl.wait_for("both nodes registered", lambda: set(cl.http_json(
+            "/dir/status")["DataNodes"]) >= {url(n) for n in names},
+            CLUSTER_START_S)
+        for n in names:
+            cl.wait_for(f"{n}'s /metrics", lambda n=n: cl.scrape(n)
+                        is not None, CLUSTER_START_S)
+        before = scrape_all()
+        s3_before = s3.stats()
+        step("start", {"codec": codec, "start_s": time.perf_counter() - t0,
+                       "make_volumes_s": make_s, "volume_bytes": size,
+                       "needles": needles, "offset_bytes": 5,
+                       "idx_bytes": {str(v): os.path.getsize(
+                           bases[v] + ".idx") for v in bases},
+                       "policy": TIER_POLICY, "reduced": reduced})
+
+        # (a) the controller seals, encodes (keeping the source) and tiers
+        failed: list = []
+
+        def tiered() -> bool:
+            jobs = cl.http_json("/cluster/lifecycle")["jobs"]
+            failed[:] = [j for j in jobs
+                         if j["state"] in ("failed", "parked")]
+            done = {(j["volume_id"], j["transition"]) for j in jobs
+                    if j["state"] == "done"}
+            return bool(failed) or all((v, "tier") in done for v in bases)
+
+        cl.wait_for("every volume sealed, encoded and tiered", tiered,
+                    TIER_S)
+        if failed:
+            raise AssertionError(f"lifecycle jobs failed: {failed}")
+        pipeline_s = time.perf_counter() - t_master
+        after = scrape_all()
+        counts = counted("encode_and_tier", before, after)
+        for n in names:
+            c = counts[n]
+            if codec == "cuda" and not c["launches"]["gf_matmul_batched"]:
+                raise AssertionError(f"encode: no batched launch on {n}: "
+                                     f"{c}")
+            if codec != "cpu" and c["host_apply_rows"]:
+                raise AssertionError(f"encode: the host codec's apply_rows "
+                                     f"moved on {n}: {c}")
+        doc = cl.http_json("/cluster/lifecycle")
+        jobs: dict = {}
+        for j in doc["jobs"]:
+            jobs.setdefault(j["volume_id"], {})[j["transition"]] = {
+                "seconds": (j["updated_ms"] - j["created_ms"]) / 1e3,
+                "detail": j.get("detail", "")}
+        for v in bases:
+            if set(jobs[v]) != {"seal", "ec_encode", "tier"}:
+                raise AssertionError(f"volume {v}'s jobs: {jobs[v]}")
+        s3_mid = s3.stats()
+        step("encode_and_tier", {
+            "pipeline_s": pipeline_s, "jobs": {str(v): jobs[v]
+                                               for v in bases},
+            "encode_GBps": {str(v): size / jobs[v]["ec_encode"]["seconds"]
+                            / 1e9 for v in bases},
+            "tier_upload_GBps": {str(v): size / jobs[v]["tier"]["seconds"]
+                                 / 1e9 for v in bases},
+            "s3": {k: s3_mid[k] - s3_before[k] for k in s3_mid},
+            "lifecycle_counts": doc["counts"], "counts": counts})
+
+        # (b) the bytes are where they should be
+        spread = _ec_spread(cl)
+        by_url = {url(n): n for n in names}
+        obj_sha = dict(zip(bases, _parallel_sha256(
+            [s3.object_path(os.path.basename(bases[v]) + ".dat")
+             for v in bases])))
+        if obj_sha != dat_sha:
+            raise AssertionError(f"objects differ from the .dats: {obj_sha} "
+                                 f"{dat_sha}")
+        checked, ecx_entries = 0, {}
+        for v, base in bases.items():
+            if os.path.exists(base + ".dat"):
+                raise AssertionError(f"{base}.dat still local after the tier")
+            with open(base + ".vif") as f:
+                rf = json.load(f)["files"][0]
+            if (rf["backendType"], rf["backendId"], rf["key"]) != (
+                    *TIER_BACKEND, os.path.basename(base) + ".dat") \
+                    or int(rf["fileSize"]) != size:
+                raise AssertionError(f"{base}.vif: {rf}")
+            if sorted(s for sids in spread[v].values() for s in sids) \
+                    != list(range(14)):
+                raise AssertionError(f"volume {v}: shards {spread[v]}")
+            view = os.path.join(work, f"parity_view_{v}")
+            os.makedirs(view)
+            for u, sids in spread[v].items():
+                for sid in sids:
+                    os.symlink(os.path.join(
+                        dirs[by_url[u]], f"{TIER_COLLECTION}_{v}.ec{sid:02d}"),
+                        os.path.join(view, f"{v}.ec{sid:02d}"))
+            checked += check_parity(os.path.join(view, str(v)), rs_cuda,
+                                    gf256, enc.DEFAULT_SLICE, device=device)
+            for n in names:  # every holder's copy of the .ecx
+                held = os.path.join(dirs[n], f"{TIER_COLLECTION}_{v}")
+                if url(n) in spread[v]:
+                    got = check_ecx(held, offset_bytes=5,
+                                    idx_base=bases[v])
+                    if os.path.getsize(held + ".ecx") != 17 * needles[v] \
+                            or got != needles[v]:
+                        raise AssertionError(f"{held}.ecx: {got} entries")
+                    ecx_entries[f"{v}@{n}"] = got
+        step("placement", {
+            "objects_sha256_equal": True, "local_dat_gone": True,
+            "vif_names_object": True, "parity_slices_checked": checked,
+            "spread": {str(v): {by_url[u]: s for u, s in spread[v].items()}
+                       for v in bases},
+            "ecx_entries": ecx_entries, "ecx_entry_bytes": 17})
+
+        # (c) GETs served from the remote tier
+        per = gets // len(bases)
+        before, s3_before = scrape_all(), s3.stats()
+        t0 = time.perf_counter()
+        got_rows, lat_of = {}, {v: [] for v in bases}
+
+        def remote_pass(v: int) -> None:
+            got_rows[v] = _tier_get_pass(f"remote_{v}", url(node_of[v]), v,
+                                         items(per)[v], records, lat_of[v])
+
+        with ThreadPoolExecutor(len(bases)) as pool:
+            list(pool.map(remote_pass, bases))
+        wall = time.perf_counter() - t0
+        s3_after, after = s3.stats(), scrape_all()
+        range_gets = s3_after["range_gets"] - s3_before["range_gets"]
+        if not range_gets:
+            raise AssertionError("(c): no ranged GET reached the endpoint")
+        reads = sum(r["reads"] for r in got_rows.values())
+        lat = np.concatenate([lat_of[v] for v in bases])
+        step("remote_gets", {
+            "reads": reads, "threads": EC_READ_THREADS * len(bases),
+            "wall_s": wall, "reads_per_s": reads / wall,
+            "by_volume": {str(v): got_rows[v] for v in bases},
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "endpoint_range_gets": range_gets,
+            "endpoint_bytes_out": s3_after["bytes_out"]
+            - s3_before["bytes_out"], "byte_equal": True,
+            "counts": counted("remote_gets", before, after)})
+
+        # (d) through the EC shards, from the node without the .dat
+        before, s3_before = scrape_all(), s3.stats()
+        ec_rows = {}
+        for v in bases:
+            n = other[node_of[v]]
+            ec_rows[v] = _tier_get_pass(f"ec_{v}_from_{n}", url(n), v,
+                                        items(ec_gets // len(bases))[v],
+                                        records)
+        s3_after, after = s3.stats(), scrape_all()
+        if s3_after["range_gets"] != s3_before["range_gets"]:
+            raise AssertionError("(d): EC reads went to the remote tier")
+        step("ec_gets", {
+            "route": "HTTP GET from the node holding only EC shards of the "
+                     "volume: its EcVolume searches the 17-byte .ecx and "
+                     "reads its own shards, the peer's by remote fetch",
+            "by_volume": {str(v): r for v, r in ec_rows.items()},
+            "reads": sum(r["reads"] for r in ec_rows.values()),
+            "byte_equal": True, "endpoint_range_gets": 0,
+            "counts": counted("ec_gets", before, after)})
+
+        # (e) the shell's round trip of volume 1
+        v1 = vid_of[names[0]]
+        n1 = node_of[v1]
+        down_s, out_down = cl.shell(f"volume.tier.download -volumeId={v1}")
+        if sha256_of(bases[v1] + ".dat") != dat_sha[v1] \
+                or os.path.exists(s3.object_path(
+                    os.path.basename(bases[v1]) + ".dat")):
+            raise AssertionError("volume.tier.download: the .dat differs "
+                                 "or the object stayed")
+        shell_row = _tier_get_pass("after_download", url(n1), v1,
+                                   items(shell_gets, per)[v1], records)
+
+        # (f) two refusals, with volume 1 local
+        stub = rpclib.volume_server_stub(
+            f"127.0.0.1:{cl.nodes[n1]['port'] + 10000}", timeout=600)
+        try:
+            list(stub.VolumeTierMoveDatToRemote(
+                vs_pb.VolumeTierMoveDatToRemoteRequest(
+                    volume_id=v1, destination_backend_name="s3.nobody")))
+            raise AssertionError("a move to an unregistered backend passed")
+        except grpc.RpcError as e:
+            if e.code() != grpc.StatusCode.FAILED_PRECONDITION \
+                    or "not configured" not in (e.details() or ""):
+                raise
+            refused_rpc = f"{e.code().name}: {e.details()}"
+        if sha256_of(bases[v1] + ".dat") != dat_sha[v1]:
+            raise AssertionError("the refused move changed the .dat")
+        denied_before = s3.stats()["denied"]
+        wrong = S3Backend("wrong", s3.url, TIER_BACKEND[1],
+                          access_key=TIER_ACCESS_KEY,
+                          secret_key="not-" + TIER_SECRET_KEY)
+        try:
+            wrong.read_range(
+                os.path.basename(bases[vid_of[names[1]]]) + ".dat", 0, 16)
+            raise AssertionError("a wrong secret was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 403:
+                raise
+            wrong_key = e.code
+        if s3.stats()["denied"] != denied_before + 1:
+            raise AssertionError("the endpoint did not count the refusal")
+
+        up_s, out_up = cl.shell(
+            f"volume.tier.upload -volumeId={v1} -dest={backend_name}")
+        key1 = os.path.basename(bases[v1]) + ".dat"
+        if sha256_of(s3.object_path(key1)) != dat_sha[v1] \
+                or os.path.exists(bases[v1] + ".dat"):
+            raise AssertionError("volume.tier.upload: the object differs or "
+                                 "the .dat stayed")
+        step("shell", {
+            "download_s": down_s, "download_GBps": size / down_s / 1e9,
+            "upload_s": up_s, "upload_GBps": size / up_s / 1e9,
+            "download_out": out_down.strip(), "upload_out": out_up.strip(),
+            "sha256_equal": True, "gets_after_download": shell_row})
+        step("refusals", {"wrong_secret_status": wrong_key,
+                          "unregistered_backend": refused_rpc,
+                          "dat_unchanged": True})
+
+        # (g) SIGTERM: clean exits
+        exits = cl.terminate((*names, "master"))
+        exits["s3"] = {"rc": s3.stop()}
+        if exits["s3"]["rc"] != 0:
+            raise AssertionError(f"the S3 endpoint exited {exits['s3']}")
+        step("stop", {"exits": exits})
+    except BaseException:
+        print(cl.tails(), file=sys.stderr, flush=True)
+        with open(s3.log, "rb") as f:
+            print(f"--- s3 ---\n{f.read()[-4000:].decode(errors='replace')}",
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        cl.stop_all()
+        if s3.proc.poll() is None:
+            s3.proc.kill()
+            s3.proc.wait()
+    summary = {"phase": "tier_summary",
                "wall_s": time.perf_counter() - t_phase,
                "launches_by_path": paths, "nvidia_smi": power}
     emit(summary)
@@ -4509,10 +5240,12 @@ def volume_size(work: str, want: int, count: int = 1,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--volume-gib", type=float, default=12.0)
-    ap.add_argument("--service-volume-gib", type=float, default=3.0)
+    # the volumes of phases 4-4f and 7 are sized so that the whole script
+    # ends within its 1200 s on a card whose host runs ~25 % slow
+    ap.add_argument("--volume-gib", type=float, default=10.5)
+    ap.add_argument("--service-volume-gib", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--store-volume-gib", type=float, default=12.0)
+    ap.add_argument("--store-volume-gib", type=float, default=6.0)
     ap.add_argument("--only-ec-reads", action="store_true",
                     help="phases 1-4b only, no kernels line (a quick check)")
     ap.add_argument("--only-store", action="store_true",
@@ -4538,6 +5271,12 @@ def main() -> int:
                     "kernels line (a quick check)")
     ap.add_argument("--only-mesh", action="store_true",
                     help="phases 1-2 and the mesh phase only, no kernels "
+                    "line (a quick check)")
+    ap.add_argument("--tier-volume-gib", type=float,
+                    default=TIER_VOLUME_BYTES / GIB,
+                    help="each of the tier phase's 2 volumes")
+    ap.add_argument("--only-tier", action="store_true",
+                    help="phases 1-2 and the tier phase only, no kernels "
                     "line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4600,8 +5339,8 @@ def main() -> int:
                 per_volume=3.5)
             reduced = [f"volume {size} bytes: SeaweedFS's default 30 GB "
                        "volume limit (-volumeSizeLimitMB 30000) cut for the "
-                       "machine's disk (.dat + 14 shards + copies ~3.4x)"
-                       ] + reduced
+                       "machine's disk (.dat + 14 shards + copies ~3.4x) "
+                       "and the script's time limit"] + reduced
             return phase_cluster(rs_cuda, gf256, work, size, args.seed,
                                  power, reduced, codec=args.cluster_codec)
         finally:
@@ -4639,9 +5378,25 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    def tier() -> dict:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            # 2 x (.dat, 14 shards, the object at the endpoint, copies)
+            size, reduced = volume_size(
+                work, int(args.tier_volume_gib * GIB) // MIB * MIB,
+                count=len(TIER_NODES), per_volume=3.5)
+            reduced = [f"2 volumes of {size} bytes (-volumeSizeLimitMB "
+                       f"{size // MIB}): SeaweedFS's default 30 GB volume "
+                       "limit cut for the script's run time, as 4g"
+                       ] + reduced
+            return phase_tier(rs_cuda, gf256, work, size, args.seed, power,
+                              reduced, codec=args.cluster_codec)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     for only, phase in (("only_cluster", cluster),
                         ("only_maintenance", maintenance),
-                        ("only_mesh", mesh)):
+                        ("only_mesh", mesh), ("only_tier", tier)):
         if getattr(args, only):
             phase()
             emit({"phase": "done", "wall_s": time.perf_counter() - start,
@@ -4678,6 +5433,9 @@ def main() -> int:
             size, reduced = volume_size(
                 work, int(args.volume_gib * GIB) // MIB * MIB,
                 per_volume=2.9)
+            reduced = [f"volume {size} bytes: SeaweedFS's default 30 GB "
+                       "volume limit cut for the script's time limit, one "
+                       "1 GB-block row kept"] + reduced
             e2e, digests = phase_end_to_end(rs_cuda, gf256, _build, enc,
                                             work, size, args.seed, reduced,
                                             parity16["ms"])
@@ -4701,6 +5459,9 @@ def main() -> int:
         size, reduced = volume_size(
             work, int(args.store_volume_gib * GIB) // MIB * MIB,
             per_volume=2.6)
+        reduced = [f"volume {size} bytes: SeaweedFS's default 30 GB volume "
+                   "limit cut for the script's time limit, no 1 GB-block "
+                   "row (phase 4 runs one)"] + reduced
         stored = phase_store_lifecycle(rs_cuda, gf256, enc, codec_service,
                                        metrics, work, size, args.seed,
                                        reduced)
@@ -4722,6 +5483,7 @@ def main() -> int:
     # starts in a fresh one, and the maintenance phase after it
     cluster_paths = cluster()["launches_by_path"]
     maint_paths = maintenance()["launches_by_path"]
+    tier_paths = tier()["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -4731,6 +5493,8 @@ def main() -> int:
         size, reduced = volume_size(
             work, int(args.service_volume_gib * GIB) // MIB * MIB,
             SERVICE_VOLUMES)
+        reduced = [f"{SERVICE_VOLUMES} volumes of {size} bytes: cut for the "
+                   "script's time limit"] + reduced
         svc = phase_service(rs_cuda, gf256, enc, codec_service, metrics, work,
                             size, args.seed, reduced)
         phase_default_route(rs_cuda, enc, codec_service,
@@ -4763,14 +5527,16 @@ def main() -> int:
         + sum(store_paths["gf_matmul"].values())
         + sum(server_paths["gf_matmul"].values())
         + sum(cluster_paths["gf_matmul"].values())
-        + sum(maint_paths["gf_matmul"].values()),
+        + sum(maint_paths["gf_matmul"].values())
+        + sum(tier_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
             "ec_reads": reads["read_launches"],
             "remote_rebuild": reads["rebuild_launches"],
             **store_paths["gf_matmul"], **server_paths["gf_matmul"],
-            **cluster_paths["gf_matmul"], **maint_paths["gf_matmul"]},
+            **cluster_paths["gf_matmul"], **maint_paths["gf_matmul"],
+            **tier_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -4789,6 +5555,7 @@ def main() -> int:
         + sum(server_paths["gf_matmul_batched"].values())
         + sum(cluster_paths["gf_matmul_batched"].values())
         + sum(maint_paths["gf_matmul_batched"].values())
+        + sum(tier_paths["gf_matmul_batched"].values())
         + sum(mesh_launches("gf_matmul_batched").values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
@@ -4798,6 +5565,7 @@ def main() -> int:
             **server_paths["gf_matmul_batched"],
             **cluster_paths["gf_matmul_batched"],
             **maint_paths["gf_matmul_batched"],
+            **tier_paths["gf_matmul_batched"],
             **mesh_launches("gf_matmul_batched")},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],

@@ -49,11 +49,13 @@ EC parity and `ec.decode`):
   * util/chunk_cache.py (IntervalCache), util/executors.py
     (MeteredThreadPoolExecutor).
   * storage/types.py, idx.py, needle_map.py, needle.py, super_block.py,
-    ttl.py, replica_placement.py, vif.py — the on-disk formats.
+    ttl.py, replica_placement.py, vif.py — the on-disk formats, with
+    4-byte or (`types.set_offset_size(5)`, process-wide) 5-byte offsets.
   * storage/ec/encoder.py — write_ec_files / generate_ec_files and
     rebuild_ec_files from local and remote (`remote_fetch`) sources,
     through the codec service (the default on a card) or the direct
-    pinned, stream-overlapped pipeline; write_sorted_file_from_idx.
+    pinned, stream-overlapped pipeline, or on the host codec's zero-copy
+    mmap route; write_sorted_file_from_idx.
   * storage/ec/locate.py, volume.py — EcVolume: needle reads with
     degraded reads decoded on the volume's codec, single-flight, the
     interval cache, .ecj deletes, remote fetches on a shared pool.
@@ -62,7 +64,9 @@ EC parity and `ec.decode`):
     health, and generate/rebuild/mount/unmount/delete of EC shards and
     ec_shards_to_volume, on the `cuda` codec by default (no switch to the
     host); disk_location.py, volume.py (write path, index, torn-tail
-    repair), backend.py (DiskFile), disk_health.py, group_commit.py,
+    repair, tier_to_remote / tier_to_local), backend.py (DiskFile,
+    RemoteBackendFile, the backend registry), backend_s3.py (the S3
+    remote tier, signed by s3api/auth.py), disk_health.py, group_commit.py,
     vacuum.py, disk_needle_map.py, and idx.py's IndexWriter.
   * storage/ec/decoder.py, shard_bits.py — `ec.decode` back to a volume.
   * storage/scrub.py — the Scrubber: token bucket, quarantine, volume and
@@ -86,7 +90,7 @@ EC parity and `ec.decode`):
     scrubber's shared background budget.
   * volume/server.py, volume/grpc_handlers.py — the volume server's gRPC
     side on the `cuda` codec by default: the EC, admin, copy, tail,
-    vacuum, scrub and status rpcs and the master heartbeat;
+    vacuum, scrub, tier-move and status rpcs and the master heartbeat;
     volume/http_handlers.py, volume/tcp_handlers.py over util/httpd.py —
     its HTTP and TCP planes.
   * master/ — the master: assign and growth, lookups, location pub/sub,
@@ -99,7 +103,7 @@ EC parity and `ec.decode`):
     controller (policies, a crash-safe job journal, seal and ec_encode on
     the volume servers' codec, vacuum, rebalance, ttl_expire) and
     dead-node mass repair (batched rebuilds on the survivors), both built
-    by every master; the tier transition is refused (policy.py).
+    by every master; the tier stage after a `keep_source` encode.
   * shell/ — the admin shell: CommandEnv, the maintenance script, the
     ec.* and volume.* commands; util/config.py (the TOML tier),
     util/grace.py (profiling hooks).
@@ -119,11 +123,10 @@ volume processes on its own).  Every protobuf message of the port lives in pb.PO
 never in protobuf's default pool, where the reference registers the same
 file names: a process importing both packages would fail.
 
-Not ported yet: the tier moves (backend_s3.py, Volume.tier_to_remote /
-tier_to_local), which answer UNIMPLEMENTED; the master's raft quorum, SLO
-engine and canary, flight recorder and federation; the shell's cluster.*
-and fs.* commands; gRPC TLS; the filer, the gateways and the CLI's other
-subcommands; spans and stage metrics inside the encode pipeline; 5-byte
-offsets.
+Not ported yet: the master's raft quorum, SLO engine and canary, flight
+recorder and federation; the shell's cluster.* and fs.* commands; gRPC
+TLS; the filer, the gateways (s3api/ holds only SigV4 signing, which the
+S3 remote tier uses) and the CLI's other subcommands; spans and stage
+metrics inside the encode pipeline.
 util/jaxenv.py works around a JAX-only hang and has no counterpart here.
 """

@@ -16,12 +16,9 @@ Differences from the reference, on purpose:
     `cuda`.  A volume server on a device codec on a host without a card
     exits non-zero naming the card;
   * a flag of a plane that is not ported (the master's SLO, canary,
-    flight-recorder and geo flags, `-peers` with a quorum, the volume's
-    `-tierBackends` and `-offset.5bytes`, the server's `-filer` and `-s3`)
-    given a value other than its default exits non-zero naming it, and so
-    does a `-lifecyclePolicy` file, or the policy persisted in
-    `-lifecycleDir`, naming a `tier_backend` (the remote tier, ROADMAP
-    A-2); the master's `-sloInterval` defaults to 0, not 15;
+    flight-recorder and geo flags, `-peers` with a quorum, the server's
+    `-filer` and `-s3`) given a value other than its default exits
+    non-zero naming it; the master's `-sloInterval` defaults to 0, not 15;
   * security.toml's JWT key and white list are read as the reference
     reads them; gRPC TLS certificates configured there make the process
     exit non-zero naming ROADMAP A-6 (security/tls.py is not ported), so
@@ -154,7 +151,7 @@ def cmd_master(args) -> None:
     sequencer = mconf.get_string("master.sequencer.type", "memory")
     node_id = mconf.get_int("master.sequencer.sequencer_snowflake_id")
     lifecycle_policy = None
-    if args.lifecyclePolicy:  # a refused policy raises in MasterServer
+    if args.lifecyclePolicy:
         import json
 
         with open(args.lifecyclePolicy) as f:
@@ -212,15 +209,27 @@ def _volume_server(args, codec: str, master_addresses: list[str]):
         whitelist=(args.whiteList.split(",")
                    if getattr(args, "whiteList", "")
                    else _security_white_list()),
+        tier_backends=_load_tier_backends(getattr(args, "tierBackends", "")),
         tcp_port=getattr(args, "tcpPort", 0),
     )
 
 
+def _load_tier_backends(path: str) -> "dict | None":
+    """-tierBackends: a JSON file {"s3.<id>": {"endpoint", "bucket",
+    "access_key", "secret_key", "region"}} (the [storage.backend] tier)."""
+    if not path:
+        return None
+    import json
+
+    with open(path) as f:
+        return json.load(f)
+
+
 def cmd_volume(args) -> None:
-    _refuse("-offset.5bytes", args.offset5, False,
-            "5-byte offsets (storage/types.py set_offset_size, ROADMAP A-8)")
-    _refuse("-tierBackends", args.tierBackends, "",
-            "the remote tier (storage/backend_s3.py, ROADMAP A-2)")
+    if args.offset5:
+        from .storage import types as _t
+
+        _t.set_offset_size(5)
     if args.index != "memory":
         from .storage.volume import set_needle_map_kind
 
@@ -417,7 +426,10 @@ def _parser() -> argparse.ArgumentParser:
                         "disk-backed sorted file for RAM-constrained "
                         "servers")
     v.add_argument("-offset.5bytes", dest="offset5", action="store_true",
-                   help="5-byte needle offsets (not ported: ROADMAP A-8)")
+                   help="5-byte needle offsets (8TB volumes; 17-byte "
+                        ".idx/.ecx entries): process-wide, and every volume "
+                        "process of the cluster needs it, since ec.encode "
+                        "copies .ecx files between nodes")
     v.add_argument("-ec.codec", dest="ec_codec", default="",
                    help="EC codec: cuda (the card; the default), cpu, "
                         "torch_cpu or auto (default: master.toml "
@@ -426,7 +438,9 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("-jwtKey", default="")
     v.add_argument("-whiteList", default="")
     v.add_argument("-tierBackends", default="",
-                   help="remote tier backends (not ported: ROADMAP A-2)")
+                   help="JSON file of remote tier backends "
+                        "({\"s3.<id>\": {endpoint, bucket, access_key, "
+                        "secret_key, region}})")
     v.set_defaults(fn=cmd_volume)
 
     s = sub.add_parser("server")

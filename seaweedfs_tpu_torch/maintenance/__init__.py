@@ -4,7 +4,7 @@ seaweedfs_tpu/maintenance/.
 A master-resident controller turns per-collection declarative policies
 into journaled, idempotent background jobs:
 
-    hot volume -> seal -> EC-encode (on the volume servers' cards)
+    hot volume -> seal -> EC-encode (on the volume servers' cards) -> tier
                   vacuum / rebalance / ttl-expire
 
 and a mass-repair orchestrator turns a dead volume server into one
@@ -13,8 +13,9 @@ against heartbeat-fed topology state, jobs are persisted to a crash-safe
 journal (replayed on master restart, duplicate-suppressed by (volume,
 transition) key), and execution is paced by a cluster-wide bytes/s token
 bucket plus the executor saturation gauges, so background traffic never
-starves foreground I/O.  The reference's tier stage is not ported
-(policy.py, ROADMAP A-2).
+starves foreground I/O.  The tier stage keeps the source volume through
+its encode (`keep_source`) and then moves the sealed `.dat` to the
+policy's remote backend (storage/backend_s3.py).
 """
 
 from .controller import LifecycleController, TRANSITIONS

@@ -5,13 +5,14 @@ port's copy of seaweedfs_tpu/maintenance/controller.py.
     per-collection `PolicySet` and plans transitions — seal
     (fullness/age), ttl_expire, ec_encode (cool-down; the volume server's
     VolumeEcShardsGenerate, on its codec: the card for a port server),
+    tier (the sealed, encoded .dat moved to a remote backend),
     vacuum (garbage ratio), rebalance (node skew, reusing the shell's
     move planner);
   * plans become journaled jobs, duplicate-suppressed by
     (volume, transition) and replayed across master restarts — every
     underlying RPC (VolumeMarkReadonly, VolumeEcShardsGenerate,
-    VacuumVolume*, VolumeCopy) is idempotent or two-phase, so a resumed
-    job re-runs safely;
+    VolumeTierMoveDatToRemote, VacuumVolume*, VolumeCopy) is idempotent
+    or two-phase, so a resumed job re-runs safely;
   * execution is bounded per node (one transition at a time per volume
     server by default), paced by a cluster-wide bytes/s token bucket
     (the scrubber's TokenBucket; the bucket's rate is also pushed to
@@ -19,14 +20,7 @@ port's copy of seaweedfs_tpu/maintenance/controller.py.
     per-node budget), and backs off while the executor queue-depth gauges
     show serving pools saturated.
 
-Left out: the reference's `tier` transition (`_do_tier`, the sealed .dat
-moved to a remote backend).  Only a policy with a `tier_backend` plans it,
-and the port refuses such a policy (policy.py, ROADMAP A-2), so no tier
-job is ever planned here.
-
-Port difference: a persisted policy file that names a tier backend
-raises at master start, as the constructor's and the CLI's policies do;
-any other bad policy file is warned about and the defaults stand, as in
+A bad persisted policy file is warned about and the defaults stand, as in
 the reference.
 
 Fault points: `lifecycle.job.run` fires before each job executes,
@@ -41,6 +35,8 @@ import os
 import threading
 import time
 
+import grpc
+
 from ..pb import rpc as rpclib
 from ..pb import volume_server_pb2 as vs
 from ..stats.metrics import (
@@ -54,7 +50,7 @@ from ..storage.scrub import TokenBucket, _saturation
 from ..storage.ttl import TTL
 from ..util import faultpoint, glog
 from .journal import ACTIVE_STATES, JobJournal, job_key
-from .policy import PolicySet, TierRefused
+from .policy import PolicySet
 
 FP_JOB_RUN = faultpoint.register("lifecycle.job.run")
 
@@ -72,8 +68,8 @@ TRANSITIONS = ("seal", "ttl_expire", "ec_encode", "tier", "vacuum",
 
 MAX_ATTEMPTS = 3
 # how long a finished vacuum/rebalance suppresses re-planning the same
-# (volume, transition); seal/ec/ttl are permanently suppressed by the
-# topology state itself (read_only flag, EC shard set, deleted vid)
+# (volume, transition); seal/ec/tier/ttl are permanently suppressed by
+# the topology state itself (read_only flag, EC shard set, deleted vid)
 REISSUE_AFTER_S = {"vacuum": 600.0, "rebalance": 600.0}
 
 
@@ -154,8 +150,6 @@ class LifecycleController:
                 return PolicySet.parse(json.load(f))
         except FileNotFoundError:
             return None
-        except TierRefused:
-            raise
         except (OSError, ValueError) as e:
             glog.warning("lifecycle: bad policy file %s: %s", path, e)
             return None
@@ -279,14 +273,21 @@ class LifecycleController:
                 return mk(vid, "vacuum", st, bytes_=st["size"],
                           ratio=pol.vacuum_garbage_ratio)
             return None
-        # sealed: encode when cold.  `keep_source` is the reference's
-        # flag for a tier stage after the encode, which no accepted
-        # policy plans here; it stays in the plan, always False
+        # sealed: encode when cold, then tier the .dat
         if (pol.ec_cooldown_seconds >= 0 and vid not in ec_vids
                 and st["size"] > 0
                 and quiet >= pol.ec_cooldown_seconds):
             return mk(vid, "ec_encode", st, bytes_=st["size"],
-                      codec=pol.ec_codec, keep_source=False)
+                      codec=pol.ec_codec,
+                      # when a tier stage follows, the source volume
+                      # must survive the encode so its .dat can move
+                      keep_source=bool(pol.tier_backend))
+        if (pol.tier_backend and st["size"] > 0
+                and (pol.ec_cooldown_seconds < 0 or vid in ec_vids)
+                and quiet >= pol.tier_idle_seconds):
+            return mk(vid, "tier", st, bytes_=st["size"],
+                      backend=pol.tier_backend,
+                      keep_local=pol.keep_local_dat)
         return None
 
     # -- low-space emergency (disk-fault plane) ---------------------------
@@ -298,9 +299,10 @@ class LifecycleController:
         """Heartbeat-ingest trigger: a node reports a low_space/full
         disk.  Plan emergency space recovery for the volumes it holds —
         vacuum anything with garbage (policy quiet windows and ratios
-        bypassed, read-only-full volumes INCLUDED via force).
-        Rate-limited per node; executes asynchronously on the worker
-        pool.  -> the accepted jobs."""
+        bypassed, read-only-full volumes INCLUDED via force), and tier
+        sealed volumes out when the collection's policy has a tier
+        backend.  Rate-limited per node; executes asynchronously on the
+        worker pool.  -> the accepted jobs."""
         now = time.monotonic()
         with self._low_space_lock:
             if (now - self._low_space_last.get(node_id, 0.0)
@@ -325,10 +327,8 @@ class LifecycleController:
         return accepted
 
     def plan_emergency(self, node_id: str) -> list[dict]:
-        """Pure: space-recovery plans for volumes held on `node_id` (the
-        reference's tier half needs a tier backend, which no accepted
-        policy names)."""
-        states, _ec_vids, _counts = self._volume_states()
+        """Pure: space-recovery plans for volumes held on `node_id`."""
+        states, ec_vids, _counts = self._volume_states()
         with self.master.topo.lock:
             node = self.master.topo.nodes.get(node_id)
             free_bytes = min(
@@ -344,11 +344,20 @@ class LifecycleController:
             # reserved delete headroom on a doomed copy and park the job
             live = int(st["size"] * (1.0 - st["garbage"]))
             fits = free_bytes == 0 or free_bytes > live * 1.1 + (4 << 20)
+            pol = self.policies.for_collection(st["collection"])
             if st["garbage"] >= self.EMERGENCY_GARBAGE_RATIO and fits:
                 plans.append(self._mk_plan(
                     vid, "vacuum", st, bytes_=st["size"],
                     ratio=self.EMERGENCY_GARBAGE_RATIO, force=True,
                     reason="low_space"))
+            elif (pol.tier_backend and st["read_only"] and st["size"] > 0
+                    and (pol.ec_cooldown_seconds < 0 or vid in ec_vids)):
+                # sealed + tier-eligible: move the .dat off the node NOW
+                # (idle-seconds bypassed — space is the emergency)
+                plans.append(self._mk_plan(
+                    vid, "tier", st, bytes_=st["size"],
+                    backend=pol.tier_backend,
+                    keep_local=False, reason="low_space"))
         return plans
 
     def _mk_plan(self, vid, transition, st, bytes_=0, **extra) -> dict:
@@ -495,14 +504,18 @@ class LifecycleController:
 
     def _throttle(self, job: dict) -> None:
         # saturation backoff first (the executor queue-depth gauges),
-        # then the bytes/s bucket — the scrubber's discipline
+        # then the bytes/s bucket — the scrubber's discipline.  Tier jobs
+        # skip the master-side bucket: their bytes are charged where the
+        # I/O happens, by the volume server's shared scrub bucket (which
+        # runs at the same pushed rate) inside VolumeTierMoveDatToRemote;
+        # charging both sides would bill every tiered byte twice
         while (_saturation() >= self.backoff_depth
                and not self._stop.is_set()):
             self._counts["backoff_seconds"] += 0.2
             if self._stop.wait(0.2):
                 return
         n = int(job.get("bytes") or 0)
-        if n > 0:
+        if n > 0 and job.get("transition") != "tier":
             self._counts["throttle_seconds"] += self.bucket.consume(
                 n, stop=self._stop)
 
@@ -619,6 +632,8 @@ class LifecycleController:
             vid, job["collection"],
             codec=job.get("codec", ""), delete_source=False,
             leader_epoch=self._epoch())
+        if job.get("keep_source"):
+            return detail  # a tier stage follows; the sealed .dat stays
         # zero-downtime source drop: heartbeat DELTAS carry the new shard
         # locations to the master — deleting before they land sends
         # degraded reads through a lookup that cannot see the fresh
@@ -635,6 +650,34 @@ class LifecycleController:
                 vs.VolumeDeleteRequest(
                     volume_id=vid, leader_epoch=self._epoch()))
         return detail + "; source volume dropped"
+
+    def _do_tier(self, job: dict) -> str:
+        vid = job["volume_id"]
+        holders = self._live_holders(job) or job["holders"]
+        node = job["node"] if job["node"] in holders else holders[0]
+        stub = self._stub(node)
+        try:
+            stub.VolumeMarkReadonly(vs.VolumeMarkReadonlyRequest(
+                volume_id=vid, leader_epoch=self._epoch()))
+        except grpc.RpcError:
+            pass  # already sealed / racing — the move checks again
+        processed = 0
+        try:
+            for resp in stub.VolumeTierMoveDatToRemote(
+                    vs.VolumeTierMoveDatToRemoteRequest(
+                        volume_id=vid,
+                        destination_backend_name=job["backend"],
+                        keep_local_dat_file=job.get("keep_local", False),
+                        leader_epoch=self._epoch())):
+                processed = resp.processed
+        except grpc.RpcError as e:
+            if (e.code() is grpc.StatusCode.FAILED_PRECONDITION
+                    and "already remote" in (e.details() or "")):
+                # resumed after a crash that lost the ack: the transition
+                # completed — idempotent success, not a failure
+                return f"already remote on {node}"
+            raise
+        return f".dat -> {job['backend']} on {node} ({processed} bytes)"
 
     def _do_vacuum(self, job: dict) -> str:
         ok = self.master.vacuum_volume(

@@ -9,31 +9,20 @@ field overrides:
 
     {
       "*":      {"seal_full_percent": 95, "vacuum_garbage_ratio": 0.3},
-      "photos": {"ec_cooldown_seconds": 3600}
+      "photos": {"ec_cooldown_seconds": 3600,
+                 "tier_backend": "s3.cold", "tier_idle_seconds": 86400}
     }
 
 Disabled-by-default transitions: EC encode (no cooldown configured),
-rebalance (skew 0).  Seal, vacuum and TTL expiry default on — they only
-ever act on volumes whose own state (fullness, garbage, expired TTL)
-already demands it.
-
-Port difference: a policy naming a `tier_backend` raises ValueError.  The
-tier transition moves a sealed `.dat` to a remote backend through
-`VolumeTierMoveDatToRemote`, which the port's volume server answers
-UNIMPLEMENTED (the remote tier, ROADMAP A-2); a policy that plans it is
-refused where it is made, never accepted and left to fail.  The field
-stays in the dataclass so policy files keep the reference's shape.
+tier (no backend configured), rebalance (skew 0).  Seal, vacuum and TTL
+expiry default on — they only ever act on volumes whose own state
+(fullness, garbage, expired TTL) already demands it.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import asdict, dataclass, fields
-
-
-class TierRefused(ValueError):
-    """A policy names a tier backend, which the port refuses (ROADMAP
-    A-2)."""
 
 
 @dataclass
@@ -47,7 +36,8 @@ class LifecyclePolicy:
     # disables (the cool-down gate from arXiv:1709.05365)
     ec_cooldown_seconds: float = -1.0
     ec_codec: str = ""  # "" = the volume server's default codec
-    # the reference's tier stage; any value other than "" is refused
+    # tier the sealed .dat to this backend ("s3.cold") after this long
+    # idle; "" disables.  keep_local_dat keeps the local copy too.
     tier_backend: str = ""
     tier_idle_seconds: float = 0.0
     keep_local_dat: bool = False
@@ -59,13 +49,6 @@ class LifecyclePolicy:
     # plan volume moves when max-min per-node volume counts exceeds this;
     # 0 disables
     rebalance_skew: int = 0
-
-    def __post_init__(self):
-        if self.tier_backend:
-            raise TierRefused(
-                f"tier_backend={self.tier_backend!r}: the tier transition "
-                "(VolumeTierMoveDatToRemote) is not ported yet (remote "
-                "tier, ROADMAP A-2)")
 
     def to_dict(self) -> dict:
         return asdict(self)

@@ -160,8 +160,8 @@ class MasterServer:
             alert_webhook=alert_webhook,
             debug_dir=debug_dir,
         )
-        # the maintenance plane: policy-driven seal -> EC-encode ->
-        # vacuum -> rebalance with a crash-safe job journal, built even
+        # the maintenance plane: policy-driven seal -> EC-encode -> tier
+        # -> vacuum -> rebalance with a crash-safe job journal, built even
         # when the periodic loop is off (interval 0) so /cluster/lifecycle
         # and volume.lifecycle work; and dead-node mass repair, riding the
         # same journal, triggered from the liveness sweep and executed as

@@ -106,7 +106,6 @@ _NOT_PORTED = {
     "collection.": "shell/fs_commands.py, ROADMAP A-7",
     "fs.": "shell/fs_commands.py, ROADMAP A-7",
     "s3.": "shell/fs_commands.py, ROADMAP A-7",
-    "volume.tier.": "the remote tier, ROADMAP A-2",
 }
 
 

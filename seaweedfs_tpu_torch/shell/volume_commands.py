@@ -5,12 +5,9 @@
 Reference: weed/shell/command_volume_*.go.  Placement decisions are pure
 functions over the TopologyInfo snapshot (tier-3 test pattern).
 
-The port's copy of seaweedfs_tpu/shell/volume_commands.py, without
-`volume.tier.upload` / `volume.tier.download` / `volume.tier.move` (the
-remote tier and disk-type moves, ROADMAP A-2); shell/commands.py names the
-item when one of them is asked for.  `volume.lifecycle -policy=` checks
-the policy here first, so a policy the port refuses (a `tier_backend`,
-ROADMAP A-2) raises ValueError before any rpc.
+The port's copy of seaweedfs_tpu/shell/volume_commands.py, with
+`volume.tier.upload` / `volume.tier.download` (a volume's `.dat` to and
+from a remote tier) and `volume.tier.move` (between disk types).
 """
 
 from __future__ import annotations
@@ -248,6 +245,43 @@ def _locate_volume(env: CommandEnv, vid: int) -> tuple[str, str]:
                 if v.id == vid:
                     return dn.id, v.collection
     raise RuntimeError(f"volume {vid} not found in topology")
+
+
+@register("volume.tier.upload")
+def volume_tier_upload(env: CommandEnv, args: list[str]) -> str:
+    """Move a volume's .dat to a remote tier backend; the index stays
+    local and reads keep working through ranged requests.
+    Reference: weed/shell/command_volume_tier_upload.go."""
+    flags = _parse_flags(args)
+    vid = int(flags["volumeId"])
+    dest = flags.get("dest", "s3.default")
+    keep = flags.get("keepLocalDatFile", "false") == "true"
+    node = _node_grpc(flags.get("node") or _locate_volume(env, vid)[0])
+    env.volume_server(node).VolumeMarkReadonly(
+        vs.VolumeMarkReadonlyRequest(volume_id=vid))
+    processed = 0
+    for resp in env.volume_server(node).VolumeTierMoveDatToRemote(
+            vs.VolumeTierMoveDatToRemoteRequest(
+                volume_id=vid, destination_backend_name=dest,
+                keep_local_dat_file=keep)):
+        processed = resp.processed
+    return f"volume {vid} .dat -> {dest} ({processed} bytes)"
+
+
+@register("volume.tier.download")
+def volume_tier_download(env: CommandEnv, args: list[str]) -> str:
+    """Bring a tiered volume's .dat back to local disk and make it
+    writable again (weed/shell/command_volume_tier_download.go)."""
+    flags = _parse_flags(args)
+    vid = int(flags["volumeId"])
+    node = _node_grpc(flags.get("node") or _locate_volume(env, vid)[0])
+    processed = 0
+    for resp in env.volume_server(node).VolumeTierMoveDatFromRemote(
+            vs.VolumeTierMoveDatFromRemoteRequest(volume_id=vid)):
+        processed = resp.processed
+    env.volume_server(node).VolumeMarkWritable(
+        vs.VolumeMarkWritableRequest(volume_id=vid))
+    return f"volume {vid} .dat downloaded ({processed} bytes)"
 
 
 def find_misplaced_volumes(topo: master_pb2.TopologyInfo) -> dict[int, dict]:
@@ -588,6 +622,139 @@ def volume_check_disk(env: CommandEnv, args: list[str]) -> str:
     return "\n".join(lines)
 
 
+def collect_volume_ids_for_tier_change(
+        topo, volume_size_limit: int, from_disk_type: str,
+        collection: str = "", full_percent: float = 95.0,
+        quiet_for_seconds: float = 0, now: "float | None" = None,
+) -> list[int]:
+    """Pure selection: quiet, full volumes currently on the source tier
+    (collectVolumeIdsForTierChange, command_volume_tier_move.go:153-180)."""
+    import time as _time
+
+    from ..storage.disk_location import normalize_disk_type
+
+    if now is None:
+        now = _time.time()
+    want = normalize_disk_type(from_disk_type)
+    vids = set()
+    for _dc, _rack, dn in _iter_nodes(topo):
+        for disk in dn.disk_infos.values():
+            for v in disk.volume_infos:
+                if normalize_disk_type(v.disk_type) != want:
+                    continue
+                if collection and v.collection != collection:
+                    continue
+                if v.size < volume_size_limit * full_percent / 100.0:
+                    continue
+                if (quiet_for_seconds > 0 and v.modified_at_second
+                        and now - v.modified_at_second < quiet_for_seconds):
+                    continue
+                vids.add(v.id)
+    return sorted(vids)
+
+
+def pick_tier_move_target(topo, vid: int, to_disk_type: str
+                          ) -> "tuple[str, str] | None":
+    """Pure placement: -> (source_node, target_node) or None.  Target =
+    node with the most free slots on the target tier that does not
+    already hold the volume (doVolumeTierMove,
+    command_volume_tier_move.go:93-150)."""
+    from ..storage.disk_location import normalize_disk_type
+
+    want = normalize_disk_type(to_disk_type)
+    holders = []
+    candidates = []
+    for _dc, _rack, dn in _iter_nodes(topo):
+        holds = False
+        free = 0
+        for dt, disk in dn.disk_infos.items():
+            for v in disk.volume_infos:
+                if v.id == vid:
+                    holds = True
+            if normalize_disk_type(dt) == want:
+                free = max(free, disk.max_volume_count - disk.volume_count)
+        if holds:
+            holders.append(dn.id)
+        elif free > 0:
+            candidates.append((free, dn.id))
+    if not holders or not candidates:
+        return None
+    candidates.sort(reverse=True)
+    return holders[0], candidates[0][1]
+
+
+@register("volume.tier.move")
+def volume_tier_move(env: CommandEnv, args: list[str]) -> str:
+    """Move quiet, full volumes from one disk tier to another
+    (command_volume_tier_move.go).  Only one replica moves; the rest are
+    dropped — follow with volume.fix.replication / volume.balance, as
+    SeaweedFS documents."""
+    from ..storage.disk_location import normalize_disk_type, \
+        readable_disk_type
+    from .ec_commands import _parse_duration
+
+    flags = _parse_flags(args)
+    from_dt = flags.get("fromDiskType", "")
+    to_dt = flags.get("toDiskType", "")
+    if readable_disk_type(from_dt) == readable_disk_type(to_dt):
+        raise RuntimeError(
+            f"source tier {readable_disk_type(from_dt)} is the same as "
+            f"target tier {readable_disk_type(to_dt)}")
+    collection = flags.get("collection", "")
+    full_percent = float(flags.get("fullPercent", "95"))
+    quiet_for = _parse_duration(flags.get("quietFor", "0"))
+    apply_changes = "force" in flags
+    if "volumeId" in flags:
+        vids = [int(flags["volumeId"])]
+    else:
+        topo = env.topology()
+        vids = collect_volume_ids_for_tier_change(
+            topo, env.volume_size_limit(), from_dt, collection,
+            full_percent, quiet_for)
+    lines = [f"tier move volumes: {vids}"]
+    for vid in vids:
+        topo = env.topology()
+        picked = pick_tier_move_target(topo, vid, to_dt)
+        if picked is None:
+            lines.append(
+                f"volume {vid}: no node with free "
+                f"{readable_disk_type(to_dt)} capacity")
+            continue
+        source, target = picked
+        lines.append(
+            f"moving volume {vid} from {source} to {target} with disk "
+            f"type {readable_disk_type(to_dt)}"
+            + ("" if apply_changes else " (dry run, -force to apply)"))
+        if not apply_changes:
+            continue
+        # reuse the in-hand snapshot for the replica scan AND the
+        # collection lookup — no extra VolumeList round trips per volume
+        replicas = []
+        collection_of = ""
+        for _dc, _rack, dn in _iter_nodes(topo):
+            for d in dn.disk_infos.values():
+                for v in d.volume_infos:
+                    if v.id == vid:
+                        collection_of = v.collection
+                        if dn.id not in replicas:
+                            replicas.append(dn.id)
+        for node in replicas:
+            env.volume_server(_node_grpc(node)).VolumeMarkReadonly(
+                vs.VolumeMarkReadonlyRequest(volume_id=vid))
+        env.volume_server(_node_grpc(target)).VolumeCopy(
+            vs.VolumeCopyRequest(
+                volume_id=vid, collection=collection_of,
+                source_data_node=_node_grpc(source),
+                disk_type=normalize_disk_type(to_dt) or "hdd"))
+        for node in replicas:
+            env.volume_server(_node_grpc(node)).VolumeDelete(
+                vs.VolumeDeleteRequest(volume_id=vid))
+        env.volume_server(_node_grpc(target)).VolumeMarkWritable(
+            vs.VolumeMarkWritableRequest(volume_id=vid))
+        lines.append(f"moved volume {vid} -> {target}")
+    return "\n".join(lines)
+
+
 @register("volume.lifecycle")
 def volume_lifecycle(env: CommandEnv, args: list[str]) -> str:
     """Operate the master's lifecycle controller.
@@ -599,11 +766,8 @@ def volume_lifecycle(env: CommandEnv, args: list[str]) -> str:
     Filters for -dry-run/-apply: -volumeId=N -transition=NAME."""
     import json as _json
 
-    from ..maintenance.policy import PolicySet
-
     flags = _parse_flags(args)
     if "policy" in flags:
-        PolicySet.parse(flags["policy"])  # refused policies raise here
         resp = env.master().Lifecycle(master_pb2.LifecycleRequest(
             action="policy", policy_json=flags["policy"]))
         return "lifecycle policy updated:\n" + resp.report

@@ -49,6 +49,7 @@ from ...stats.metrics import (
     EC_REBUILD_SECONDS,
     EC_REBUILD_SHARDS,
 )
+from ...util import faultpoint
 from ...util.executors import MeteredThreadPoolExecutor
 from ..needle_map import NeedleMap
 from .constants import (
@@ -109,9 +110,19 @@ def generate_ec_files(base_name: str,
     outs = [open(base_name + to_ext(i), "wb") for i in range(TOTAL_SHARDS)]
     try:
         with open(dat_path, "rb") as f:
-            slices = _encode_stream_pipelined(
-                f, dat_size, outs, codec, large_block_size, small_block_size,
-                slice_size, service, progress)
+            if (hasattr(codec, "parity_into") or service is not None) \
+                    and not hasattr(codec, "encode_device") and dat_size > 0:
+                # host codecs: the zero-copy route (reference
+                # encoder.py:103-112); on a host of few cores the pipeline
+                # is a SUM of stage costs, and this route drops the
+                # (10, W) gather copy and the per-1MB write syscalls
+                slices = _encode_stream_mmap(
+                    f, dat_size, outs, codec, large_block_size,
+                    small_block_size, slice_size, progress, service)
+            else:
+                slices = _encode_stream_pipelined(
+                    f, dat_size, outs, codec, large_block_size,
+                    small_block_size, slice_size, service, progress)
         if sync:
             for o in outs:
                 o.flush()
@@ -416,6 +427,124 @@ def _stream_apply(codec, matrix: np.ndarray, items, width_of, read_into,
     return slices
 
 
+try:
+    _IOV_MAX = os.sysconf("SC_IOV_MAX")
+    if _IOV_MAX <= 0:  # sysconf returns -1 for "unlimited/unknown"
+        _IOV_MAX = 1024
+except (ValueError, OSError, AttributeError):
+    _IOV_MAX = 1024
+
+
+def _writev_all(fd: int, bufs: list) -> None:
+    """os.writev with partial-write resume, chunked to IOV_MAX iovecs
+    (a small slice_size/small_block ratio can exceed the kernel limit).
+    Consumed iovecs advance an index, so a batch costs O(n) in iovecs."""
+    i = 0
+    while i < len(bufs):
+        n = os.writev(fd, bufs[i:i + _IOV_MAX])
+        while i < len(bufs) and n >= len(bufs[i]):
+            n -= len(bufs[i])
+            i += 1
+        if n and i < len(bufs):
+            bufs[i] = memoryview(bufs[i])[n:]
+
+
+def _encode_stream_mmap(f, dat_size, outs, codec, large, small, slice_size,
+                        progress=None, service=None) -> int:
+    """Single-threaded zero-copy encode for host codecs; -> codec calls
+    (batches) dispatched.
+
+    Per _slice_tasks batch: each stripe row of each segment is a 1-D view
+    into the mmap'd .dat (page cache), passed directly to the SIMD GF
+    kernel (codec.parity_into) and to writev for the data-shard appends:
+    no (10, W) stripe gather, no per-MB write() syscalls.  Rows that cross
+    EOF fall back to a small zero-padded copy (SeaweedFS zero-pads tail
+    buffers, ec_encoder.go:162-192); rows fully past EOF share one zeros
+    buffer.  No prefetch or writer thread: on a host of few cores they
+    only add GIL churn."""
+    import mmap
+
+    # no MAP_POPULATE: prefaulting a 30GB volume upfront would stall the
+    # encode and thrash hosts with RAM < volume; MADV_SEQUENTIAL readahead
+    # streams pages just ahead of the kernel
+    mm = mmap.mmap(f.fileno(), 0, prot=mmap.PROT_READ)
+    view = None
+    batches = 0
+    try:
+        if hasattr(mm, "madvise"):
+            try:
+                mm.madvise(mmap.MADV_SEQUENTIAL)
+            except (ValueError, OSError):
+                pass
+        view = np.frombuffer(mm, dtype=np.uint8)
+        n_parity = len(codec.parity_matrix) if hasattr(
+            codec, "parity_matrix") else 4
+        zeros: "np.ndarray | None" = None
+        done = 0
+        parity = np.empty((n_parity, slice_size), dtype=np.uint8)
+        for batch in _slice_tasks(dat_size, large, small, slice_size):
+            total = sum(seg[3] for seg in batch)
+            # per shard: the ordered list of row buffers for this batch
+            per_shard: list[list[np.ndarray]] = [
+                [] for _ in range(DATA_SHARDS)]
+            for row_start, block, col, width in batch:
+                for i in range(DATA_SHARDS):
+                    off = row_start + i * block + col
+                    if off + width <= dat_size:
+                        row = view[off:off + width]
+                    elif off >= dat_size:
+                        if zeros is None or len(zeros) < width:
+                            zeros = np.zeros(max(width, small), dtype=np.uint8)
+                        row = zeros[:width]
+                    else:
+                        row = np.zeros(width, dtype=np.uint8)
+                        n = dat_size - off
+                        row[:n] = view[off:off + n]
+                    per_shard[i].append(row)
+            # parity per segment into contiguous per-batch output slabs
+            at = 0
+            futures = []
+            if service is not None:
+                # one vectored submit for the whole batch of segments: the
+                # service coalesces them (and any concurrent volume's)
+                # into one call, and the data-shard writev below overlaps
+                # the parity compute
+                seg_ins, seg_outs = [], []
+                for s, (_, _, _, width) in enumerate(batch):
+                    seg_ins.append(
+                        [per_shard[i][s] for i in range(DATA_SHARDS)])
+                    seg_outs.append(
+                        [parity[j, at:at + width] for j in range(n_parity)])
+                    at += width
+                futures = service.submit_parity_many(seg_ins, seg_outs)
+            else:
+                for s, (_, _, _, width) in enumerate(batch):
+                    codec.parity_into(
+                        [per_shard[i][s] for i in range(DATA_SHARDS)],
+                        [parity[j, at:at + width] for j in range(n_parity)])
+                    at += width
+            for i in range(DATA_SHARDS):
+                outs[i].flush()  # keep the buffered layer empty around writev
+                _writev_all(outs[i].fileno(), per_shard[i])
+            for fut in futures:
+                fut.result()  # parity slab must be full before its writev
+            for j in range(n_parity):
+                outs[DATA_SHARDS + j].flush()
+                _writev_all(outs[DATA_SHARDS + j].fileno(),
+                            [parity[j, :total]])
+            batches += 1
+            done += total * DATA_SHARDS
+            if progress is not None:
+                progress(min(done, dat_size))
+    finally:
+        del view  # release the exported buffer before closing the map
+        try:
+            mm.close()
+        except BufferError:
+            pass  # stray view still alive; the map dies with the process
+    return batches
+
+
 def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
                              slice_size, service=None, progress=None) -> int:
     """Encode the .dat open as `f` into the 14 open shard files `outs`;
@@ -443,6 +572,12 @@ def _encode_stream_pipelined(f, dat_size, outs, codec, large, small,
         _slice_tasks(dat_size, large, small, slice_size),
         width_of, read_into, write_out, slice_size,
         None if service is None else service.submit_parity)
+
+
+# fires once per rebuilt slice, before the source reads: chaos tests kill
+# a rebuild mid-stream here and assert the clean-error contract (partial
+# .ecNN outputs removed, retry succeeds)
+FP_REBUILD_READ = faultpoint.register("ec.rebuild.read")
 
 
 def _pick_rebuild_sources(local: list[int], remote_fetch, partial=None
@@ -653,6 +788,7 @@ def rebuild_ec_files(base_name: str, codec_name: str = "cuda",
             thread_name_prefix="ec-rebuild-read")
 
         def read_into(off: int, dest: np.ndarray) -> None:
+            faultpoint.inject(FP_REBUILD_READ, ctx=base_name)
             list(pool.map(lambda j: read_source(local_srcs[j], off, dest[j]),
                           range(len(local_srcs))))
             if use_partial:

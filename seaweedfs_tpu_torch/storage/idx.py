@@ -1,5 +1,5 @@
-"""`.idx` index files: a flat log of 16-byte (key, offset, size) entries —
-the port's copy of seaweedfs_tpu/storage/idx.py (4-byte offsets only).
+"""`.idx` index files: a flat log of 16-byte (key, offset, size) entries
+(17 with 5-byte offsets) — the port's copy of seaweedfs_tpu/storage/idx.py.
 
 Reference: weed/storage/idx/walk.go.  Offsets are stored /8; size -1 marks
 deletion; a zero offset also deletes.  A torn trailing partial entry is
@@ -18,7 +18,7 @@ from . import types as t
 
 
 def walk_index_blob(blob: bytes) -> Iterator[tuple[int, int, int]]:
-    """Yield (key, actual_offset, size) for every whole 16-byte entry."""
+    """Yield (key, actual_offset, size) for every whole entry."""
     n = len(blob) - (len(blob) % t.NEEDLE_MAP_ENTRY_SIZE)
     for i in range(0, n, t.NEEDLE_MAP_ENTRY_SIZE):
         yield t.unpack_index_entry(blob[i: i + t.NEEDLE_MAP_ENTRY_SIZE])
@@ -52,9 +52,13 @@ def parse_index_arrays(path: "str | os.PathLike"):
     raw = np.frombuffer(blob, dtype=np.uint8, count=n * esz).reshape(n, esz)
     # explicit big-endian dtypes keep this host-endianness-independent
     keys = raw[:, 0:8].copy().view(">u8").reshape(n).astype(np.uint64)
+    off_end = 8 + t.OFFSET_SIZE
     stored = raw[:, 8:12].copy().view(">u4").reshape(n).astype(np.int64)
+    if t.OFFSET_SIZE == 5:  # high byte appended after the BE lower word
+        stored = stored | (raw[:, 12].astype(np.int64) << 32)
     offsets = stored * t.NEEDLE_PADDING_SIZE
-    sizes = raw[:, 12:16].copy().view(">i4").reshape(n).astype(np.int32)
+    sizes = raw[:, off_end:off_end + 4].copy().view(">i4").reshape(n) \
+        .astype(np.int32)
     return keys, offsets, sizes
 
 

@@ -1,5 +1,5 @@
 """In-memory needle maps: needle id -> (offset, size) — the port's copy of
-seaweedfs_tpu/storage/needle_map.py (4-byte offsets only).
+seaweedfs_tpu/storage/needle_map.py.
 
 The reference's memory kind is a two-level compact map — sorted batched
 arrays plus an overflow area, ~20 bytes/entry, rebuilt in 100k-entry
@@ -219,13 +219,17 @@ class NeedleMap:
         vectorised big-endian pack of the merged base arrays."""
         self._merge()
         n = len(self._keys)
+        off_end = 8 + t.OFFSET_SIZE
         out = np.empty((n, t.NEEDLE_MAP_ENTRY_SIZE), dtype=np.uint8)
         out[:, 0:8] = self._keys.astype(">u8")[:, None].view(np.uint8) \
             .reshape(n, 8)
         stored = self._offsets // t.NEEDLE_PADDING_SIZE
         out[:, 8:12] = (stored & 0xFFFFFFFF).astype(">u4")[:, None] \
             .view(np.uint8).reshape(n, 4)
-        out[:, 12:16] = self._sizes.astype(np.uint32).astype(">u4")[:, None] \
+        if t.OFFSET_SIZE == 5:
+            out[:, 12] = (stored >> 32).astype(np.uint8)
+        out[:, off_end:off_end + 4] = \
+            self._sizes.astype(np.uint32).astype(">u4")[:, None] \
             .view(np.uint8).reshape(n, 4)
         with open(path, "wb") as f:
             f.write(out.tobytes())

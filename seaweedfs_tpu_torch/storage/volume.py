@@ -11,8 +11,8 @@ The `.dat` bytes flow through a BackendStorageFile (backend.py — the seam
 from weed/storage/backend/backend.go:15): local volumes use DiskFile; a
 volume whose `.vif` records a remote tier placement opens the registered
 backend's remote file instead (volume_tier.go LoadRemoteFile), and fails
-to load while no backend of that name is registered.  Moving a volume to
-or from a tier (`tier_to_remote` / `tier_to_local`) is not ported yet.
+to load while no backend of that name is registered.  `tier_to_remote` /
+`tier_to_local` move the `.dat` to and from a tier (volume_grpc_tier.go).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .idx import IndexWriter, append_index_tombstone, walk_index_file
 from .needle import Needle, actual_size, body_length
 from .needle_map import NeedleMap
 from .super_block import SuperBlock
-from .vif import load_volume_info
+from .vif import load_volume_info, save_volume_info
 
 # chaos point inside the (unlocked) disk-read section of the needle read
 # path: lets tests prove two GETs on one volume overlap
@@ -511,6 +511,80 @@ class Volume:
         except (OSError, ValueError, struct.error):
             os.close(fd)
             return None
+
+    # -- remote tier ------------------------------------------------------
+
+    def tier_to_remote(self, backend_name: str, keep_local: bool = False,
+                       progress=None) -> int:
+        """Upload the .dat to a remote tier, record it in the .vif, and
+        reopen through the remote file (volume.tier.upload;
+        volume_grpc_tier.go).  Returns bytes uploaded.
+
+        The order is upload, .vif, reopen, then remove the local .dat, so
+        a crash at any point leaves the volume readable from one side.
+        The upload runs OUTSIDE the volume lock: the volume is read-only
+        and the .dat append-only, so the bytes are immutable while they
+        move and reads keep being served (a throttled lifecycle tier job
+        paces the upload through the progress callback)."""
+        backend = get_backend(backend_name)
+        if backend is None:
+            raise IOError(f"backend {backend_name} not configured")
+        with self._lock:
+            if self.is_remote:
+                raise IOError(f"volume {self.volume_id} is already remote")
+            if self._tier_in_progress:
+                raise IOError(
+                    f"volume {self.volume_id}: tier move already running")
+            self._tier_in_progress = True
+            self.read_only = True  # no appends while the bytes move
+            self._dat.sync()
+            base = self.file_name()
+            key = f"{os.path.basename(base)}.dat"
+            size = self._dat.file_size()
+        try:
+            backend.upload_file(base + ".dat", key, progress=progress)
+            with self._lock:
+                save_volume_info(
+                    base + ".vif", self.version,
+                    replication=str(self.super_block.replica_placement or ""),
+                    dat_file_size=size,
+                    remote_files=[{
+                        "backend_type": backend.backend_type,
+                        "backend_id": backend.backend_id,
+                        "key": key,
+                        "file_size": size,
+                        "modified_time": int(time.time()),
+                        "extension": ".dat",
+                    }])
+                self.volume_info = load_volume_info(base + ".vif")
+                self._dat.close()
+                self._dat = backend.remote_file(key, size)
+                if not keep_local:
+                    os.remove(base + ".dat")
+                return size
+        finally:
+            with self._lock:
+                self._tier_in_progress = False
+
+    def tier_to_local(self, progress=None) -> int:
+        """Download the .dat back from its remote tier and reopen locally
+        (volume.tier.download).  Returns bytes downloaded."""
+        with self._lock:
+            if not self.is_remote:
+                return 0
+            remote = self._dat
+            base = self.file_name()
+            got = remote.backend.download_file(remote.key, base + ".dat",
+                                               progress=progress)
+            remote.backend.delete_file(remote.key)
+            save_volume_info(
+                base + ".vif", self.version,
+                replication=str(self.super_block.replica_placement or ""),
+                dat_file_size=got)
+            self.volume_info = load_volume_info(base + ".vif")
+            self._dat = DiskFile(base + ".dat")
+            self.read_only = False
+            return got
 
     # -- stats / lifecycle ------------------------------------------------
 

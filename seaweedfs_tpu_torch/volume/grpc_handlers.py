@@ -12,11 +12,9 @@ shared codec service's batched launch when the probe finds a card.
 needle of an EC volume is read through `read_needle`, so a lost interval
 is decoded on the server's codec, the card on a `cuda` server.
 
-Not ported yet: `VolumeTierMoveDatToRemote` and
-`VolumeTierMoveDatFromRemote` (need the remote tier backends and the SigV4
-signing of s3api/auth.py).  This service has no method for them, so
-pb/rpc.py answers UNIMPLEMENTED, as the reference's rpc layer does for any
-method its service object lacks.
+`VolumeTierMoveDatToRemote` / `VolumeTierMoveDatFromRemote` move a
+volume's `.dat` to and from a registered remote tier (volume_grpc_tier.go;
+storage/backend_s3.py), streaming progress per part.
 """
 
 from __future__ import annotations
@@ -689,6 +687,50 @@ class VolumeGrpcService:
         return vs.VolumeTailReceiverResponse()
 
     # -- SQL-on-blob query (volume_grpc_query.go:12 + weed/query/) ---------
+
+    # -- remote tier -------------------------------------------------------
+
+    def VolumeTierMoveDatToRemote(self, request, context):
+        """Upload a volume's .dat to the named remote tier backend and
+        record it in the .vif (volume_grpc_tier.go; shell command
+        volume.tier.upload).  The stream carries one final message, as
+        the reference's does; every uploaded byte is charged to the
+        node's shared background bucket (the scrubber's) as each part
+        goes, so a tier move and a scrub pass together stay within one
+        budget."""
+        self._check_epoch(request, context, "VolumeTierMoveDatToRemote")
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND, "volume not found")
+        total = max(v.content_size, 1)
+        sent: list[int] = [0]
+        scrubber = getattr(self.server, "scrubber", None)
+
+        def progress(n):
+            delta = n - sent[0]
+            sent[0] = n
+            if scrubber is not None:
+                scrubber.throttle_background(delta)
+
+        try:
+            v.tier_to_remote(request.destination_backend_name,
+                             keep_local=request.keep_local_dat_file,
+                             progress=progress)
+        except (IOError, PermissionError) as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        yield vs.VolumeTierMoveDatToRemoteResponse(
+            processed=sent[0] or total, processedPercentage=100.0)
+
+    def VolumeTierMoveDatFromRemote(self, request, context):
+        v = self.store.find_volume(request.volume_id)
+        if v is None:
+            context.abort(grpc.StatusCode.NOT_FOUND, "volume not found")
+        try:
+            got = v.tier_to_local()
+        except IOError as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        yield vs.VolumeTierMoveDatFromRemoteResponse(
+            processed=got, processedPercentage=100.0)
 
     def Query(self, request, context):
         from ..query import query_csv_lines, query_json_lines

@@ -21,8 +21,6 @@ Differences from the reference, on purpose:
     raises there; it never switches to the host by itself.  Each EC rpc's
     `codec` field is honoured, and an HTTP GET of a needle in a lost
     interval is decoded on the server's codec;
-  * no `tier_backends` argument: the remote tier (storage/backend_s3.py)
-    is not ported, and the tier-move rpcs answer UNIMPLEMENTED;
   * `stop()` joins every thread the server started — the heartbeat, the
     HTTP, metrics and TCP front ends with their connection threads, and
     the replica fan-out pool — and releases the port's cached channels to
@@ -93,9 +91,21 @@ class VolumeServer:
         metrics_port: int = 0,
         jwt_signing_key: bytes | str = b"",
         whitelist: list[str] | None = None,
+        tier_backends: dict | None = None,
         tcp_port: int = 0,  # experimental raw-TCP data path; 0 disables
         disk_types: list[str] | None = None,  # per-dir: hdd (default) / ssd
     ):
+        # remote-tier backends: {"s3.default": {"endpoint": ..., ...}}
+        # (the [storage.backend] config tier; backend.go:32-46)
+        if tier_backends:
+            from ..storage.backend_s3 import make_s3_backend
+
+            for name, conf in tier_backends.items():
+                btype, _, bid = name.partition(".")
+                if btype == "s3":
+                    make_s3_backend(bid or "default", conf)
+                else:
+                    glog.warning("unknown tier backend type %s", btype)
         self.ip = ip
         self.port = port
         self.tcp_port = tcp_port

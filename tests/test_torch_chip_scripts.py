@@ -20,6 +20,7 @@ import chip_ab  # noqa: E402
 @pytest.mark.parametrize("argv", [["chip_smoke.py"],
                                   ["chip_smoke.py", "--only-maintenance"],
                                   ["chip_smoke.py", "--only-mesh"],
+                                  ["chip_smoke.py", "--only-tier"],
                                   ["chip_ab.py", "--tree", "a=."]])
 def test_exits_nonzero_without_a_card(argv):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
@@ -494,3 +495,69 @@ def test_mesh_phase_rehearsed_on_the_host(tmp_path, capsys, monkeypatch):
     assert set(out["launches_by_path"]) >= {
         "config4_batch_encode", "virtual2x4_mesh_rebuild", "dryrun",
         "service_card", "service_virtual2x4"}
+
+
+def test_tier_phase_rehearsed_on_the_host(tmp_path, capsys):
+    """chip_smoke.py's tier phase (4h) with 2 volumes of 12 MiB on this
+    host: the script's own S3 endpoint (a child process checking SigV4 by
+    its own code), a master with a tier policy and two volume processes
+    of `python -m seaweedfs_tpu_torch` with `-offset.5bytes
+    -tierBackends` and `-ec.codec torch_cpu` (the kernel's plain version,
+    passed because the caller asks).  Every check of the phase passes:
+    the controller seals, encodes (keeping the source) and tiers both
+    volumes, the objects equal the .dats by sha256, the .ecx files hold
+    17-byte entries, GETs from the remote tier and through the EC shards
+    are equal, the shell's download and upload round trip is equal, a
+    wrong secret gets 403, a move to an unregistered backend fails, and
+    every process exits 0 on SIGTERM."""
+    import chip_smoke
+    from helpers import free_port
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+
+    work = tmp_path / "work"
+    work.mkdir()
+    out = chip_smoke.phase_tier(
+        rs_cuda, gf256, str(work), 12 << 20, seed=0, power="test card",
+        reduced=["test size"], codec="torch_cpu", device="cpu",
+        free_port=free_port, gets=64, ec_gets=16, shell_gets=8)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {f"tier_{s}" for s in (
+        "start", "encode_and_tier", "placement", "remote_gets", "ec_gets",
+        "shell", "refusals", "stop", "summary")}
+    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    start = rows["tier_start"]
+    assert {v: n * 17 for v, n in start["needles"].items()} \
+        == start["idx_bytes"]
+    enc = rows["tier_encode_and_tier"]
+    assert set(enc["jobs"]) == {"1", "2"}
+    assert all(set(j) == {"seal", "ec_encode", "tier"}
+               for j in enc["jobs"].values())
+    # 12 MiB is over the backend's 8 MiB part size: two multipart uploads
+    assert enc["s3"]["bytes_in"] == 2 * (12 << 20)
+    assert (enc["s3"]["completes"], enc["s3"]["parts"]) == (2, 4)
+    assert enc["s3"]["denied"] == 0
+    place = rows["tier_placement"]
+    assert place["objects_sha256_equal"] and place["local_dat_gone"]
+    assert place["parity_slices_checked"] >= 2
+    assert len(place["ecx_entries"]) == 4  # both .ecx on both nodes
+    remote = rows["tier_remote_gets"]
+    assert remote["byte_equal"] and remote["reads"] == 64
+    assert remote["endpoint_range_gets"] > 0
+    # percentiles over both volumes' 64 requests together
+    assert 0 < remote["p50_ms"] <= remote["p99_ms"]
+    ec = rows["tier_ec_gets"]
+    assert ec["byte_equal"] and ec["reads"] == 16
+    shell = rows["tier_shell"]
+    assert shell["sha256_equal"] and shell["download_GBps"] > 0
+    assert shell["gets_after_download"]["reads"] == 8
+    ref = rows["tier_refusals"]
+    assert ref["wrong_secret_status"] == 403
+    assert ref["unregistered_backend"].startswith("FAILED_PRECONDITION")
+    assert {n: e["rc"] for n, e in rows["tier_stop"]["exits"].items()} \
+        == {"a": 0, "b": 0, "master": 0, "s3": 0}
+    # no card: the kernels' launch counters stayed at 0 on every server
+    assert out["launches_by_path"] == {"gf_matmul": {},
+                                       "gf_matmul_batched": {}}

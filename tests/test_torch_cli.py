@@ -3,11 +3,13 @@ two volume servers as real processes (the cluster of
 tests/test_cli_processes.py, with a second volume server where that one
 has a filer, which the port does not have yet), needles written through
 assigns and `ec.encode` run by `shell -c`; SIGTERM stops each process
-cleanly.  Then the refusals: a `volume` with no codec on this card-less
-host names the card, the TPU codec names are refused naming `cuda`, a
-subcommand, plane flag or TLS setting not ported yet exits naming its
-ROADMAP item, and the entry point's modules import neither jax nor any
-module of seaweedfs_tpu."""
+cleanly.  The volume's `-tierBackends` and `-offset.5bytes` serve
+needles from a remote tier and from a 5-byte-offset volume, and a master
+takes a lifecycle policy naming a tier backend.  Then the refusals: a
+`volume` with no codec on this card-less host names the card, the TPU
+codec names are refused naming `cuda`, a subcommand, plane flag or TLS
+setting not ported yet exits naming its ROADMAP item, and the entry
+point's modules import neither jax nor any module of seaweedfs_tpu."""
 
 import json
 import os
@@ -210,8 +212,6 @@ def test_subcommands_not_ported_exit_2_naming_the_roadmap(tmp_path, cmd,
     (["master", "-sloInterval", "15"], "slo_interval"),
     (["master", "-sloSpecs", "s.json"], "-sloSpecs"),
     (["master", "-peers", "127.0.0.1:{p},127.0.0.1:1"], "raft"),
-    (["volume", "-tierBackends", "t.json", "-ec.codec=cpu"], "A-2"),
-    (["volume", "-offset.5bytes", "-ec.codec=cpu"], "A-8"),
     (["server", "-filer", "-ec.codec=cpu"], "A-7"),
 ])
 def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
@@ -223,6 +223,70 @@ def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
     out = _cli(argv, str(tmp_path))
     assert out.returncode != 0
     assert words in out.stderr and "not ported yet" in out.stderr
+
+
+@pytest.mark.parametrize("flag", ["-tierBackends", "-offset.5bytes"])
+def test_volume_tier_and_offset_flags_are_live(tmp_path, flag):
+    """`-tierBackends` registers the JSON file's S3 tier, so a volume
+    whose .vif places its .dat in the S3 stub loads and serves GETs by
+    ranged reads; `-offset.5bytes` makes the process read a volume with
+    17-byte index entries (written by the reference at 5 bytes).  Each
+    needle comes back equal; SIGTERM exits 0."""
+    from helpers import make_volume, start_s3_stub
+
+    from seaweedfs_tpu.storage import types as rt
+    from seaweedfs_tpu.storage.backend_s3 import make_s3_backend
+
+    stub, handler = start_s3_stub()
+    try:
+        argv = []
+        if flag == "-offset.5bytes":
+            rt.set_offset_size(5)
+        try:
+            vol = make_volume(str(tmp_path), volume_id=3, n_needles=20,
+                              seed=2)
+            want = {i: (vol.read_needle(i).cookie, vol.read_needle(i).data)
+                    for i in (1, 11, 20)}
+            if flag == "-tierBackends":
+                conf = {"endpoint": f"http://127.0.0.1:"
+                                    f"{stub.server_address[1]}",
+                        "bucket": "cli"}
+                make_s3_backend("cli", conf)
+                # the local copy stays: a location discovers its volumes
+                # by their .dat files, as the reference's does
+                vol.tier_to_remote("s3.cli", keep_local=True)
+                (tmp_path / "t.json").write_text(json.dumps(
+                    {"s3.cli": conf}))
+                argv = ["-tierBackends", "t.json"]
+            else:
+                assert os.path.getsize(tmp_path / "3.idx") == 20 * 17
+                argv = ["-offset.5bytes"]
+            vol.close()
+        finally:
+            rt.set_offset_size(4)
+        port = free_port()
+        reads = handler.range_reads
+        with open(tmp_path / "v.log", "wb") as log:
+            p = _spawn(["volume", "-dir", str(tmp_path), "-port", str(port),
+                        "-mserver", "127.0.0.1:1", "-ec.codec=cpu", *argv],
+                       str(tmp_path), log)
+            try:
+                _wait(lambda: (tmp_path / "v.log").read_text().count(
+                    "codec=cpu"), "the server's start line", [p])
+                for key, (cookie, data) in want.items():
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/3,{key:x}"
+                            f"{cookie:08x}", timeout=10) as r:
+                        assert r.read() == data
+                assert (handler.range_reads > reads) \
+                    == (flag == "-tierBackends")
+            finally:
+                p.send_signal(signal.SIGTERM)
+                assert p.wait(timeout=DEADLINE_S) == 0
+    finally:
+        stub.shutdown()
+        stub.server_close()
+    assert "Traceback" not in (tmp_path / "v.log").read_text()
 
 
 def test_lifecycle_flags_are_live(tmp_path):
@@ -270,14 +334,25 @@ def test_lifecycle_flags_are_live(tmp_path):
     ["-lifecyclePolicy", "lifecycle.policy.json"],
     ["-lifecycleDir", "."],  # the policy a reference master persisted
 ])
-def test_lifecycle_policy_with_a_tier_backend_is_refused(tmp_path, flags):
+def test_lifecycle_policy_with_a_tier_backend_is_accepted(tmp_path, flags):
+    """A policy naming a tier backend, from -lifecyclePolicy or the file
+    a master persisted in -lifecycleDir, reaches the controller, as
+    /cluster/lifecycle shows; SIGTERM exits 0."""
     (tmp_path / "lifecycle.policy.json").write_text(json.dumps(
         {"*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}}))
-    out = _cli(["master", "-port", str(free_port()), *flags],
-               str(tmp_path))
-    assert out.returncode != 0
-    assert "not ported yet" in out.stderr
-    assert "remote tier, ROADMAP A-2" in out.stderr
+    port = free_port()
+    with open(tmp_path / "master.log", "wb") as log:
+        p = _spawn(["master", "-port", str(port), *flags], str(tmp_path),
+                   log)
+        try:
+            doc = _wait(lambda: _get_json(
+                f"http://127.0.0.1:{port}/cluster/lifecycle"),
+                "/cluster/lifecycle", [p])
+            assert doc["policies"]["*"]["tier_backend"] == "s3.cold"
+            assert doc["policies"]["*"]["ec_cooldown_seconds"] == 0
+        finally:
+            p.send_signal(signal.SIGTERM)
+            assert p.wait(timeout=DEADLINE_S) == 0
 
 
 def test_grpc_tls_in_security_toml_is_refused(tmp_path):

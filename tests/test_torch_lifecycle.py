@@ -4,14 +4,10 @@ journal, controller planning over the same DataNode/VolumeInfo fixtures
 (the port's plans must equal the reference's), submission dedup, job
 execution against a missing volume server, TTL expiry, the shared scrub
 budget, the balance planners the shell and the controller share, the
-policy file, and the spreads the controller's ec_encode jobs plan (from
-one snapshot, or in turn).
-
-Port differences the cases show: a policy naming a `tier_backend` is
-refused with ValueError naming the remote tier (ROADMAP A-2) wherever it
-is made, so the reference's tier cases become refusals here; the
-reference's compaction-of-a-remote-volume case needs the remote tier and
-has no counterpart.
+policy file, the compaction of a remote-tiered volume, and the spreads
+the controller's ec_encode jobs plan (from one snapshot, or in turn).  The
+tier stage's plans (ec_encode keeping its source, then tier; the
+low-space tier half) equal the reference's.
 """
 
 from __future__ import annotations
@@ -39,7 +35,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"ref": (RefMaster, RefNode, RefVolume, ref_pb),
         "port": (PortMaster, PortNode, PortVolume, port_pb)}
-A2 = "remote tier, ROADMAP A-2"
+TIER_POLICY = {"*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}}
 
 
 @pytest.fixture
@@ -104,17 +100,19 @@ def test_policy_defaults():
 
 
 def test_policy_per_collection_override():
+    from seaweedfs_tpu.maintenance import PolicySet as RefPolicySet
+
     doc = {"*": {"seal_full_percent": 80},
-           "photos": {"ec_cooldown_seconds": 10, "ec_codec": "cuda"}}
+           "photos": {"ec_cooldown_seconds": 10, "ec_codec": "cuda",
+                      "tier_backend": "s3.cold"}}
     p = PolicySet.parse(doc)
     assert p.for_collection("photos").ec_cooldown_seconds == 10
     assert p.for_collection("photos").ec_codec == "cuda"
+    assert p.for_collection("photos").tier_backend == "s3.cold"
     # photos does NOT inherit the '*' seal override (whole-policy wins)
     assert p.for_collection("other").seal_full_percent == 80
     assert p.for_collection("photos").seal_full_percent == 95.0
-    # the reference's override names a tier backend: refused here
-    with pytest.raises(ValueError, match=A2):
-        PolicySet.parse({"photos": {"tier_backend": "s3.cold"}})
+    assert p.to_dict() == RefPolicySet.parse(doc).to_dict()
 
 
 def test_policy_rejects_unknown_fields():
@@ -279,21 +277,21 @@ def test_evaluate_ec_cooldown_gate(masters):
 
 
 def test_evaluate_tier_follows_ec_and_keeps_source(masters, tmp_path):
-    """The reference plans ec_encode (source kept) then tier; the port
-    refuses the policy that asks for it, at construction, naming A-2."""
-    policy = {"*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}}
-    with pytest.raises(ValueError, match=A2):
-        masters(policy=policy)
-    ref = RefMaster(ip="127.0.0.1", port=free_port(),
-                    volume_size_limit_mb=1, lifecycle_policy=policy)
+    """A policy with a tier backend plans ec_encode keeping its source
+    while a volume is not encoded, then tier once it is; the same plans
+    as the reference's."""
+    ms = masters(policy=TIER_POLICY)
     now = int(time.time())
-    _add_node({"ref": ref}, "127.0.0.1:9001", {
+    _add_node(ms, "127.0.0.1:9001", {
         1: dict(size=1 << 19, read_only=True, modified_at_second=now - 50),
         2: dict(size=1 << 19, read_only=True, modified_at_second=now - 50),
     }, ec_vids=(2,))
-    plans = {p["key"]: p for p in ref.lifecycle.evaluate()}
+    plans = {p["key"]: p for p in _plans(ms, now)}
+    # v1 not yet encoded -> ec first, and the tier stage pins the source
     assert plans["1:ec_encode"]["keep_source"] is True
+    # v2 already encoded -> its .dat tiers now
     assert plans["2:tier"]["backend"] == "s3.cold"
+    assert plans["2:tier"]["keep_local"] is False
 
 
 def test_evaluate_half_sealed_volume_replans_seal(masters):
@@ -309,28 +307,31 @@ def test_evaluate_half_sealed_volume_replans_seal(masters):
     assert "1:seal" in keys  # sealed means sealed on EVERY replica
 
 
-def test_plan_emergency_equal_and_tier_half_refused(masters):
+@pytest.mark.parametrize("policy", [None, TIER_POLICY],
+                         ids=["vacuum_only", "tier_half"])
+def test_plan_emergency_equal_to_the_reference(masters, policy):
     """plan_emergency on a low-space node: the same forced vacuums as
-    the reference's (garbage over 1 %, the live bytes fit); the
-    reference's tier half needs a tier backend, which the port refuses."""
-    ms = masters()
+    the reference's (garbage over 1 %, the live bytes fit), and with a
+    tier backend in the policy the same tier half, a sealed encoded
+    volume without garbage moved off the node at once."""
+    ms = masters(policy=policy)
     now = int(time.time())
     _add_node(ms, "127.0.0.1:9001", {
         1: dict(size=1 << 20, deleted_byte_count=1 << 16, read_only=True,
                 modified_at_second=now - 10),
         2: dict(size=1 << 20, modified_at_second=now - 10),  # no garbage
-    })
+        4: dict(size=1 << 20, read_only=True, modified_at_second=now),
+    }, ec_vids=(4,))
     _add_node(ms, "127.0.0.1:9002", {
         3: dict(size=1 << 20, deleted_byte_count=1 << 18,
                 modified_at_second=now - 10)})
     got = {pkg: m.lifecycle.plan_emergency("127.0.0.1:9001")
            for pkg, m in ms.items()}
     assert got["port"] == got["ref"]
-    assert [(p["key"], p["force"], p["reason"]) for p in got["port"]] == [
-        ("1:vacuum", True, "low_space")]
-    with pytest.raises(ValueError, match=A2):
-        ms["port"].lifecycle.set_policies(
-            {"*": {"tier_backend": "s3.cold"}})
+    want = [("1:vacuum", "low_space")]
+    if policy:
+        want.append(("4:tier", "low_space"))
+    assert [(p["key"], p["reason"]) for p in got["port"]] == want
 
 
 def test_submit_dedups_and_serializes_per_volume(masters):
@@ -408,13 +409,13 @@ def test_run_pending_scoped_by_keys(masters):
 
 def test_done_seal_never_reissued(masters):
     m = masters()["port"]
-    plan = {"key": "9:seal", "volume_id": 9, "transition": "seal",
+    plan = {"key": "9:tier", "volume_id": 9, "transition": "tier",
             "collection": "", "node": "n1", "holders": ["n1"],
-            "bytes": 0}
+            "bytes": 10, "backend": "s3.x"}
     assert m.lifecycle.submit([plan])
-    m.lifecycle.journal.update("9:seal", state="done")
-    rec = m.lifecycle.journal.get("9:seal")
-    rec["updated_ms"] = 0  # even "long ago" done seal stays done
+    m.lifecycle.journal.update("9:tier", state="done")
+    rec = m.lifecycle.journal.get("9:tier")
+    rec["updated_ms"] = 0  # even "long ago" done tier stays done
     m.lifecycle.journal.put(rec)
     assert m.lifecycle.submit([plan]) == []
 
@@ -514,6 +515,31 @@ def test_shared_budget_withdrawable(tmp_path):
 # ---------------------------------------------------------------------------
 # pure balance planners (shared by the shell and the controller)
 # ---------------------------------------------------------------------------
+
+
+def test_compact_refuses_remote_or_tiering_volume(tmp_path):
+    """tests/test_lifecycle.py's case on the port's Store: a volume whose
+    .dat moved to the S3 stub is not compacted (the vacuum a lifecycle job
+    or the master runs), naming the remote tier."""
+    from helpers import make_volume, start_s3_stub
+
+    from seaweedfs_tpu_torch.storage.backend_s3 import make_s3_backend
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    stub, _handler = start_s3_stub()
+    try:
+        endpoint = f"http://127.0.0.1:{stub.server_address[1]}"
+        make_s3_backend("vacrt", {"endpoint": endpoint, "bucket": "b"})
+        make_volume(str(tmp_path), volume_id=23, n_needles=5).close()
+        store = Store([str(tmp_path)], needle_cache_mb=0, codec_name="cpu")
+        v = store.find_volume(23)
+        v.tier_to_remote("s3.vacrt")
+        with pytest.raises(ValueError, match="remote-tiered"):
+            store.compact_volume(23)
+        store.close()
+    finally:
+        stub.shutdown()
+        stub.server_close()
 
 
 def _topo(pb, node_vols: dict[str, list[int]], max_count: int = 10):
@@ -674,25 +700,28 @@ def test_constructor_policy_overrides_file(tmp_path):
         assert json.load(f)["*"]["rebalance_skew"] == 5
 
 
-@pytest.mark.parametrize("doc,refused", [
+@pytest.mark.parametrize("doc,kept", [
     ({"*": {"tier_backend": "s3.cold", "ec_cooldown_seconds": 0}}, True),
     ({"*": {"no_such_field": 1}}, False),
 ])
-def test_persisted_policy_file_at_master_start(tmp_path, doc, refused):
+def test_persisted_policy_file_at_master_start(tmp_path, doc, kept):
     """A persisted policy file naming a tier backend (a reference
-    master's) stops the master from starting, naming ROADMAP A-2, as the
-    constructor's and the CLI's policies do; any other bad policy file
-    is warned about and the default policies stand, as in the
-    reference."""
+    master's) is the master's policy at start, as the reference reads
+    it; a bad policy file is warned about and the default policies
+    stand, as in the reference."""
     (tmp_path / "lifecycle.policy.json").write_text(json.dumps(doc))
-    if refused:
-        with pytest.raises(ValueError, match="ROADMAP A-2"):
-            PortMaster(ip="127.0.0.1", port=free_port(),
-                       lifecycle_dir=str(tmp_path))
-        return
     m = PortMaster(ip="127.0.0.1", port=free_port(),
                    lifecycle_dir=str(tmp_path))
-    assert m.lifecycle.policies.to_dict() == PolicySet().to_dict()
+    ref = RefMaster(ip="127.0.0.1", port=free_port(),
+                    lifecycle_dir=str(tmp_path))
+    got = m.lifecycle.policies.to_dict()
+    assert got == ref.lifecycle.policies.to_dict()
+    if kept:
+        assert got == PolicySet.parse(doc).to_dict()
+        assert m.lifecycle.policies.for_collection("x").tier_backend \
+            == "s3.cold"
+    else:
+        assert got == PolicySet().to_dict()
 
 
 # ---------------------------------------------------------------------------

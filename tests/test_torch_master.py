@@ -338,16 +338,24 @@ def test_cluster_lifecycle_and_vol_repair_answer_as_the_reference(masters):
         assert docs["port"] == docs["ref"], path
 
 
-def test_tier_backend_policy_is_refused_naming_a2():
-    """A policy naming a tier backend raises ValueError at the
-    constructor and at set_policies, naming the remote tier's item."""
-    with pytest.raises(ValueError, match="remote tier, ROADMAP A-2"):
-        PortMaster(ip="127.0.0.1", port=free_port(), lifecycle_policy={
-            "*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}})
-    m = PortMaster(ip="127.0.0.1", port=free_port())
-    with pytest.raises(ValueError, match="remote tier, ROADMAP A-2"):
-        m.lifecycle.set_policies({"photos": {"tier_backend": "s3.cold"}})
-    assert m.lifecycle.policies.for_collection("photos").tier_backend == ""
+def test_tier_backend_policy_is_accepted_as_the_reference(tmp_path):
+    """A policy naming a tier backend is taken at the constructor and at
+    set_policies, persisted, and read back by a reference master the same
+    way."""
+    from seaweedfs_tpu.master.server import MasterServer as RefMaster
+
+    doc = {"*": {"ec_cooldown_seconds": 0, "tier_backend": "s3.cold"}}
+    m = PortMaster(ip="127.0.0.1", port=free_port(), lifecycle_policy=doc)
+    assert m.lifecycle.policies.for_collection("x").tier_backend == "s3.cold"
+    m = PortMaster(ip="127.0.0.1", port=free_port(),
+                   lifecycle_dir=str(tmp_path))
+    m.lifecycle.set_policies({"photos": {"tier_backend": "s3.cold",
+                                         "tier_idle_seconds": 60}})
+    pol = m.lifecycle.policies.for_collection("photos")
+    assert (pol.tier_backend, pol.tier_idle_seconds) == ("s3.cold", 60)
+    ref = RefMaster(ip="127.0.0.1", port=free_port(),
+                    lifecycle_dir=str(tmp_path))
+    assert ref.lifecycle.policies.to_dict() == m.lifecycle.policies.to_dict()
 
 
 def test_maintenance_plane_arguments_are_live(tmp_path):

@@ -359,15 +359,38 @@ def test_unknown_and_left_out_commands_raise(clusters):
     _ref, port, _d, _src = clusters
     with pytest.raises(ValueError, match="unknown command 'nope'"):
         port.run("nope")
-    for line, item in (("volume.tier.upload -volumeId=1", "A-2"),
-                       ("cluster.status", "A-5"),
+    for line, item in (("cluster.status", "A-5"),
                        ("fs.ls /", "A-7"),
                        ("collection.list", "A-7")):
         with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
             port.run(line)
+    # the remote tier's and disk-type moves' commands are the port's own
+    for name in ("volume.tier.upload", "volume.tier.download",
+                 "volume.tier.move"):
+        assert name in port_shell.COMMANDS
     assert port.run("") == ""
     assert port.run("lock") == "locked"
     assert port.run("unlock") == "unlocked"
+
+
+def test_volume_lifecycle_installs_a_tier_policy(clusters):
+    """`volume.lifecycle -policy=` with a tier backend: both masters take
+    it and report the same policy document; the default comes back the
+    same way."""
+    ref, port, _d, _src = clusters
+    doc = ('{"tier":{"ec_cooldown_seconds":60,"tier_backend":"s3.cold",'
+           '"tier_idle_seconds":30}}')
+    try:
+        outs = {c.pkg: c.run(f"volume.lifecycle -policy='{doc}'")
+                for c in (ref, port)}
+        assert outs["port"] == outs["ref"]
+        pol = port.master.lifecycle.policies.for_collection("tier")
+        assert (pol.tier_backend, pol.tier_idle_seconds) == ("s3.cold", 30)
+    finally:
+        for c in (ref, port):
+            c.run("volume.lifecycle -policy={}")
+    assert port.master.lifecycle.policies.for_collection("tier") \
+        .tier_backend == ""
 
 
 def test_maintenance_script_is_the_reference_default():

@@ -297,3 +297,74 @@ def test_vif_missing_and_snake_case(tmp_path):
     want = rvif.load_volume_info(p)
     assert _vif_fields(got) == _vif_fields(want)
     assert got.dat_file_size == 77
+
+
+# -- 5-byte offsets (offset_5bytes.go) -----------------------------------------
+
+
+def test_five_byte_offsets_lift_32gb_cap(tmp_path):
+    """tests/test_storage_formats.py's case on the port, each byte held
+    against the reference's at 5 bytes too: 17-byte index entries carry
+    offsets beyond the 4-byte 32GB limit through the entry packers, the
+    .idx writer and vectorised parser, and the sorted .ecx writer."""
+    from seaweedfs_tpu.storage.needle_map import NeedleMap as RNeedleMap
+    from seaweedfs_tpu_torch.storage.needle_map import NeedleMap
+
+    pt.set_offset_size(5)
+    rt.set_offset_size(5)
+    try:
+        assert pt.NEEDLE_MAP_ENTRY_SIZE == 17
+        assert pt.MAX_POSSIBLE_VOLUME_SIZE == rt.MAX_POSSIBLE_VOLUME_SIZE \
+            == 8 << 40
+        big = 40 * (1 << 30)  # 40GB: beyond the 4-byte cap
+        b = pt.offset_to_bytes(big)
+        assert len(b) == 5 and pt.bytes_to_offset(b) == big
+        assert b == rt.offset_to_bytes(big)
+        entry = pt.pack_index_entry(7, big, 1234)
+        assert len(entry) == 17 and entry == rt.pack_index_entry(7, big, 1234)
+        assert pt.unpack_index_entry(entry) == (7, big, 1234)
+        # .idx writer + vectorised parser agree, and with the reference's
+        p = tmp_path / "big.idx"
+        w = pidx.IndexWriter(str(p))
+        w.put(1, 8, 10)
+        w.put(2, big, 20)
+        w.delete(1, 0)
+        w.close()
+        keys, offsets, sizes = pidx.parse_index_arrays(str(p))
+        assert list(keys) == [1, 2, 1]
+        assert list(offsets) == [8, big, 0]
+        assert list(sizes) == [10, 20, -1]
+        for got, want in zip((keys, offsets, sizes),
+                             ridx.parse_index_arrays(str(p))):
+            assert np.array_equal(got, want)
+        assert list(pidx.walk_index_file(str(p))) \
+            == list(ridx.walk_index_file(str(p)))
+        # sorted .ecx write/read round-trip at >32GB offsets
+        for Map, name in ((NeedleMap, "port"), (RNeedleMap, "ref")):
+            nm = Map()
+            nm.put(5, big, 99)
+            nm.put(3, 16, 7)
+            nm.write_sorted_index(str(tmp_path / f"{name}.ecx"))
+        raw = (tmp_path / "port.ecx").read_bytes()
+        assert raw == (tmp_path / "ref.ecx").read_bytes() and len(raw) == 34
+        assert pt.unpack_index_entry(raw[17:]) == (5, big, 99)
+        assert len(NeedleMap.load_from_idx(str(p))) == 1
+    finally:
+        pt.set_offset_size(4)
+        rt.set_offset_size(4)
+    assert pt.NEEDLE_MAP_ENTRY_SIZE == 16
+
+
+def test_four_byte_offsets_reject_beyond_cap():
+    import struct
+
+    assert pt.OFFSET_SIZE == 4
+    top = 32 * (1 << 30) - 8  # top of the 4-byte range
+    b = pt.offset_to_bytes(top)
+    assert pt.bytes_to_offset(b) == top and b == rt.offset_to_bytes(top)
+    for mod in (pt, rt):  # one past it does not fit 4 bytes
+        with pytest.raises(struct.error):
+            mod.offset_to_bytes(32 * (1 << 30))
+    with pytest.raises(ValueError, match="4 or 5"):
+        pt.set_offset_size(6)
+    assert pt.OFFSET_SIZE == 4

@@ -12,8 +12,8 @@ server on `cpu` and one on `torch_cpu` must record exactly what a
 reference VolumeServer records.  Each port server is driven through the
 reference's stub and the reference server through the port's, so both
 stubs meet both servers.  A reference MasterServer hears a port server's
-heartbeat and names its shards; the rpcs the port leaves out answer
-UNIMPLEMENTED; a `cuda` server refuses to start without a card.
+heartbeat and names its shards; the tier moves answer a missing volume
+as the reference's do; a `cuda` server refuses to start without a card.
 Servers bind test-band ports and are stopped in the fixtures; waits are on
 gates (the master's condition, an Event set by the reference master's
 topology), never on sleeps.
@@ -243,7 +243,9 @@ def test_ec_rpcs_answer_as_the_reference(codec, sealed, reference_flow,
             assert got[key] == want, key
 
 
-def test_unported_rpcs_answer_unimplemented(tmp_path):
+def test_tier_rpcs_answer_a_missing_volume_as_the_reference(tmp_path):
+    """Every volume-server rpc has its handler: the tier moves answer
+    NOT_FOUND for a volume the server lacks, as the reference's do."""
     master = chip_smoke.MiniMaster(rpc, master_pb2, free_port() + 10000)
     srv = VolumeServer([str(tmp_path)], [master.address], ip="127.0.0.1",
                        port=free_port(), codec_name="cpu")
@@ -258,7 +260,7 @@ def test_unported_rpcs_answer_unimplemented(tmp_path):
                  vs.VolumeTierMoveDatFromRemoteRequest(volume_id=1))):
             with pytest.raises(grpc.RpcError) as e:
                 list(getattr(stub, name)(req))
-            assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED, name
+            assert e.value.code() == grpc.StatusCode.NOT_FOUND, name
         # Query is ported: a malformed fid is an error of its own, not
         # UNIMPLEMENTED (tests/test_torch_query.py holds its answers)
         with pytest.raises(grpc.RpcError) as e:

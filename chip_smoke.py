@@ -1,13 +1,14 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--volume-gib 10.5] [--service-volume-gib 2]
-                          [--store-volume-gib 6] [--seed 0]
-                          [--cluster-volume-gib 6] [--cluster-codec cuda]
-                          [--maintenance-volume-gib 1]
-                          [--tier-volume-gib 1]
+    python3 chip_smoke.py [--volume-gib 10.5] [--service-volume-gib 1]
+                          [--store-volume-gib 3] [--seed 0]
+                          [--cluster-volume-gib 3] [--cluster-codec cuda]
+                          [--maintenance-volume-gib 0.5]
+                          [--tier-volume-gib 1] [--quorum-volume-gib 1]
                           [--only-ec-reads | --only-store |
                            --only-volume-server | --only-cluster |
-                           --only-maintenance | --only-mesh | --only-tier]
+                           --only-maintenance | --only-mesh | --only-tier |
+                           --only-quorum]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
@@ -18,7 +19,9 @@ system as operators start it: a master, volume servers and the admin
 shell, each a `python -m seaweedfs_tpu_torch` process, and the master's
 maintenance plane doing the same with no operator: sealing and encoding
 volumes by policy, rebuilding a dead server's shards on the survivors,
-and moving sealed `.dat` files to an S3 remote tier.  A full volume
+and moving sealed `.dat` files to an S3 remote tier, and a raft quorum
+of masters failing over mid-encode while its SLO engine, canary and
+flight recorder judge the cluster.  A full volume
 `.dat` of needle records is striped into the RS(10,4) shards
 `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
 ones are rebuilt, and needles are read back, lost intervals decoded on
@@ -84,7 +87,7 @@ Phases, each printing one JSON line:
      to phase 4's;
   4c. store_lifecycle, in a fresh directory after 4b's is removed: one
      Store([dir]) on the default `cuda` codec and service settings, a
-     volume of --store-volume-gib (6 by default: 1 MB-block rows only,
+     volume of --store-volume-gib (3 by default: 1 MB-block rows only,
      phase 4 keeps the 1 GB-block row)
      written through Store.write_needle (seeded needles of 1 B..256 KiB,
      each needle's length and CRC kept) and sealed; generate_ec_shards on
@@ -152,7 +155,7 @@ Phases, each printing one JSON line:
      mass repair switched off by SEAWEEDFS_TPU_MASS_REPAIR=0: this phase's
      subject is the shell's rebuild) and three volume processes (`-max
      40`, no -ec.codec: their default `cuda`; A alone in rack1 holding a
-     sealed volume of --cluster-volume-gib, 6 by default, made before it
+     sealed volume of --cluster-volume-gib, 3 by default, made before it
      starts; B and C in rack0), started in that order; (1)
      256 MiB of seeded needles by /dir/assign?replication=001, POSTed by
      16 threads and read back through /dir/lookup; (2) `shell -c
@@ -173,7 +176,7 @@ Phases, each printing one JSON line:
      controller's defaults otherwise) and four volume processes (`-max
      40`, their default `cuda`; A and B in rack0, C and D in rack1, D
      registered first), each holding two volumes of
-     --maintenance-volume-gib (1 by default) made before it starts, the
+     --maintenance-volume-gib (0.5 by default) made before it starts, the
      second last written MAINT_WAVE_GAP_S after the first; no operator
      command: (1) the controller seals and EC-encodes all 8 volumes in two
      waves, one volume of each node at a time (14 shards each over the 4
@@ -215,13 +218,44 @@ Phases, each printing one JSON line:
      as it was; (g) SIGTERM: clean exits, the endpoint's too.  The 5-byte
      offsets live in the volume processes only: this script's own process
      stays at 4 bytes;
+  4i. quorum, in a fresh directory after 4h's is removed: SeaweedFS's
+     documented HA layout, three `master` processes naming each other in
+     `-peers` (each its own `-raftDir` and `-lifecycleDir`, 4g's policy,
+     `-lifecycleInterval 3 -sloInterval 1 -canaryInterval 1 -debugDir`,
+     burn windows at tests/test_slo_cluster.py's scale 0.005, every page
+     captured) and four `volume` processes (`-mserver` naming all three,
+     their default `cuda`, SEAWEEDFS_TPU_EC_PARTIAL=0: a degraded interval
+     decodes on the card), A and B in rack0, C and D in rack1, each
+     holding one sealed volume of --quorum-volume-gib (1 by default; its
+     first needle spans every data shard's first 1 MiB block) and one
+     empty writable volume: (0) the election and the registrations; (1)
+     256 seeded writes through a follower's /dir/assign (307 to the
+     leader), fids unique, read back; (2) the leader SIGKILLed as soon as
+     an ec_encode job runs: the seconds to a new leader, to a warmed one
+     and to every volume encoded with its source dropped, each job done
+     once in the new leader's journal (a resumed one marked), the
+     follower's job set equal, parity equal to the plain version,
+     batched launches on every generating node and the host codec on
+     none, volume ids grown afterwards new; (3) ec_degraded probes ok on
+     every node with the card's launches moving (read through the
+     leader's federated /cluster/metrics), the probe's p50, then a byte
+     of parity shard 10 flipped: the availability page in /cluster/alerts
+     and `shell -c cluster.alerts`, a bundle captured on its own and
+     listed by `shell -c cluster.debug`, the byte restored and the page
+     resolved; (4) the killed master restarted on its -raftDir, a
+     caught-up follower listing the same done jobs; (5) D SIGKILLed
+     (another node holding at most 4 shards of every volume if the
+     encodes stacked 5 on D): the repair on the survivors' cards, equal
+     by sha256, the time to recover as in 4g, 2048 GETs during it; (6)
+     one degraded GET of the lead needle traced by /cluster/traces, and
+     /cluster/hot listing 16 keys read 8 times each; (7) SIGTERM;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
   6. kernel_sweep: bench.py:104's leg, K parity sweeps over windows
      shifted by 128 KiB in one gf_sweep launch per stage, timed beside
      gf_apply at the same width and the memory bound;
-  7. service_concurrent: 4 volumes (2 GiB each) encoded from 4 threads
+  7. service_concurrent: 4 volumes (1 GiB each) encoded from 4 threads
      through one device-mode CodecService with its default settings,
      .ec00-.ec03 of each deleted and rebuilt from 4 threads through it,
      checked by sha256, .ecx and sampled parity.  Launch counts are zeroed
@@ -276,7 +310,9 @@ line; `--only-maintenance` runs phases 1-2 and 4g alone (a quick check:
 kernels line; `--only-mesh` runs phases 1-2 and the mesh phase alone, and prints
 no kernels line; `--only-tier` runs phases 1-2 and 4h alone (a quick
 check: `--only-tier --tier-volume-gib 0.25`), and prints no kernels line;
-`--cluster-codec` passes -ec.codec to 4f's, 4g's and 4h's volume
+`--only-quorum` runs phases 1-2 and 4i alone (a quick check:
+`--only-quorum --quorum-volume-gib 0.25`), and prints no kernels line;
+`--cluster-codec` passes -ec.codec to 4f's, 4g's, 4h's and 4i's volume
 processes (a CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
 or without the package beside this script.  Data comes from --seed;
 nothing is downloaded.
@@ -566,13 +602,16 @@ def idx_offsets(entries: np.ndarray) -> np.ndarray:
 
 
 def make_volume(base: str, size: int, seed: int, device: str = "cuda",
-                offset_bytes: int = 4) -> int:
+                offset_bytes: int = 4, lead_data: int = 0) -> int:
     """A sealed volume of real needle records, `size` bytes of `<base>.dat`:
     the port's superblock (version 3), then version-3 needles of seeded
     random data (1 B..256 KiB, drawn on `device`) with the port's native
     CRC32-C, filling the volume exactly; and one .idx entry per needle
     (`offset_bytes` 4 or 5: 16 or 17 bytes each), keys in shuffled order
-    so the .ecx sort does real work.  -> needle count."""
+    so the .ecx sort does real work.  `lead_data` > 0: the first needle
+    (right after the superblock) carries that many bytes of data and the
+    smallest key, so it is the volume's first live needle.  -> needle
+    count."""
     import struct
 
     from seaweedfs_tpu_torch.ops import crc32c
@@ -581,15 +620,20 @@ def make_volume(base: str, size: int, seed: int, device: str = "cuda",
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     sb = SuperBlock().to_bytes()
-    lens = _plan_needles(size - len(sb), rng)
+    lead = [lead_data] if lead_data else []
+    lens = np.concatenate([np.asarray(lead, np.int64), _plan_needles(
+        size - len(sb) - int(_record_size(lead_data) if lead else 0), rng)])
     recs = _record_size(lens)
     offsets = len(sb) + np.concatenate([[0], np.cumsum(recs)[:-1]])
     if offsets[-1] + recs[-1] != size or lens.min() < 1 \
-            or lens.max() > NEEDLE_MAX_DATA:
+            or lens[len(lead):].max() > NEEDLE_MAX_DATA:
         raise AssertionError("needle plan does not fill the volume")
     n = len(lens)
     keys = rng.permutation(np.arange(1, n + 1, dtype=np.uint64)
                            * np.uint64(7919))
+    if lead:
+        first = int(np.argmin(keys))
+        keys[[0, first]] = keys[[first, 0]]
     cookies = rng.integers(0, 2**32, n, dtype=np.uint64)
     head = struct.Struct(">IQII")  # cookie, id, size, data size
     tail = struct.Struct(">BIQ")  # flags, masked checksum, append time
@@ -2567,7 +2611,7 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
 
 # -- phase 4f: cluster -------------------------------------------------------
 
-CLUSTER_VOLUME_BYTES = 6 * GIB  # the sealed volume A holds before it starts
+CLUSTER_VOLUME_BYTES = 3 * GIB  # the sealed volume A holds before it starts
 CLUSTER_WRITE_BYTES = 256 * MIB  # step 1: replicated writes through assigns
 CLUSTER_DECODE_SAMPLE = 64  # step 6: GETs served from the decoded .dat
 CLUSTER_START_S = 60.0  # every process registered and the volume listed
@@ -2630,17 +2674,18 @@ class _Cluster:
                    str(self.master_metrics), *flags, env=env)
 
     def start_volume(self, name: str, rack: str, directory: str,
-                     *flags: str) -> None:
+                     *flags: str, mserver: str = "",
+                     env: dict | None = None) -> None:
         port, metrics_port = self.free_port(), self.free_port()
         self.nodes[name] = {"port": port, "metrics": metrics_port,
                             "dir": directory, "url": f"127.0.0.1:{port}"}
         argv = ["volume", "-dir", directory, "-mserver",
-                f"127.0.0.1:{self.master_port}", "-port", str(port),
+                mserver or f"127.0.0.1:{self.master_port}", "-port", str(port),
                 "-rack", rack, "-max", "40", "-metricsPort",
                 str(metrics_port), *flags]
         if self.codec != "cuda" and "-ec.codec" not in flags:
             argv += ["-ec.codec", self.codec]  # cuda: the servers' default
-        self.start(name, *argv)
+        self.start(name, *argv, env=env)
 
     def http_json(self, path: str, port: int | None = None) -> dict:
         import urllib.request
@@ -2744,6 +2789,9 @@ class _Cluster:
                                      f"{after_term[-2000:]}")
             exits[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
                            "tracebacks_in_log": text.count("Traceback")}
+            if "Traceback" in text:  # before the signal: shown, not failed
+                at = text.index("Traceback")
+                exits[name]["first_traceback"] = text[at:at + 1500]
         return exits
 
     def tails(self) -> str:
@@ -3192,7 +3240,7 @@ def phase_cluster(rs_cuda, gf256, work: str, size: int, seed: int,
 
 MAINT_NODES = (("a", "rack0"), ("b", "rack0"), ("c", "rack1"), ("d", "rack1"))
 MAINT_VOLUMES_PER_NODE = 2  # made before the processes start
-MAINT_VOLUME_BYTES = GIB  # each; the master's limit is the same size
+MAINT_VOLUME_BYTES = GIB // 2  # each; the master's limit is the same size
 MAINT_COOLDOWN_S = 5
 MAINT_POLICY = {"*": {"ec_cooldown_seconds": MAINT_COOLDOWN_S}}
 # a lifecycle cycle longer than a volume server's full-beat period (3 s,
@@ -4327,6 +4375,796 @@ def phase_tier(rs_cuda, gf256, work: str, size: int, seed: int, power: str,
     return {"launches_by_path": paths, "rows": rows}
 
 
+# -- phase 4i: quorum --------------------------------------------------------
+
+QUORUM_MASTERS = ("m0", "m1", "m2")
+QUORUM_NODES = MAINT_NODES  # A and B in rack0, C and D in rack1
+QUORUM_VOLUME_BYTES = GIB  # each node's sealed volume; the masters' limit
+QUORUM_WRITES = 256  # step 1: through a follower's /dir/assign
+QUORUM_WRITE_MAX = 64 * 1024
+QUORUM_GETS = 2048  # step 5: during the repair, across the 4 volumes
+QUORUM_HOT_KEYS = 16  # step 6: keys read QUORUM_HOT_READS times each
+QUORUM_HOT_READS = 8
+# the first needle of each volume spans the first 1 MiB block of every
+# data shard, so a drop-shard canary read on any node holding a data shard
+# decodes one of its intervals (on the node's card)
+QUORUM_LEAD_BYTES = 10 * MIB + 512 * 1024
+QUORUM_COOLDOWN_S = 5
+QUORUM_POLICY = {"*": {"ec_cooldown_seconds": QUORUM_COOLDOWN_S}}
+QUORUM_INTERVAL_S = 3  # lifecycle cycle seconds
+# every volume cools this long after the processes start: the election,
+# the four registrations and step 1's writes come first
+QUORUM_COOL_S = 40.0
+# tests/test_slo_cluster.py's burn-window scale: the page tier evaluates
+# 1.5 s / 18 s windows
+QUORUM_WINDOW_SCALE = "0.005"
+# step 3's rot: parity shard 10 is a source of every decode of a data
+# interval (the decode plan takes the first 10 present shards), and byte
+# 100 lies inside the lead needle's interval of every data shard
+QUORUM_FLIP = (10, 100)
+QUORUM_S = 300.0  # bound of each wait
+
+
+def _raft_of(cl: "_Cluster", port: int) -> dict:
+    doc = cl.http_json("/cluster/status", port=port)
+    return {**doc["Raft"], "leader": doc["Leader"]}
+
+
+def _fed_samples(cl: "_Cluster", families: str) -> dict[str, float]:
+    """The leader's federated /cluster/metrics?family=...: {sample: v}."""
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{cl.master_port}/cluster/metrics?family="
+            f"{families}", timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def _per_instance(samples: dict, family: str, **labels) -> dict[str, float]:
+    out: dict[str, float] = {}
+    for key, v in samples.items():
+        if not key.startswith(family + "{") or not all(
+                f'{k}="{val}"' in key for k, val in labels.items()):
+            continue
+        inst = key.split('instance="', 1)[1].split('"', 1)[0]
+        out[inst] = out.get(inst, 0.0) + v
+    return out
+
+
+def _lead_record(base: str) -> dict:
+    """The volume's first needle (right after the superblock): key,
+    cookie and its data's sha256."""
+    from seaweedfs_tpu_torch.storage.needle import Needle, actual_size
+
+    with open(base + ".dat", "rb") as f:
+        f.seek(8)
+        head = f.read(16)
+        size = int.from_bytes(head[12:16], "big")
+        f.seek(8)
+        nd = Needle.from_bytes(f.read(actual_size(size, 3)), 3)
+    return {"key": nd.id, "cookie": nd.cookie, "size": len(nd.data),
+            "data_sha256": hashlib.sha256(nd.data).hexdigest()}
+
+
+def _empty_volume(base: str) -> None:
+    """A writable volume holding no needle: the superblock and an empty
+    .idx."""
+    from seaweedfs_tpu_torch.storage.super_block import SuperBlock
+
+    with open(base + ".dat", "wb") as f:
+        f.write(SuperBlock().to_bytes())
+    open(base + ".idx", "wb").close()
+
+
+def _quorum_writes(cl: "_Cluster", follower: int, leader: int, n: int,
+                   seed: int, collection: str = "") -> dict:
+    """`n` seeded needles of 1 B..QUORUM_WRITE_MAX: each assigned through
+    the follower's /dir/assign (a 307 to the leader, followed), POSTed to
+    the assigned server by 16 threads; the first assign is asked without
+    following, to see the redirect; every fid unique, every needle read
+    back equal."""
+    import urllib.error
+    import urllib.request
+
+    q = f"?collection={collection}" if collection else ""
+
+    class NoRedirect(urllib.request.HTTPRedirectHandler):
+        def redirect_request(self, *a, **k):
+            return None
+
+    try:
+        urllib.request.build_opener(NoRedirect).open(
+            f"http://127.0.0.1:{follower}/dir/assign{q}", timeout=60)
+        raise AssertionError("a follower's /dir/assign answered itself")
+    except urllib.error.HTTPError as e:
+        code, location = e.code, e.headers.get("Location", "")
+        e.close()
+    if code != 307 or not location.startswith(f"http://127.0.0.1:{leader}/"):
+        raise AssertionError(f"follower assign: {code} {location!r}")
+    rng = np.random.default_rng(seed + 70)
+    payloads = [rng.integers(0, 256, int(rng.integers(1, QUORUM_WRITE_MAX)),
+                             dtype=np.uint8).tobytes() for _ in range(n)]
+
+    def write(payload: bytes) -> tuple[str, str]:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{follower}/dir/assign{q}",
+                timeout=60) as r:
+            a = json.loads(r.read())
+        req = urllib.request.Request(f"http://{a['url']}/{a['fid']}",
+                                     data=payload, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.status != 201:
+                raise AssertionError(f"POST {a['fid']}: {r.status}")
+        return a["fid"], a["url"]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+        fids = list(pool.map(write, payloads))
+    wall = time.perf_counter() - t0
+    if len({f for f, _u in fids}) != n:
+        raise AssertionError("a fid was assigned twice")
+    for (fid, url), payload in zip(fids, payloads):
+        with urllib.request.urlopen(f"http://{url}/{fid}", timeout=60) as r:
+            if r.read() != payload:
+                raise AssertionError(f"{fid} read back differs")
+    return {"needles": n, "bytes": sum(map(len, payloads)), "wall_s": wall,
+            "writes_per_s": n / wall, "redirect": code,
+            "fids_unique": True, "readback_equal": True,
+            "volumes": sorted({int(f.split(",")[0]) for f, _u in fids})}
+
+
+def phase_quorum(rs_cuda, gf256, work: str, size: int, seed: int,
+                 power: str, reduced: list[str], codec: str = "cuda",
+                 device: str = "cuda", free_port=free_port_pair,
+                 gets: int = QUORUM_GETS, writes: int = QUORUM_WRITES,
+                 cool_s: float = QUORUM_COOL_S,
+                 lead: int = QUORUM_LEAD_BYTES) -> dict:
+    """SeaweedFS's documented HA layout driven through a failover: three
+    `master` processes in one raft quorum (`-peers` naming all three, each
+    its own `-raftDir` and `-lifecycleDir`, `-lifecycleInterval`
+    QUORUM_INTERVAL_S, `-lifecyclePolicy` {"*": {"ec_cooldown_seconds":
+    5}}, `-sloInterval 1 -canaryInterval 1 -debugDir`, and
+    SEAWEEDFS_TPU_SLO_WINDOW_SCALE=0.005 as tests/test_slo_cluster.py sets
+    it) and four `volume` processes on their default codec (`cuda`; a
+    `codec` other than cuda is passed as -ec.codec), A and B in rack0, C
+    and D in rack1, each `-mserver` naming the three masters and
+    SEAWEEDFS_TPU_EC_PARTIAL=0 (a degraded interval is decoded on the
+    server's own codec, the card, from gathered shards instead of the
+    peers' host-side partial sums).  Each node holds one sealed volume of
+    `size` bytes of real needle records whose first needle has `lead`
+    bytes of data, stamped to cool `cool_s` after the start, and one
+    empty writable volume.  Steps, each on its own line: (0) the seconds
+    until exactly one master reports `leader` at the highest term
+    (/cluster/status's Raft block), and until all four nodes registered
+    with it; (1) `writes` seeded needles through a follower's /dir/assign
+    (a 307 to the leader), every fid unique, every needle read back
+    equal; (2) the lifecycle seals and encodes the 4 volumes; the moment
+    the leader's /cluster/lifecycle shows an ec_encode job running, the
+    leader is SIGKILLed: the seconds until a new leader is elected, until
+    it is warmed (an assign answers 200), until every volume has 14
+    shards mounted and its source dropped; every ec_encode job done
+    exactly once in the new leader's journal, the surviving follower's
+    job set the same, every slice's parity equal to the plain version,
+    batched launches on every generating node and the host codec's
+    apply_rows on none, and volume ids grown after the failover distinct
+    from every earlier one; (3) ec_degraded canary probes ok on every
+    node, read with the card's launch counters through the leader's
+    federated /cluster/metrics (they move on every probed node), the
+    probe's p50; then one byte of parity shard 10 of one volume flipped
+    on its holder: the availability page fires in /cluster/alerts and in
+    `shell -c cluster.alerts`, the flight recorder writes a bundle under
+    the leader's -debugDir on its own and `shell -c cluster.debug` lists
+    it; the byte restored, the alert resolves; (4) the killed master
+    restarted on its -raftDir rejoins as a follower, its commit index
+    reaches the leader's and its /cluster/lifecycle lists the same done
+    jobs; (5) D (or, if the encodes stacked more than 4 shards of a
+    volume on D, a node holding at most 4 of every volume) SIGKILLed:
+    the new leader's mass repair, its journal carried through raft,
+    rebuilds the lost shards on the survivors' cards (equal by sha256,
+    batched launches on every target), the time to recover as in 4g, and
+    `gets` seeded GETs during the repair, every body equal to its
+    record; (6) one degraded GET (the lead needle of a volume that lost a
+    data shard, from a survivor, with a traceparent) stitched by
+    /cluster/traces across the volume processes it touched, and
+    /cluster/hot listing a pass of QUORUM_HOT_KEYS keys read
+    QUORUM_HOT_READS times each; (7) SIGTERM: clean exits.  -> launches
+    by kernel and step, and the rows."""
+    import re
+    import threading
+    import urllib.request
+
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+
+    t_phase = time.perf_counter()
+    names = [n for n, _r in QUORUM_NODES]
+    dirs = {n: os.path.join(work, n) for n in names}
+    vids = list(range(1, len(names) + 1))
+    records: dict[int, dict] = {}
+    leads: dict[int, dict] = {}
+    t0 = time.perf_counter()
+    needles = 0
+    for i, n in enumerate(names):
+        os.makedirs(dirs[n])
+        vid = vids[i]
+        base = os.path.join(dirs[n], str(vid))
+        needles += make_volume(base, size, seed + vid, device,
+                               lead_data=lead)
+        leads[vid] = _lead_record(base)
+        _size, records[vid] = _needle_records(
+            base, seed + vid, sample=gets // len(names))
+        records[vid].pop(leads[vid]["key"], None)
+        _empty_volume(os.path.join(dirs[n], str(len(names) + vid)))
+    make_s = time.perf_counter() - t0
+    policy = os.path.join(work, "policy.json")
+    with open(policy, "w") as f:
+        json.dump(QUORUM_POLICY, f)
+    cl = _Cluster(work, codec, free_port)
+    ports = {m: free_port() for m in QUORUM_MASTERS}
+    peers = ",".join(f"127.0.0.1:{p}" for p in ports.values())
+    mserver = peers
+    by_port = {p: m for m, p in ports.items()}
+    master_argv: dict[str, list[str]] = {}
+    for m, p in ports.items():
+        for sub in ("raft", "lifecycle", "debug"):
+            os.makedirs(os.path.join(work, f"{m}_{sub}"))
+        master_argv[m] = [
+            "master", "-ip", "127.0.0.1", "-port", str(p), "-peers", peers,
+            "-raftDir", os.path.join(work, f"{m}_raft"),
+            "-lifecycleDir", os.path.join(work, f"{m}_lifecycle"),
+            "-lifecycleInterval", str(QUORUM_INTERVAL_S),
+            "-lifecyclePolicy", policy, "-volumeSizeLimitMB",
+            str(size // MIB), "-maintenanceInterval", "0",
+            "-metricsPort", str(free_port()), "-sloInterval", "1",
+            "-canaryInterval", "1",
+            "-debugDir", os.path.join(work, f"{m}_debug")]
+    # every page captures a bundle (tests/test_flight_recorder.py's chaos
+    # setting): the cluster's own pages during the failover must not put
+    # the rot's page inside the default 60 s cooldown
+    master_env = {"SEAWEEDFS_TPU_SLO_WINDOW_SCALE": QUORUM_WINDOW_SCALE,
+                  "SEAWEEDFS_TPU_DEBUG_BUNDLE_COOLDOWN_S": "0"}
+    rows: dict[str, dict] = {}
+    paths: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+
+    def step(name: str, row: dict) -> None:
+        row = {"phase": f"quorum_{name}", **row, "nvidia_smi": power}
+        emit(row)
+        rows[name] = row
+
+    def alive_masters() -> list[int]:
+        return [p for m, p in ports.items()
+                if m not in cl.killed and cl.procs[m].poll() is None]
+
+    def one_leader(among: list[int], above: int = 0) -> "int | None":
+        """The port of the one master reporting `leader` at the highest
+        term among `among` (a term above `above`), else None."""
+        docs = {p: _raft_of(cl, p) for p in among}
+        top = max(d["term"] for d in docs.values())
+        leaders = [p for p, d in docs.items() if d["role"] == "leader"]
+        if (len(leaders) == 1 and docs[leaders[0]]["term"] == top
+                and top > above):
+            return leaders[0]
+        return None
+
+    def scrape_all() -> dict:
+        return {n: cl.scrape(n) for n in names if n not in cl.killed}
+
+    def counted(name: str, before: dict, after: dict) -> dict:
+        out = {}
+        for n in after:
+            launches = _launches_moved(before[n], after[n])
+            for k, v in launches.items():
+                if v:
+                    paths[k][f"quorum_{name}_{n}"] = v
+            out[n] = {"launches": launches,
+                      "host_apply_rows": _moved(
+                          before[n], after[n],
+                          "seaweedfs_ec_op_seconds_count",
+                          op="apply_rows", impl="cpu")}
+        return out
+
+    def lifecycle_jobs(port: int) -> dict:
+        return {(j["volume_id"], j["transition"]): j for j in
+                cl.http_json("/cluster/lifecycle", port=port)["jobs"]}
+
+    t_stamp = time.time()
+    for i, n in enumerate(names):
+        at = t_stamp + cool_s - QUORUM_COOLDOWN_S
+        os.utime(os.path.join(dirs[n], f"{vids[i]}.dat"), (at, at))
+    try:
+        # 0. election and registration
+        t0 = time.perf_counter()
+        for m in QUORUM_MASTERS:
+            cl.start(m, *master_argv[m], env=master_env)
+        leader = cl.wait_for("one leader at the highest term", lambda:
+                             one_leader(list(ports.values())), QUORUM_S)
+        elect_s = time.perf_counter() - t0
+        leader = one_leader(list(ports.values()))
+        cl.master_port = leader
+        term0 = _raft_of(cl, leader)["term"]
+        t1 = time.perf_counter()
+        for n, rack in QUORUM_NODES:
+            cl.start_volume(n, rack, dirs[n], mserver=mserver,
+                            env={"SEAWEEDFS_TPU_EC_PARTIAL": "0"})
+        urls = {cl.nodes[n]["url"]: n for n in names}
+        cl.wait_for("every node registered with the leader", lambda: set(
+            cl.http_json("/dir/status")["DataNodes"]) >= set(urls),
+            QUORUM_S)
+        register_s = time.perf_counter() - t1
+        for n in names:
+            cl.wait_for(f"{n}'s /metrics", lambda n=n: cl.scrape(n)
+                        is not None, QUORUM_S)
+        step("election", {"codec": codec, "elect_s": elect_s,
+                          "register_s": register_s,
+                          "leader": by_port[leader], "term": term0,
+                          "make_volumes_s": make_s, "volumes": len(vids),
+                          "volume_bytes": size, "needles": needles,
+                          "lead_needle_bytes": lead,
+                          "nodes": len(names), "masters": len(ports),
+                          "reduced": reduced})
+
+        # 1. writes through a follower
+        follower = next(p for p in ports.values() if p != leader)
+        w = _quorum_writes(cl, follower, leader, writes, seed)
+        before_vids = set(vids) | {len(names) + v for v in vids} \
+            | set(w["volumes"])
+        if time.time() - t_stamp > cool_s - QUORUM_INTERVAL_S:
+            raise AssertionError(
+                f"writes done {time.time() - t_stamp} s after the stamp: "
+                f"too late before the volumes cool at {cool_s} s")
+        step("writes", {"through": by_port[follower], **w})
+
+        # 2. failover mid-encode
+        before = scrape_all()
+        running: list = []
+
+        def encode_running() -> bool:
+            running[:] = [k for k, j in lifecycle_jobs(leader).items()
+                          if k[1] == "ec_encode" and j["state"] == "running"]
+            return bool(running)
+
+        cl.wait_for("an ec_encode job running", encode_running, QUORUM_S)
+        t_kill = time.perf_counter()
+        dead_master = by_port[leader]
+        cl.killed.add(dead_master)
+        cl.procs[dead_master].kill()
+        cl.procs[dead_master].wait()
+        rest = alive_masters()
+        new = cl.wait_for("a new leader", lambda: one_leader(
+            rest, above=term0), QUORUM_S)
+        new = one_leader(rest, above=term0)
+        elected_s = time.perf_counter() - t_kill
+        cl.master_port = new
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{new}/dir/assign", timeout=60) as r:
+            if r.status != 200 or "fid" not in json.loads(r.read()):
+                raise AssertionError("the new leader's assign failed")
+        warmed_s = time.perf_counter() - t_kill
+        failed: list = []
+
+        def encoded() -> bool:
+            jobs = lifecycle_jobs(new)
+            failed[:] = [k for k, j in jobs.items()
+                         if j["state"] in ("failed", "parked")]
+            done = [k for k, j in jobs.items()
+                    if k[1] == "ec_encode" and j["state"] == "done"]
+            return bool(failed) or len(done) == len(vids)
+
+        cl.wait_for("every ec_encode job done", encoded, QUORUM_S)
+        if failed:
+            raise AssertionError(f"lifecycle jobs failed: {failed}")
+        cl.wait_for("every source .dat dropped", lambda: not any(
+            os.path.exists(os.path.join(dirs[n], f"{v}.dat"))
+            for n, v in zip(names, vids)), QUORUM_S)
+        cl.wait_for("14 shards of every volume at the new leader",
+                    lambda: all(sum(map(len, sp.values())) == 14
+                                for sp in (_ec_spread(cl).get(v, {})
+                                           for v in vids)), QUORUM_S)
+        encoded_s = time.perf_counter() - t_kill
+        jobs = lifecycle_jobs(new)
+        enc_jobs = {k: j for k, j in jobs.items() if k[1] == "ec_encode"}
+        if sorted(v for v, _t in enc_jobs) != vids or any(
+                j["state"] != "done" for j in enc_jobs.values()):
+            raise AssertionError(f"ec_encode jobs: {enc_jobs}")
+        resumed = {v: j.get("resumed", 0) for (v, _t), j in enc_jobs.items()}
+        if not any(resumed[v] for v, _t in running):
+            raise AssertionError(f"no running job was resumed: {resumed}")
+        surviving = next(p for p in rest if p != new)
+
+        def same_jobs() -> bool:
+            a = {k: j["state"] for k, j in lifecycle_jobs(surviving).items()}
+            return a == {k: j["state"] for k, j in
+                         lifecycle_jobs(new).items()}
+
+        cl.wait_for("the follower's job set equal", same_jobs, QUORUM_S)
+        after = scrape_all()
+        counts = counted("encode", before, after)
+        for n in names:
+            c = counts[n]
+            if codec == "cuda" and not c["launches"]["gf_matmul_batched"]:
+                raise AssertionError(f"encode: no batched launch on {n}: "
+                                     f"{c}")
+            if codec != "cpu" and c["host_apply_rows"]:
+                raise AssertionError(f"encode: the host codec's apply_rows "
+                                     f"moved on {n}: {c}")
+        spread = _ec_spread(cl)
+        from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+        checked = 0
+        for v in vids:
+            if sorted(s for sids in spread[v].values() for s in sids) \
+                    != list(range(14)):
+                raise AssertionError(f"volume {v}: shards {spread[v]}")
+            view = os.path.join(work, f"parity_view_{v}")
+            os.makedirs(view)
+            for url, sids in spread[v].items():
+                for sid in sids:
+                    os.symlink(os.path.join(dirs[urls[url]],
+                                            f"{v}.ec{sid:02d}"),
+                               os.path.join(view, f"{v}.ec{sid:02d}"))
+            checked += check_parity(os.path.join(view, str(v)), rs_cuda,
+                                    gf256, enc.DEFAULT_SLICE, device=device)
+        grown = cl.http_json("/vol/grow?collection=quorum&count=2")
+        after_vids = set(grown["volumeIds"])
+        if len(after_vids) != 2 or after_vids & before_vids:
+            raise AssertionError(f"volume ids reissued: before "
+                                 f"{sorted(before_vids)}, after {grown}")
+        step("failover", {
+            "killed": dead_master, "new_leader": by_port[new],
+            "running_at_kill": [v for v, _t in running],
+            "elected_s": elected_s, "warmed_s": warmed_s,
+            "encoded_s": encoded_s,
+            "term": _raft_of(cl, new)["term"],
+            "jobs_done": len(enc_jobs), "resumed": resumed,
+            "follower_jobs_equal": True,
+            "spread": {str(v): {urls[u]: s for u, s in spread[v].items()}
+                       for v in vids},
+            "parity_slices_checked": checked, "sources_dropped": True,
+            "vids_before": sorted(before_vids),
+            "vids_after": sorted(after_vids), "counts": counts})
+
+        # 3. canary and SLO on the card
+        fam = "seaweedfs_canary_probe,seaweedfs_cuda_kernel_launches"
+        t_probes = time.time()
+        fed0 = _fed_samples(cl, fam)
+        before = scrape_all()
+        t3 = time.perf_counter()
+
+        def probed_ok() -> bool:
+            doc = cl.http_json("/cluster/alerts")
+            targets = doc["canary"]["probes"].get("ec_degraded", {}).get(
+                "targets", {})
+            ok = {t.split("/")[0] for t, r in targets.items()
+                  if r["result"] == "ok" and r["at"] >= t_probes}
+            return ok >= set(urls)
+
+        cl.wait_for("ec_degraded probes ok on every node", probed_ok,
+                    QUORUM_S)
+        probe_s = time.perf_counter() - t3
+        fed1 = _fed_samples(cl, fam)
+        after = scrape_all()
+        counts = counted("canary", before, after)
+        launched = {urls[i]: v - _per_instance(
+            fed0, "seaweedfs_cuda_kernel_launches_total",
+            kernel="gf_matmul").get(i, 0.0) for i, v in _per_instance(
+            fed1, "seaweedfs_cuda_kernel_launches_total",
+            kernel="gf_matmul").items() if i in urls}
+        probes_ok = sum(_per_instance(
+            fed1, "seaweedfs_canary_probe_total", probe="ec_degraded",
+            result="ok").values()) - sum(_per_instance(
+                fed0, "seaweedfs_canary_probe_total", probe="ec_degraded",
+                result="ok").values())
+        if codec == "cuda" and not all(launched.get(n) for n in names):
+            raise AssertionError(f"canary: the card's launches did not move "
+                                 f"on every probed node: {launched}")
+        lat = _fed_samples(cl, "seaweedfs_canary_probe_seconds")
+        buckets = sorted(
+            (float(k.split('le="', 1)[1].split('"', 1)[0]), v)
+            for k, v in lat.items() if "_bucket{" in k
+            and 'probe="ec_degraded"' in k and 'le="+Inf"' not in k)
+        total = sum(v for k, v in lat.items() if "_count{" in k
+                    and 'probe="ec_degraded"' in k)
+        p50_le = next((le for le, v in buckets if v >= total / 2), None)
+        mean_s = sum(v for k, v in lat.items() if "_sum{" in k
+                     and 'probe="ec_degraded"' in k) / max(total, 1)
+        # wait out any earlier page (the failover's probes) before the rot
+        cl.wait_for("availability ok before the rot", lambda: cl.http_json(
+            "/cluster/alerts")["states"]["availability"]["state"] == "ok",
+            QUORUM_S)
+        rot_v = vids[0]
+        sid, off = QUORUM_FLIP
+        holder = next(urls[u] for u, s in spread[rot_v].items() if sid in s)
+        shard = os.path.join(dirs[holder], f"{rot_v}.ec{sid:02d}")
+
+        def flip() -> None:
+            with open(shard, "r+b") as f:
+                f.seek(off)
+                b = f.read(1)
+                f.seek(off)
+                f.write(bytes([b[0] ^ 0xFF]))
+
+        debug_dir = os.path.join(work, f"{by_port[new]}_debug")
+        bundles_before = set(os.listdir(debug_dir))
+        flip()
+        t_flip = time.perf_counter()
+
+        def firing() -> bool:
+            doc = cl.http_json("/cluster/alerts")
+            return doc["states"]["availability"]["state"] == "firing" \
+                and any(a["slo"] == "availability" for a in doc["alerts"])
+
+        cl.wait_for("the availability page firing", firing, QUORUM_S)
+        fire_s = time.perf_counter() - t_flip
+        _w, alerts_out = cl.shell("cluster.alerts")
+        if not re.search(r"availability \[page\] firing", alerts_out):
+            raise AssertionError(f"cluster.alerts: {alerts_out[-2000:]}")
+        def new_bundles() -> list[str]:
+            return sorted(b[:-len(".json")] for b in os.listdir(debug_dir)
+                          if "-alert-" in b and b.endswith(".json")
+                          and b not in bundles_before)
+
+        cl.wait_for("a bundle captured on its own", new_bundles, QUORUM_S)
+        bundle = new_bundles()[0]
+        _w, debug_out = cl.shell("cluster.debug")
+        if bundle not in debug_out:
+            raise AssertionError(f"cluster.debug: {debug_out[-2000:]}")
+        cap = _fed_samples(cl, "seaweedfs_debug_bundle")
+        cap_s = sum(v for k, v in cap.items() if k.startswith(
+            "seaweedfs_debug_bundle_capture_seconds_sum")) / max(1.0, sum(
+                v for k, v in cap.items() if k.startswith(
+                    "seaweedfs_debug_bundle_capture_seconds_count")))
+        flip()
+        t_restore, t_restore_wall = time.perf_counter(), time.time()
+
+        def resolved() -> bool:
+            """Ok, and the rotten volume probed ok since the
+            restore (the page resolves between the rotten probes too, as
+            its short window rolls past each)."""
+            doc = cl.http_json("/cluster/alerts")
+            targets = doc["canary"]["probes"]["ec_degraded"]["targets"]
+            return doc["states"]["availability"]["state"] == "ok" \
+                and any(t.endswith(f"/vol{rot_v}") and r["result"] == "ok"
+                        and r["at"] >= t_restore_wall
+                        for t, r in targets.items())
+
+        cl.wait_for("the availability alert resolved", resolved, QUORUM_S)
+        resolve_s = time.perf_counter() - t_restore
+        history = [(h["state"], h.get("from")) for h in cl.http_json(
+            "/cluster/alerts")["history"] if h["slo"] == "availability"]
+        step("canary_slo", {
+            "probe_all_nodes_s": probe_s, "probes_ok": probes_ok,
+            "gf_matmul_launches_by_node": launched,
+            "probe_p50_le_s": p50_le, "probe_mean_s": mean_s,
+            "rot": {"volume": rot_v, "shard": sid, "offset": off,
+                    "holder": holder},
+            "flip_to_firing_s": fire_s, "bundle": bundle,
+            "bundle_capture_s": cap_s, "resolve_s": resolve_s,
+            "availability_transitions": history,
+            "counts": counts})
+
+        # 4. the killed master rejoins
+        t4 = time.perf_counter()
+        cl.start(dead_master + "_rejoined", *master_argv[dead_master],
+                 env=master_env)
+        cl.procs[dead_master] = cl.procs[dead_master + "_rejoined"]
+        cl.killed.discard(dead_master)
+        back = ports[dead_master]
+
+        def rejoined() -> bool:
+            me = _raft_of(cl, back)
+            lead_port = one_leader(alive_masters())
+            if lead_port is None or me["role"] != "follower":
+                return False
+            top = _raft_of(cl, lead_port)
+            return (me["leaderId"] == f"127.0.0.1:{lead_port}"
+                    and me["commitIndex"] >= top["commitIndex"])
+
+        cl.wait_for("the restarted master a caught-up follower", rejoined,
+                    QUORUM_S)
+        rejoin_s = time.perf_counter() - t4
+        new = one_leader(alive_masters())
+        cl.master_port = new
+        done = {k for k, j in lifecycle_jobs(new).items()
+                if j["state"] == "done"}
+        cl.wait_for("the rejoined master's done jobs equal", lambda: {
+            k for k, j in lifecycle_jobs(back).items()
+            if j["state"] == "done"} == done, QUORUM_S)
+        me = _raft_of(cl, back)
+        step("rejoin", {"master": dead_master, "rejoin_s": rejoin_s,
+                        "role": me["role"], "term": me["term"],
+                        "commit_index": me["commitIndex"],
+                        "leader": by_port[new], "done_jobs": len(done)})
+
+        # 5. a dead node under the quorum
+        spread = _ec_spread(cl)
+        most = {n: max(len(spread[v].get(cl.nodes[n]["url"], []))
+                       for v in vids) for n in names}
+        victim = "d" if most["d"] <= 4 else next(
+            n for n in reversed(names) if most[n] <= 4)
+        v_url = cl.nodes[victim]["url"]
+        lost = [(v, s) for v in vids for s in spread[v].get(v_url, [])]
+        lost_sha = dict(zip(lost, _parallel_sha256(
+            [os.path.join(dirs[victim], f"{v}.ec{s:02d}")
+             for v, s in lost])))
+        # 6a. one degraded GET, traced: the lead needle of a volume D
+        # held a data shard of, from a survivor whose holder map (warmed
+        # by an untraced GET first) still names D, right after the kill:
+        # D's interval fails over to a decode before any repair can start
+        trace_v = next(v for v in vids
+                       if any(s < 10 for s in spread[v].get(v_url, [])))
+        server = next(n for n in names if n != victim)
+        ld = leads[trace_v]
+        lead_fid = "/" + _fid(trace_v, ld["key"], ld["cookie"])
+        reader_conn = _KeepAlive(cl.nodes[server]["port"])
+        status, _h, body = reader_conn.request("GET", lead_fid)
+        if status != 200 or hashlib.sha256(body).hexdigest() \
+                != ld["data_sha256"]:
+            raise AssertionError(f"lead needle GET: {status}, body differs")
+        rng = np.random.default_rng(seed + 80)
+        trace_id = "".join(f"{x:02x}" for x in rng.integers(0, 256, 16))
+        traceparent = (f"00-{trace_id}-"
+                       + "".join(f"{x:02x}" for x in rng.integers(
+                           0, 256, 8)) + "-01")
+        s_before = cl.scrape(server)
+        before = scrape_all()
+        before.pop(victim)
+        t_kill = time.perf_counter()
+        cl.killed.add(victim)
+        cl.procs[victim].kill()
+        cl.procs[victim].wait()
+        status, _h, body = reader_conn.request(
+            "GET", lead_fid, headers={"traceparent": traceparent})
+        if status != 200 or hashlib.sha256(body).hexdigest() \
+                != ld["data_sha256"]:
+            raise AssertionError(f"traced GET: {status}, body differs")
+        decoded = _launches_moved(s_before, cl.scrape(server))
+        cl.wait_for("the leader drops the dead node", lambda: v_url not in
+                    cl.http_json("/dir/status")["DataNodes"], QUORUM_S)
+        detect_s = time.perf_counter() - t_kill
+        got_reads: dict = {}
+
+        def reads() -> None:
+            try:
+                got_reads["row"] = _maintenance_get_pass(cl, records)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                got_reads["error"] = e
+
+        reader = threading.Thread(target=reads, name="quorum-gets")
+        reader.start()
+
+        def repaired() -> bool:
+            sp = _ec_spread(cl)
+            return all(sum(map(len, sp.get(v, {}).values())) == 14
+                       and v_url not in sp.get(v, {}) for v in vids)
+
+        cl.wait_for("every volume back to 14 shards", repaired, QUORUM_S)
+        recover_s = time.perf_counter() - t_kill
+        reader.join()
+        if "error" in got_reads:
+            raise got_reads["error"]
+        read_row = got_reads["row"]
+        read_row["started_after_kill_s"] = read_row.pop("t_start") - t_kill
+        read_row["ended_after_kill_s"] = read_row.pop("t_end") - t_kill
+        read_row["during_repair"] = \
+            read_row["started_after_kill_s"] < recover_s
+        after = scrape_all()
+        counts = counted("repair", before, after)
+        spread2 = _ec_spread(cl)
+        rebuilt = {}
+        for v, s in lost:
+            url = next(u for u, sids in spread2[v].items() if s in sids)
+            rebuilt[(v, s)] = os.path.join(dirs[urls[url]],
+                                           f"{v}.ec{s:02d}")
+        got = dict(zip(rebuilt, _parallel_sha256(list(rebuilt.values()))))
+        if got != lost_sha:
+            bad = [k for k in lost_sha if got[k] != lost_sha[k]]
+            raise AssertionError(f"rebuilt shards differ: {bad}")
+        targets = sorted({os.path.basename(os.path.dirname(p))
+                          for p in rebuilt.values()})
+        for n in targets:
+            if codec == "cuda" and not counts[n]["launches"][
+                    "gf_matmul_batched"]:
+                raise AssertionError(f"repair: no batched launch on the "
+                                     f"rebuild target {n}: {counts[n]}")
+        mass = {k: j for k, j in lifecycle_jobs(new).items()
+                if k[1] == "mass_repair"}
+        affected = sorted({v for v, _s in lost})
+        if sorted(v for v, _t in mass) != affected or any(
+                j["state"] != "done" for j in mass.values()):
+            raise AssertionError(f"mass_repair jobs: {mass}")
+        step("dead_node", {"killed": victim,
+                           "most_shards_per_volume": most,
+                           "detect_s": detect_s,
+                           "time_to_recover_s": recover_s,
+                           "repair_s": recover_s - detect_s,
+                           "lost_shards": len(lost),
+                           "affected_volumes": affected,
+                           "sha256_equal": True, "targets": targets,
+                           "mass_repair_done": len(mass),
+                           "counts": counts})
+        step("gets_during_repair", read_row)
+
+        # 6. tracing: the stitched degraded GET, then the hot keys
+        server_url = cl.nodes[server]["url"]
+
+        live_urls = {cl.nodes[n]["url"] for n in names if n != victim}
+
+        def stitched() -> bool:
+            """/cluster/traces fans the query out to every live node: the
+            serving process's GET span and its decode's spans, parented
+            in it, and every live volume process answered.  The shard
+            reads the decode gathered from the other volume processes
+            are gRPC streams, which carry the trace id but are counted,
+            not spanned (pb/rpc.py, as in the reference)."""
+            doc = cl.http_json(f"/cluster/traces?trace={trace_id}")
+            at = [sp for sp in doc["spans"] if sp["instance"] == server_url]
+            names_at = {sp["name"] for sp in at}
+            return ({"volumeServer.get", "ec.reconstruct"} <= names_at
+                    and all(not sp["orphan"] for sp in at
+                            if sp["name"] == "ec.reconstruct")
+                    and live_urls <= set(doc["nodes"]))
+
+        try:
+            cl.wait_for("the degraded GET stitched", stitched, 30.0)
+        except AssertionError:
+            doc = cl.http_json(f"/cluster/traces?trace={trace_id}")
+            raise AssertionError(f"trace {trace_id}: {doc}")
+        doc = cl.http_json(f"/cluster/traces?trace={trace_id}")
+        hot_v = vids[-1]
+        hot_keys = sorted(records[hot_v])[:QUORUM_HOT_KEYS]
+        hot_fids = {str(FileId.parse(_fid(hot_v, k, records[hot_v][k][
+            "cookie"]))) for k in hot_keys}
+        client = _KeepAlive(cl.nodes[server]["port"])
+        for _ in range(QUORUM_HOT_READS):
+            for k in hot_keys:
+                st, _h, b = client.request("GET", "/" + _fid(
+                    hot_v, k, records[hot_v][k]["cookie"]))
+                if st != 200 or hashlib.sha256(b).hexdigest() \
+                        != records[hot_v][k]["data_sha256"]:
+                    raise AssertionError(f"hot GET of {k:x}: {st}")
+        hot = cl.http_json(f"/cluster/hot?n={QUORUM_HOT_KEYS}")
+        listed = {e["key"] for w_ in ("current", "previous")
+                  for e in hot["dims"].get("needle", {}).get(w_, [])}
+        if not hot_fids <= listed:
+            raise AssertionError(f"/cluster/hot lists {sorted(listed)}, "
+                                 f"not every key of {sorted(hot_fids)}")
+        step("tracing", {
+            "trace_id": trace_id, "volume": trace_v, "served_by": server,
+            "decoded_launches": decoded,
+            "instances": sorted({urls.get(s["instance"], by_port.get(
+                int(s["instance"].rsplit(":", 1)[1]), s["instance"]))
+                for s in doc["spans"]}),
+            "span_names": sorted({s["name"] for s in doc["spans"]}),
+            "nodes": {urls.get(i, by_port.get(int(i.rsplit(":", 1)[1]), i)):
+                      n["spanCount"] for i, n in doc["nodes"].items()},
+            "duration_ms": doc.get("durationMs"),
+            "hot_keys_listed": len(hot_fids), "hot_nodes": len(hot["nodes"])})
+        if codec == "cuda" and not decoded["gf_matmul"]:
+            raise AssertionError(f"the traced GET decoded nothing on "
+                                 f"{server}: {decoded}")
+
+        # 7. SIGTERM: clean exits
+        step("stop", {"exits": cl.terminate(
+            [n for n in names if n != victim] + [
+                m for m in QUORUM_MASTERS if m != dead_master]
+            + [dead_master + "_rejoined"])})
+    except BaseException:
+        print(cl.tails(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        cl.stop_all()
+    summary = {"phase": "quorum_summary",
+               "wall_s": time.perf_counter() - t_phase,
+               "launches_by_path": paths, "nvidia_smi": power}
+    emit(summary)
+    return {"launches_by_path": paths, "rows": rows}
+
+
 def rebuild_plan(gf256, lost=(0, 1, 2, 3)) -> np.ndarray:
     return gf256.decode_plan_for(gf256.rs_matrix(10, 14), 10,
                                  [i for i in range(14) if i not in lost], lost)
@@ -5243,9 +6081,9 @@ def main() -> int:
     # the volumes of phases 4-4f and 7 are sized so that the whole script
     # ends within its 1200 s on a card whose host runs ~25 % slow
     ap.add_argument("--volume-gib", type=float, default=10.5)
-    ap.add_argument("--service-volume-gib", type=float, default=2.0)
+    ap.add_argument("--service-volume-gib", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--store-volume-gib", type=float, default=6.0)
+    ap.add_argument("--store-volume-gib", type=float, default=3.0)
     ap.add_argument("--only-ec-reads", action="store_true",
                     help="phases 1-4b only, no kernels line (a quick check)")
     ap.add_argument("--only-store", action="store_true",
@@ -5277,6 +6115,12 @@ def main() -> int:
                     help="each of the tier phase's 2 volumes")
     ap.add_argument("--only-tier", action="store_true",
                     help="phases 1-2 and the tier phase only, no kernels "
+                    "line (a quick check)")
+    ap.add_argument("--quorum-volume-gib", type=float,
+                    default=QUORUM_VOLUME_BYTES / GIB,
+                    help="each of the quorum phase's 4 sealed volumes")
+    ap.add_argument("--only-quorum", action="store_true",
+                    help="phases 1-2 and the quorum phase only, no kernels "
                     "line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5394,9 +6238,26 @@ def main() -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    def quorum() -> dict:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            # 4 x (.dat, 14 shards, copies in flight)
+            size, reduced = volume_size(
+                work, int(args.quorum_volume_gib * GIB) // MIB * MIB,
+                count=len(QUORUM_NODES), per_volume=3.5)
+            reduced = [f"reduced: from 30000 MB: 4 volumes of {size} bytes "
+                       f"(-volumeSizeLimitMB {size // MIB}): SeaweedFS's "
+                       "default 30 GB volume limit cut for the script's run "
+                       "time, as 4g"] + reduced
+            return phase_quorum(rs_cuda, gf256, work, size, args.seed,
+                                power, reduced, codec=args.cluster_codec)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     for only, phase in (("only_cluster", cluster),
                         ("only_maintenance", maintenance),
-                        ("only_mesh", mesh), ("only_tier", tier)):
+                        ("only_mesh", mesh), ("only_tier", tier),
+                        ("only_quorum", quorum)):
         if getattr(args, only):
             phase()
             emit({"phase": "done", "wall_s": time.perf_counter() - start,
@@ -5484,6 +6345,7 @@ def main() -> int:
     cluster_paths = cluster()["launches_by_path"]
     maint_paths = maintenance()["launches_by_path"]
     tier_paths = tier()["launches_by_path"]
+    quorum_paths = quorum()["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -5528,7 +6390,8 @@ def main() -> int:
         + sum(server_paths["gf_matmul"].values())
         + sum(cluster_paths["gf_matmul"].values())
         + sum(maint_paths["gf_matmul"].values())
-        + sum(tier_paths["gf_matmul"].values()),
+        + sum(tier_paths["gf_matmul"].values())
+        + sum(quorum_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
@@ -5536,7 +6399,7 @@ def main() -> int:
             "remote_rebuild": reads["rebuild_launches"],
             **store_paths["gf_matmul"], **server_paths["gf_matmul"],
             **cluster_paths["gf_matmul"], **maint_paths["gf_matmul"],
-            **tier_paths["gf_matmul"]},
+            **tier_paths["gf_matmul"], **quorum_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -5556,6 +6419,7 @@ def main() -> int:
         + sum(cluster_paths["gf_matmul_batched"].values())
         + sum(maint_paths["gf_matmul_batched"].values())
         + sum(tier_paths["gf_matmul_batched"].values())
+        + sum(quorum_paths["gf_matmul_batched"].values())
         + sum(mesh_launches("gf_matmul_batched").values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
@@ -5566,6 +6430,7 @@ def main() -> int:
             **cluster_paths["gf_matmul_batched"],
             **maint_paths["gf_matmul_batched"],
             **tier_paths["gf_matmul_batched"],
+            **quorum_paths["gf_matmul_batched"],
             **mesh_launches("gf_matmul_batched")},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],

@@ -96,7 +96,11 @@ EC parity and `ec.decode`):
   * master/ — the master: assign and growth, lookups, location pub/sub,
     the liveness sweep, vacuum, the maintenance loop, the scrub-finding
     repair pass, admin tokens and the HTTP API (server.py,
-    grpc_handlers.py, sequence.py, observability.py's cluster_status);
+    grpc_handlers.py, sequence.py); the raft quorum (raft.py: volume ids
+    and the maintenance journal through the log, fencing and warm-up on
+    a change of leader), the flight recorder (flight.py) and the
+    federated /cluster/metrics, /cluster/traces, /cluster/hot and
+    /cluster/status (observability.py);
     topology/ (topology.py, volume_layout.py, placement.py); operation/
     (assign, upload, delete).
   * maintenance/ — the master's maintenance plane: the lifecycle
@@ -104,8 +108,13 @@ EC parity and `ec.decode`):
     the volume servers' codec, vacuum, rebalance, ttl_expire) and
     dead-node mass repair (batched rebuilds on the survivors), both built
     by every master; the tier stage after a `keep_source` encode.
+  * telemetry/ — spans, middleware and hot keys; the metrics federation
+    and trace stitching (federation.py, stitch.py), the SLO engine
+    (slo.py, /cluster/alerts) and the canary prober (canary.py, whose
+    ec_degraded probe decodes on a `cuda` volume server's card).
   * shell/ — the admin shell: CommandEnv, the maintenance script, the
-    ec.* and volume.* commands; util/config.py (the TOML tier),
+    ec.* and volume.* commands, cluster.status, cluster.alerts,
+    cluster.hot and cluster.debug; util/config.py (the TOML tier),
     util/grace.py (profiling hooks).
   * cli.py, __main__.py — `python -m seaweedfs_tpu_torch master | volume |
     server | shell | version`; `-ec.codec` defaults to `cuda`.
@@ -119,12 +128,14 @@ the store's lifecycle, `--only-volume-server --store-volume-gib 0.5` the
 volume server's, `--only-cluster --cluster-volume-gib 0.5` a master and
 three volume processes driven by the shell, `--only-maintenance
 --maintenance-volume-gib 0.25` a master encoding and repairing four
-volume processes on its own).  Every protobuf message of the port lives in pb.POOL,
+volume processes on its own, `--only-quorum --quorum-volume-gib 0.25`
+three masters in a raft quorum that fails over mid-encode, with the
+canary, the SLO engine and the flight recorder).  Every protobuf message of the port lives in pb.POOL,
 never in protobuf's default pool, where the reference registers the same
 file names: a process importing both packages would fail.
 
-Not ported yet: the master's raft quorum, SLO engine and canary, flight
-recorder and federation; the shell's cluster.* and fs.* commands; gRPC
+Not ported yet: the geo registry (the master's `peer_clusters`,
+/cluster/geo); the shell's fs.*, filer.ring and cluster.geo commands; gRPC
 TLS; the filer, the gateways (s3api/ holds only SigV4 signing, which the
 S3 remote tier uses) and the CLI's other subcommands; spans and stage
 metrics inside the encode pipeline.

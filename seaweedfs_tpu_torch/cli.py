@@ -15,10 +15,9 @@ Differences from the reference, on purpose:
     mxu) are refused, from the flag or the TOML, with a message naming
     `cuda`.  A volume server on a device codec on a host without a card
     exits non-zero naming the card;
-  * a flag of a plane that is not ported (the master's SLO, canary,
-    flight-recorder and geo flags, `-peers` with a quorum, the server's
-    `-filer` and `-s3`) given a value other than its default exits
-    non-zero naming it; the master's `-sloInterval` defaults to 0, not 15;
+  * a flag of a plane that is not ported (the master's `-peerClusters`,
+    the server's `-filer` and `-s3`) given a value other than its default
+    exits non-zero naming ROADMAP A-7;
   * security.toml's JWT key and white list are read as the reference
     reads them; gRPC TLS certificates configured there make the process
     exit non-zero naming ROADMAP A-6 (security/tls.py is not ported), so
@@ -156,8 +155,11 @@ def cmd_master(args) -> None:
 
         with open(args.lifecyclePolicy) as f:
             lifecycle_policy = json.load(f)
-    _refuse("-sloSpecs", args.sloSpecs, "",
-            "the SLO engine (telemetry/slo.py, ROADMAP A-5)")
+    slo_specs = None
+    if args.sloSpecs:
+        from .telemetry.slo import specs_from_json
+
+        slo_specs = specs_from_json(args.sloSpecs)
     stopper = _Stopper()
     m = MasterServer(
         ip=args.ip,
@@ -182,6 +184,7 @@ def cmd_master(args) -> None:
         peer_clusters=(args.peerClusters.split(",")
                        if args.peerClusters else None),
         slo_interval=args.sloInterval,
+        slo_specs=slo_specs,
         canary_interval=args.canaryInterval,
         canary_s3=args.canaryS3,
         alert_webhook=args.alertWebhook,
@@ -374,11 +377,9 @@ def _parser() -> argparse.ArgumentParser:
     m.add_argument("-metricsPort", type=int, default=0)
     m.add_argument("-jwtKey", default="")
     m.add_argument("-peers", default="",
-                   help="master quorum ip:port list; only this master's "
-                        "own address is accepted (raft: ROADMAP A-5)")
+                   help="comma-separated master quorum ip:port list (raft)")
     m.add_argument("-raftDir", default=".",
-                   help="directory for persisted raft state (unused "
-                        "until raft is ported)")
+                   help="directory for persisted raft state")
     m.add_argument("-lifecycleInterval", type=float, default=0.0,
                    help="lifecycle controller cycle seconds; 0 = manual "
                         "only (volume.lifecycle -apply)")
@@ -399,15 +400,35 @@ def _parser() -> argparse.ArgumentParser:
                         "what the bound requires.  None = env "
                         "SEAWEEDFS_TPU_MASS_REPAIR_DEADLINE_S, 0 = "
                         "no bound")
-    # flags of planes that come with later slices (ROADMAP A-5, A-7): a
-    # value other than the default is refused, never ignored
-    m.add_argument("-peerClusters", default="")
-    m.add_argument("-sloInterval", type=float, default=0.0)
-    m.add_argument("-sloSpecs", default="")
-    m.add_argument("-canaryInterval", type=float, default=0.0)
-    m.add_argument("-canaryS3", default="")
-    m.add_argument("-alertWebhook", default="")
-    m.add_argument("-debugDir", default="")
+    # the geo registry comes with a later slice (ROADMAP A-7): a value
+    # other than the default is refused, never ignored
+    m.add_argument("-peerClusters", default="",
+                   help="comma-separated REMOTE-cluster master http "
+                        "addresses for the /cluster/geo registry "
+                        "(ROADMAP A-7: refused)")
+    m.add_argument("-sloInterval", type=float, default=15.0,
+                   help="SLO engine evaluation tick seconds (burn-rate "
+                        "rules over family-filtered federation scrapes); "
+                        "0 = evaluate only when /cluster/alerts is read")
+    m.add_argument("-sloSpecs", default="",
+                   help="JSON file with a list of SLO spec objects "
+                        "(replaces the default suite)")
+    m.add_argument("-canaryInterval", type=float, default=0.0,
+                   help="synthetic canary probe tick seconds (black-box "
+                        "write/read/delete, EC degraded read, routed "
+                        "metadata, geo sentinel); 0 disables")
+    m.add_argument("-canaryS3", default="",
+                   help="S3 gateway http address the metadata_rt canary "
+                        "routes through (empty = probe a registered "
+                        "filer directly)")
+    m.add_argument("-alertWebhook", default="",
+                   help="POST every alert state transition to this URL "
+                        "as JSON (the log sink always runs)")
+    m.add_argument("-debugDir", default="",
+                   help="flight-recorder bundle directory: alerts "
+                        "transitioning to firing (and cluster.debug "
+                        "-capture) snapshot cluster debug bundles here "
+                        "with bounded retention (empty = in-memory ring)")
     m.set_defaults(fn=cmd_master)
 
     v = sub.add_parser("volume")

@@ -18,9 +18,10 @@ Fault point `lifecycle.journal.write` fires before every append — an
 injected error there must fail the job loudly (never run work the
 journal didn't record).
 
-The `proposer` hook (every mutation proposed through the raft log) stays
-unset: the raft quorum is not ported (ROADMAP A-5), and neither are the
-raft side's apply and failover-resume entry points that feed it.
+In a master quorum the `proposer` hook routes every mutation through the
+raft log; records land on every member through `apply_replicated` /
+`apply_drop`, and a freshly elected leader demotes the `running` records
+it inherited with `resume_stale_running`.
 """
 
 from __future__ import annotations
@@ -58,8 +59,13 @@ class JobJournal:
         self._lock = threading.Lock()
         self._jobs: dict[str, dict] = {}
         self._lines = 0
-        # raft replication: `proposer(op, payload) -> bool` would route
-        # every mutation through the quorum's log; unset without raft
+        # raft replication: when the master wires a proposer
+        # (`proposer(op, payload) -> bool`, op "put"|"drop"), every
+        # mutation is proposed through the raft log instead of written
+        # here, and lands via apply_replicated()/apply_drop() — in log
+        # order, on every quorum member — so a freshly elected leader
+        # holds the exact committed job set.  A failed propose (deposed,
+        # quorum lost) raises: a job the quorum didn't record must not run.
         self.proposer = None
         if path:
             self._replay()
@@ -174,6 +180,45 @@ class JobJournal:
             raise RuntimeError(
                 f"journal {op} {payload.get('key', '')!r} not committed "
                 "(not the leader, or quorum unavailable)")
+
+    def apply_replicated(self, rec: dict) -> None:
+        """Raft apply_fn target: upsert one committed record into the
+        local mirror (every quorum member, leader included, in log
+        order).  Bypasses the write faultpoint — the fault already had
+        its chance at propose time on the leader."""
+        with self._lock:
+            if self.path:
+                line = json.dumps(rec, sort_keys=True)
+                with open(self.path, "a") as f:
+                    f.write(line + "\n")
+                    f.flush()
+                    os.fsync(f.fileno())
+                self._lines += 1
+            self._jobs[rec["key"]] = dict(rec)
+            if (self.path
+                    and self._lines > len(self._jobs) + self.COMPACT_SLACK):
+                self._compact_locked()
+
+    def apply_drop(self, key: str) -> None:
+        with self._lock:
+            if self._jobs.pop(key, None) is not None and self.path:
+                self._compact_locked()
+
+    def resume_stale_running(self) -> int:
+        """Failover resume: `running` records inherited from a deposed
+        leader demote to `pending` with a bumped `resumed` marker —
+        through the proposer when replicated, so every mirror agrees the
+        job is runnable exactly once."""
+        resumed = 0
+        for rec in self.jobs(("running",)):
+            new = self.update(rec["key"], state="pending",
+                              resumed=rec.get("resumed", 0) + 1)
+            if new is not None:
+                resumed += 1
+        if resumed:
+            glog.warning("lifecycle journal: failover — demoted %d "
+                         "running job(s) to pending", resumed)
+        return resumed
 
     def jobs(self, states: tuple = ()) -> list[dict]:
         with self._lock:

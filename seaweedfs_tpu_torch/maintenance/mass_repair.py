@@ -312,7 +312,7 @@ class MassRepairOrchestrator:
     def on_node_dead(self, node_id: str) -> None:
         """Liveness-sweep hook: the node is already out of the topology,
         so plan() sees exactly the post-death shard map."""
-        if not self.enabled:
+        if not self.enabled or not self._warmed():
             return
         self._counts["deaths"] += 1
         try:
@@ -479,7 +479,8 @@ class MassRepairOrchestrator:
         volumes whose earlier jobs failed or were deferred behind other
         transitions, and keeps the runner alive while jobs are pending.
         Cheap and rate-limited — a healthy cluster scans nothing."""
-        if not self.enabled or not self.master.is_leader():
+        if (not self.enabled or not self.master.is_leader()
+                or not self._warmed()):
             return
         now = time.monotonic()
         if now - self._last_plan < 5.0:
@@ -493,6 +494,14 @@ class MassRepairOrchestrator:
             glog.warning("mass repair tick failed: %s", e)
         if self.pending():
             self.kick()
+
+    def _warmed(self) -> bool:
+        """Planning gate: a freshly elected leader must finish its
+        warm-up barrier (log tail applied + heartbeat cycle seen) before
+        planning repairs, or it plans duplicates of work the deposed
+        leader's committed journal already covers."""
+        fn = getattr(self.master, "control_warmed", None)
+        return fn() if callable(fn) else True
 
     def _epoch(self) -> int:
         return self.master.leader_epoch()

@@ -145,6 +145,9 @@ class MasterGrpcService:
                 if rate > 0:
                     rate = max(rate, self.master.mass_repair
                                .rate_floor_mbps())
+                # warm-up barrier input: one processed beat on a fresh
+                # leader means a volume server found us and re-registered
+                self.master._beat_count += 1
                 yield master_pb2.HeartbeatResponse(
                     volume_size_limit=self.topo.volume_size_limit,
                     leader=self.master.leader(),

@@ -12,23 +12,23 @@ maintenance loop (which runs the port's shell), the scrub-finding ingest
 and repair pass, replication health, admin tokens, the client registry,
 the maintenance plane (maintenance/: the lifecycle controller and
 dead-node mass repair, built by every master as in the reference; the
-liveness sweep hands each dead node to the orchestrator) and the HTTP API.
+liveness sweep hands each dead node to the orchestrator), the raft quorum
+(master/raft.py: volume ids and the maintenance journal replicate through
+the log, a deposed leader fences its control plane, a new one warms up
+before it serves), the SLO engine and canary (/cluster/alerts), the
+flight recorder (/cluster/debug*), the federated /cluster/metrics,
+/cluster/traces and /cluster/hot, and the HTTP API.
 
-Left out, each for a later slice (ROADMAP A-5; geo with A-7):
-  * the raft quorum (master/raft.py): `peers` naming more than this master
-    raises, never a silent single master (split brain);
-  * the SLO engine and canary, the flight recorder, federation,
-    observability scrapes and geo: /cluster/alerts, /cluster/debug*,
-    /cluster/geo, /cluster/hot, /cluster/metrics, /cluster/traces and
-    /cluster/raft answer 501 naming the slice.
-A constructor argument of a left-out plane given a value other than its
-default raises ValueError naming it.  `stop()` joins every thread `start()`
+Left out for a later slice (ROADMAP A-7): the geo registry — the
+`peer_clusters` argument raises ValueError naming it, and /cluster/geo
+answers 501.  `stop()` joins every thread `start()`
 started (the reference leaves daemon threads).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
 import threading
 import time
@@ -119,7 +119,8 @@ class MasterServer:
         self._metricsd = None
         self.metrics_port = metrics_port
         # observability plane: registered non-volume clients (filers via
-        # KeepConnected) and last-heartbeat stats snapshots per instance
+        # KeepConnected), last-heartbeat stats snapshots per instance,
+        # and the bounded fan-out pool /cluster/{metrics,traces} scrape on
         self.clients: dict[str, dict] = {}
         self._clients_lock = threading.Lock()
         self.stats_snapshots: dict[str, dict] = {}
@@ -150,16 +151,17 @@ class MasterServer:
             jwt_signing_key.encode() if isinstance(jwt_signing_key, str)
             else jwt_signing_key
         )
-        _refuse_left_out_planes(
-            peer_clusters=peer_clusters,
-            slo_interval=slo_interval,
-            slo_specs=slo_specs,
-            slo_window_scale=slo_window_scale,
-            canary_interval=canary_interval,
-            canary_s3=canary_s3,
-            alert_webhook=alert_webhook,
-            debug_dir=debug_dir,
-        )
+        if peer_clusters:
+            # never silently ignored: a deployment that asks for geo links
+            # must not run without them
+            raise ValueError(f"peer_clusters={peer_clusters!r}: the geo "
+                             "registry (replication/geo.py), ROADMAP A-7, "
+                             "is not ported yet; leave it at its default")
+        from ..util.executors import MeteredThreadPoolExecutor
+
+        self.federation_pool = MeteredThreadPoolExecutor(
+            max_workers=8, name="federation",
+            thread_name_prefix="master-federation")
         # the maintenance plane: policy-driven seal -> EC-encode -> tier
         # -> vacuum -> rebalance with a crash-safe job journal, built even
         # when the periodic loop is off (interval 0) so /cluster/lifecycle
@@ -179,23 +181,75 @@ class MasterServer:
         )
         self.mass_repair = MassRepairOrchestrator(
             self, self.lifecycle, deadline_s=repair_deadline_s)
+        # judgment plane: the SLO engine evaluates burn-rate rules over
+        # family-filtered federation scrapes; the canary prober feeds it
+        # active black-box SLIs.  Both are constructed unconditionally so
+        # /cluster/alerts and the shell work on a manually driven master
+        # (engine interval 0 = evaluate-on-read; canary interval 0 =
+        # disabled).
+        from ..stats.metrics import REGISTRY as _registry
+        from ..telemetry.canary import CanaryProber
+        from ..telemetry.slo import SloEngine, WebhookSink, log_sink
+
+        from . import observability as _obs
+
+        # flight recorder: alert-triggered cluster debug bundles.
+        # Constructed before the SLO engine so a transition to firing
+        # captures a bundle through its sink; manual captures run via
+        # /cluster/debug/capture and the cluster.debug shell command
+        from .flight import FlightRecorder
+
+        self.flight = FlightRecorder(self, debug_dir=debug_dir)
+        sinks = [log_sink, self.flight.sink]
+        if alert_webhook:
+            sinks.append(WebhookSink(alert_webhook))
+        self.slo = SloEngine(
+            scrape=lambda fams: _obs.cluster_metrics(self, fams),
+            specs=slo_specs,
+            sinks=sinks,
+            interval_s=slo_interval,
+            exemplars=_registry.exemplars,
+            window_scale=slo_window_scale,
+        )
+        self.canary = CanaryProber(
+            self, interval_s=canary_interval, s3_address=canary_s3)
         self._rng = random.Random()
-        # raft quorum: not ported.  A one-entry peer list naming this
-        # master is the single-master case; anything more must refuse to
-        # start, because a silent single master in a quorum gives every
-        # member is_leader()=True -> split brain
+        # raft quorum (raft_server.go:21-46): multi-master when peers given
+        self.raft = None
         addr = f"{ip}:{port}"
         peer_list = [p.strip() for p in (peers or []) if p.strip()]
         if peer_list:
             if addr not in peer_list:
+                # silently falling back to single-master here would give
+                # every quorum member is_leader()=True -> split brain
                 raise ValueError(
                     f"this master {addr!r} is not in -peers {peer_list}; "
                     "include its own ip:port in the quorum list"
                 )
             if len(peer_list) > 1:
-                raise ValueError(
-                    f"-peers {peer_list}: the raft quorum (master/raft.py) "
-                    "is not ported yet (ROADMAP A-5); run one master")
+                from .raft import RaftNode
+
+                state_path = (
+                    f"{raft_state_dir}/raft-{port}.json"
+                    if raft_state_dir else ""
+                )
+                self.raft = RaftNode(
+                    addr, peer_list, self._raft_send,
+                    apply_fn=self._raft_apply, state_path=state_path,
+                )
+        # leader-fenced control plane: the warm-up barrier holds assigns
+        # and repair planning on a freshly elected leader until the
+        # committed log tail is applied and a heartbeat cycle has been
+        # seen; role transitions fence the deposed side.
+        self._warmed = threading.Event()
+        self._beat_count = 0  # full-state heartbeats processed as leader
+        if self.raft is None:
+            self._warmed.set()  # single master: always warm
+        else:
+            self.raft.on_role_change = self._on_role_change
+            # lifecycle + mass-repair journal records replicate through
+            # the raft log; every quorum member mirrors the job set
+            self.lifecycle.journal.proposer = self._journal_propose
         self._threads: list[threading.Thread] = []
 
     # -- lifecycle --------------------------------------------------------
@@ -221,21 +275,35 @@ class MasterServer:
             th.start()
             self._threads.append(th)
         self.lifecycle.start()
-        # journaled mass-repair jobs interrupted by a crash replay as
-        # pending: resume them exactly once from the journal
-        self.mass_repair.resume()
-        glog.info("master started http=%d grpc=%d peers=1",
-                  self.port, self.grpc_port)
+        self.slo.start()
+        self.canary.start()
+        if self.is_leader():
+            # journaled mass-repair jobs interrupted by a crash replay
+            # as pending: resume them exactly once from the journal
+            self.mass_repair.resume()
+        if self.raft is not None:
+            self.raft.start()
+        glog.info("master started http=%d grpc=%d peers=%d",
+                  self.port, self.grpc_port,
+                  len(self.raft.peers) + 1 if self.raft else 1)
 
     def stop(self) -> None:
         """Stop serving and join every thread start() started: the
-        liveness and maintenance loops, the lifecycle controller's loop,
+        liveness and maintenance loops, the canary and the SLO engine,
+        the flight recorder's captures, the lifecycle controller's loop,
         workers and emergency runners, the mass-repair runner and its
-        evacuations, the HTTP front ends and the gRPC server's workers.
-        A job or run in progress finishes its current rpc first."""
+        evacuations, the raft node's loops, callbacks and rpc pool, the
+        federation pool, the HTTP front ends and the gRPC server's
+        workers.  A job or run in progress finishes its current rpc
+        first."""
         self._stop.set()
+        self.canary.stop()
+        self.slo.stop()
         self.mass_repair.stop()
         self.lifecycle.stop()
+        if self.raft is not None:
+            self.raft.stop()
+        self.flight.stop()
         for srv in (self._httpd, self._metricsd):
             if srv is not None:
                 srv.shutdown()
@@ -245,25 +313,149 @@ class MasterServer:
             self._grpc_server.stop(grace=0.5).wait()
             # streams end with the server; then its workers are idle
             self._grpc_server.pool.shutdown(wait=True)
+        self.federation_pool.shutdown(wait=True, cancel_futures=True)
         for th in self._threads:
             th.join(timeout=30.0)
         self._threads = []
         rpclib.close_channels(f"{self.ip}:{self.grpc_port}")
 
-    # -- leadership: one master, always the leader -------------------------
+    # -- raft plumbing ----------------------------------------------------
+
+    def _raft_sig(self, payload: bytes) -> str:
+        import hashlib
+        import hmac
+
+        return hmac.new(
+            self.jwt_signing_key, payload, hashlib.sha256
+        ).hexdigest()
+
+    def _raft_send(self, peer: str, msg: dict) -> dict | None:
+        from ..util import connpool
+
+        payload = json.dumps(msg).encode()
+        headers = {"Content-Type": "application/json"}
+        if self.jwt_signing_key:
+            # consensus messages forge cluster state; sign them with the
+            # same shared secret that protects writes (security/jwt.go)
+            headers["X-Raft-Signature"] = self._raft_sig(payload)
+        with connpool.request(
+                "POST", f"http://{peer}/cluster/raft", body=payload,
+                headers=headers, timeout=1.0) as r:
+            return json.loads(r.read())
+
+    def verify_raft_request(self, payload: bytes, signature: str) -> bool:
+        import hmac
+
+        if not self.jwt_signing_key:
+            return True
+        return hmac.compare_digest(self._raft_sig(payload), signature or "")
+
+    def _raft_apply(self, cmd: dict):
+        """State machine: the reference's MaxVolumeIdCommand analogue.
+
+        "inc_vid" computes the new id HERE (in log order, identically on
+        every replica) — a fresh leader first applies the old leader's
+        tail, so it can never re-issue an id committed before failover."""
+        op = cmd.get("op")
+        if op == "inc_vid":
+            with self.topo.lock:
+                self.topo.max_volume_id += 1
+                return self.topo.max_volume_id
+        if op == "max_vid":  # older persisted logs
+            with self.topo.lock:
+                self.topo.max_volume_id = max(
+                    self.topo.max_volume_id, int(cmd["value"])
+                )
+                return self.topo.max_volume_id
+        if op == "journal":  # lifecycle/mass-repair job record mirror
+            self.lifecycle.journal.apply_replicated(cmd["rec"])
+            return True
+        if op == "journal_drop":
+            self.lifecycle.journal.apply_drop(cmd["key"])
+            return True
+        if op == "barrier":  # warm-up: committing this proves the new
+            return True      # leader has applied every prior entry
+        return None
+
+    def _journal_propose(self, op: str, payload: dict) -> bool:
+        """JobJournal proposer: replicate one journal mutation through
+        raft; False (-> the journal raises) when not the leader or the
+        quorum is unreachable."""
+        if op == "drop":
+            return self.raft.propose(
+                {"op": "journal_drop", "key": payload["key"]})
+        return self.raft.propose({"op": "journal", "rec": payload})
+
+    def _on_role_change(self, role: str, term: int) -> None:
+        """Raft leadership transition (fires from a raft callback thread).
+
+        Deposed: fence the whole control plane NOW — cancel lifecycle
+        executor queues and running mass-repair waves so this master
+        stops racing the new leader (its in-flight rpcs are additionally
+        rejected volume-server-side by epoch).
+
+        Elected: warm-up barrier before serving — (1) commit a barrier
+        entry, which proves the old leader's committed tail (journal
+        records, vid increments) is applied here; (2) wait for one
+        heartbeat cycle (bounded) so assigns see real topology; then
+        resume journaled jobs exactly-once."""
+        if role != "leader":
+            self._warmed.clear()
+            self.lifecycle.fence(term)
+            self.mass_repair.fence(term)
+            glog.warning("master %s:%d deposed at term %d — "
+                         "control plane fenced", self.ip, self.port, term)
+            return
+        self._warmed.clear()
+        beats0 = self._beat_count
+        if not self.raft.propose({"op": "barrier"}, timeout=10.0):
+            glog.warning("master %s:%d elected at term %d but barrier "
+                         "did not commit (deposed again?)",
+                         self.ip, self.port, term)
+            return
+        grace = float(os.environ.get("SEAWEEDFS_TPU_WARMUP_GRACE_S", "2.0"))
+        deadline = time.monotonic() + grace
+        while (time.monotonic() < deadline
+               and self._beat_count == beats0
+               and self.raft.is_leader()
+               and not self._stop.is_set()):
+            time.sleep(0.05)
+        if not self.raft.is_leader() or self._stop.is_set():
+            return
+        resumed = self.lifecycle.journal.resume_stale_running()
+        self._warmed.set()
+        glog.info("master %s:%d warmed up at term %d (resumed=%d)",
+                  self.ip, self.port, term, resumed)
+        # journaled jobs inherited from the deposed leader restart
+        # exactly-once: the replicated journal is the dedup memory
+        self.mass_repair.resume()
+
+    def control_warmed(self) -> bool:
+        """True once this master may hand out fids / plan repairs: not
+        mid-failover-warm-up (always true without raft)."""
+        return self._warmed.is_set()
 
     def leader_epoch(self) -> int:
-        """The fencing epoch stamped on leader->volume-server mutating
-        rpcs: 0 without raft (fencing off, single master)."""
-        return 0
+        """The fencing epoch stamped on every leader->volume-server
+        mutating rpc; 0 without raft (fencing off, single master)."""
+        return self.raft.leader_epoch() if self.raft is not None else 0
 
     def is_leader(self) -> bool:
-        return True
+        return self.raft is None or self.raft.is_leader()
 
     def next_volume_id(self) -> int:
-        return self.topo.next_volume_id()
+        """Allocate a volume id; in quorum mode the increment commits
+        through raft before use (topology/cluster_commands.go)."""
+        if self.raft is None:
+            return self.topo.next_volume_id()
+        ok, vid = self.raft.propose_and_get({"op": "inc_vid"})
+        if not ok or vid is None:
+            raise RuntimeError("not the leader or quorum unavailable")
+        return int(vid)
 
     def leader(self) -> str:
+        if self.raft is not None and self.raft.leader_id:
+            return self.raft.leader_id
         return f"{self.ip}:{self.port}"
 
     def leader_grpc(self) -> str:
@@ -351,6 +543,13 @@ class MasterServer:
 
     def _assign(self, count: int, collection: str, replication: str,
                 ttl: str, data_center: str = "", rack: str = "") -> tuple[str, str, str, int]:
+        # warm-up barrier: a freshly elected leader must not hand out
+        # fids until the deposed leader's committed tail is applied and a
+        # heartbeat cycle has refreshed topology — close the fid-reuse
+        # window by BLOCKING briefly (clients see a slow assign during
+        # failover, never a 5xx)
+        if not self._warmed.wait(timeout=15.0):
+            raise RuntimeError("control plane warming up after failover")
         layout = self.get_layout(collection, replication, ttl)
         try:
             vid, node_ids = layout.pick_for_write()
@@ -488,10 +687,12 @@ class MasterServer:
                 vids = self.topo.unregister_node(node_id)
                 self.unregister_from_layouts(vids, node_id)
                 self.note_dead_node(node_id)
-                # plan AFTER the node left the topology, so the
-                # orchestrator ranks exactly the post-death shard map
-                self.mass_repair.on_node_dead(node_id)
-            self.mass_repair.tick()
+                if self.is_leader():
+                    # plan AFTER the node left the topology, so the
+                    # orchestrator ranks exactly the post-death shard map
+                    self.mass_repair.on_node_dead(node_id)
+            if self.is_leader():
+                self.mass_repair.tick()
 
     def note_dead_node(self, node_id: str) -> None:
         """Bump the dead-node sequence the heartbeat ack carries; volume
@@ -515,7 +716,7 @@ class MasterServer:
             except Exception as e:  # noqa: BLE001 — never fail the beat
                 glog.warning("low-space reaction for %s failed: %s",
                              node.id, e)
-        if worst == "failing":
+        if worst == "failing" and self.is_leader():
             try:
                 self.mass_repair.on_disk_failing(node.id)
             except Exception as e:  # noqa: BLE001
@@ -973,49 +1174,11 @@ _MASTER_OPS = {
 }
 
 
-# the master's surfaces whose planes come with later slices: each answers
+# the master's surfaces whose planes come with a later slice: each answers
 # 501 with the plane and the ROADMAP item that brings it
 _LEFT_OUT_PATHS = {
-    "/cluster/alerts": "SLO engine and canary (telemetry/slo.py, "
-                       "telemetry/canary.py), ROADMAP A-5",
-    "/cluster/debug": "flight recorder (master/flight.py), ROADMAP A-5",
-    "/cluster/debug/capture": "flight recorder (master/flight.py), "
-                              "ROADMAP A-5",
     "/cluster/geo": "geo registry (replication/geo.py), ROADMAP A-7",
-    "/cluster/hot": "federated hot keys (master/observability.py), "
-                    "ROADMAP A-5",
-    "/cluster/metrics": "metrics federation (telemetry/federation.py), "
-                        "ROADMAP A-5",
-    "/cluster/traces": "trace stitching (telemetry/stitch.py), ROADMAP A-5",
-    "/cluster/raft": "raft quorum (master/raft.py), ROADMAP A-5",
 }
-
-
-def _refuse_left_out_planes(**given) -> None:
-    """Raise ValueError for a constructor argument of a plane this master
-    does not have, when given a value other than its default: it is never
-    silently ignored."""
-    defaults = {
-        "peer_clusters": None,
-        "slo_interval": 0.0, "slo_specs": None, "slo_window_scale": None,
-        "canary_interval": 0.0, "canary_s3": "", "alert_webhook": "",
-        "debug_dir": "",
-    }
-    planes = {
-        "peer": "the geo registry (replication/geo.py), ROADMAP A-7",
-        "slo": "the SLO engine (telemetry/slo.py), ROADMAP A-5",
-        "canary": "the canary prober (telemetry/canary.py), ROADMAP A-5",
-        "alert": "the SLO engine's webhook sink (telemetry/slo.py), "
-                 "ROADMAP A-5",
-        "debug": "the flight recorder (master/flight.py), ROADMAP A-5",
-    }
-    for name, value in given.items():
-        if value == defaults[name] or (name == "peer_clusters"
-                                       and not value):
-            continue
-        plane = planes[name.split("_")[0]]
-        raise ValueError(f"{name}={value!r}: {plane}, is not ported yet; "
-                         "leave it at its default")
 
 
 def _master_op(path: str) -> str:
@@ -1080,10 +1243,9 @@ class _MasterHttpHandler(BaseHTTPRequestHandler):
     def _left_out(self, path: str) -> None:
         """501 for a surface of a plane this master does not have yet."""
         self._drain_body()
-        key = "/cluster/debug" if path.startswith("/cluster/debug") else path
         return self._json(501, {
             "error": f"{path} is not ported yet",
-            "plane": _LEFT_OUT_PATHS[key],
+            "plane": _LEFT_OUT_PATHS[path],
         })
 
     def _drain_body(self, cap: int = 1 << 20) -> None:
@@ -1101,6 +1263,18 @@ class _MasterHttpHandler(BaseHTTPRequestHandler):
             return self._col_delete(u)
         if u.path in _LEFT_OUT_PATHS:
             return self._left_out(u.path)
+        if u.path == "/cluster/raft" and self.master.raft is not None:
+            length = int(self.headers.get("Content-Length") or 0)
+            payload = self.rfile.read(length)
+            if not self.master.verify_raft_request(
+                payload, self.headers.get("X-Raft-Signature", "")
+            ):
+                return self._json(403, {"error": "bad raft signature"})
+            try:
+                msg = json.loads(payload)
+                return self._json(200, self.master.raft.handle(msg))
+            except (ValueError, KeyError) as e:
+                return self._json(400, {"error": str(e)})
         if u.path == "/submit":
             # one-shot convenience: assign + upload in a single request
             # (master_server_handlers.go submitFromMasterServerHandler)
@@ -1175,8 +1349,86 @@ class _MasterHttpHandler(BaseHTTPRequestHandler):
         if serve_debug_http(self, u.path):
             return
 
-        if u.path in _LEFT_OUT_PATHS or u.path.startswith("/cluster/debug"):
+        if u.path in _LEFT_OUT_PATHS:
             return self._left_out(u.path)
+
+        if u.path == "/cluster/metrics":
+            from ..stats.metrics import parse_family_prefixes
+            from . import observability
+
+            try:
+                prefixes = parse_family_prefixes(qget("family"))
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            body = observability.cluster_metrics(
+                self.master, prefixes).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if u.path == "/cluster/alerts":
+            # the judgment plane's operator surface: SLO states, active
+            # alerts (exemplar trace ids included), bounded transition
+            # history, the canary's last probe round, and the flight
+            # recorder's captured bundles (the page's evidence locker)
+            doc = self.master.slo.status()
+            doc["canary"] = self.master.canary.status()
+            doc["debugBundles"] = self.master.flight.list_bundles()
+            return self._json(200, doc)
+        if u.path == "/cluster/hot":
+            # federated heavy-hitter tables: which needle/bucket/tenant/
+            # peer is hot right now, cluster-wide, in one request
+            from . import observability
+
+            try:
+                n = int(qget("n", "32") or 32)
+                if not 1 <= n <= 1024:
+                    raise ValueError
+            except ValueError:
+                return self._json(400, {"error": "n must be in [1, 1024]"})
+            return self._json(200, observability.cluster_hot(
+                self.master, n))
+        if u.path == "/cluster/debug":
+            name = qget("bundle")
+            if name:
+                doc = self.master.flight.bundle(name)
+                if doc is None:
+                    return self._json(404, {
+                        "error": f"no bundle named {name!r}"})
+                return self._json(200, doc)
+            return self._json(200, {
+                "debugDir": self.master.flight.debug_dir,
+                "retain": self.master.flight.retain,
+                "bundles": self.master.flight.list_bundles(),
+            })
+        if u.path == "/cluster/debug/capture":
+            # on-demand flight-recorder capture (the shell's
+            # cluster.debug -capture); alert-triggered captures run
+            # through the SLO sink without this endpoint
+            try:
+                return self._json(200, self.master.flight.capture(
+                    trigger="manual"))
+            except RuntimeError as e:  # capture already in flight
+                return self._json(409, {"error": str(e)})
+            except Exception as e:
+                return self._json(500, {"error": str(e)})
+        if u.path == "/cluster/traces":
+            from ..telemetry import parse_trace_query
+            from . import observability
+
+            try:
+                trace_id, limit = parse_trace_query(q)
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            if trace_id is None:
+                return self._json(400, {
+                    "error": "trace=<32-hex trace id> is required "
+                             "(per-node rings are at /debug/traces)"})
+            return self._json(200, observability.cluster_traces(
+                self.master, trace_id, limit))
+
 
         if (((u.path.startswith("/dir/") and u.path != "/dir/status")
                 or u.path in ("/vol/grow", "/vol/status"))

@@ -7,11 +7,12 @@ every 17 minutes under the admin lock).
 
 The port's copy of seaweedfs_tpu/shell/commands.py.  It registers the
 commands that need only a master and volume servers (ec_commands.py,
-volume_commands.py).  The reference's cluster_commands.py and
-fs_commands.py need the filer and the observability planes and come with
-later slices; naming one of their commands, or a volume command left out
-here, raises the same ValueError as an unknown command, with the ROADMAP
-item that brings it.
+volume_commands.py, and cluster_commands.py's cluster.status,
+cluster.alerts, cluster.hot and cluster.debug).  The reference's
+fs_commands.py, filer.ring and cluster.geo need the filer fleet and the
+geo registry and come with a later slice; naming one of their commands,
+or a volume command left out here, raises the same ValueError as an
+unknown command, with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -101,8 +102,9 @@ def run_command(env: CommandEnv, line: str) -> str:
 
 # reference commands this package does not have yet -> where they come from
 _NOT_PORTED = {
-    "cluster.": "shell/cluster_commands.py, ROADMAP A-5",
-    "filer.ring": "shell/cluster_commands.py, ROADMAP A-5",
+    "cluster.geo": "shell/cluster_commands.py, the geo registry, "
+                   "ROADMAP A-7",
+    "filer.ring": "shell/cluster_commands.py, the filer fleet, ROADMAP A-7",
     "collection.": "shell/fs_commands.py, ROADMAP A-7",
     "fs.": "shell/fs_commands.py, ROADMAP A-7",
     "s3.": "shell/fs_commands.py, ROADMAP A-7",
@@ -148,5 +150,6 @@ def run_maintenance(env: CommandEnv, script=None) -> list[str]:
 
 
 # import command modules for registration side effects
+from . import cluster_commands  # noqa: E402,F401
 from . import ec_commands  # noqa: E402,F401
 from . import volume_commands  # noqa: E402,F401

@@ -15,7 +15,10 @@ event-loop, connection-pool, replication, volume-full and hot-key
 families.  `serve_metrics` renders this registry only: a process that also
 runs the reference's servers keeps two registries, each on its own port.
 
-Not carried over: the families of the master, the filer and the gateways.
+The master adds the lifecycle and mass-repair families, and for its
+quorum, judgment and flight-recorder planes the raft, SLO, canary and
+debug-bundle families.  Not carried over: the families of the filer and
+the gateways.
 """
 
 from __future__ import annotations
@@ -338,6 +341,20 @@ class Registry:
         return (f"metric family {name!r} already registered as "
                 f"{existing.kind} with labels {existing.label_names}; "
                 "register every family exactly once (stats/metrics.py)")
+
+    def family(self, name: str) -> "Metric | None":
+        """The registered family, trying histogram base names too (so
+        `foo_seconds_bucket` resolves to the `foo_seconds` histogram)."""
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                return m
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix):
+                    m = self._metrics.get(name[: -len(suffix)])
+                    if m is not None and m.kind == "histogram":
+                        return m
+        return None
 
     def render(self, family_prefixes: "list[str] | None" = None) -> str:
         """Text exposition; `family_prefixes` (from ?family=) restricts
@@ -838,6 +855,99 @@ HOTKEY_TOP = REGISTRY.gauge(
     "seaweedfs_hotkey_top_count",
     "estimated hits of the hottest keys in the last closed window",
     labels=("dim", "key"),
+)
+
+
+# -- raft consensus (master/raft.py) ----------------------------------------
+# one gauge set per quorum member (`node` = ip:port) so a federated scrape
+# of three masters shows term skew, commit lag and role at a glance; the
+# leader-change counter is what the flap SLO pages on.
+
+RAFT_TERM = REGISTRY.gauge(
+    "seaweedfs_raft_term", "current raft term", labels=("node",),
+)
+RAFT_ROLE = REGISTRY.gauge(
+    "seaweedfs_raft_role",
+    "raft role (0 follower, 1 candidate, 2 leader)",
+    labels=("node",),
+)
+RAFT_COMMIT_INDEX = REGISTRY.gauge(
+    "seaweedfs_raft_commit_index", "highest committed log index",
+    labels=("node",),
+)
+RAFT_LOG_ENTRIES = REGISTRY.gauge(
+    "seaweedfs_raft_log_entries", "entries in the raft log",
+    labels=("node",),
+)
+RAFT_LEADER_CHANGES = REGISTRY.counter(
+    "seaweedfs_raft_leader_changes_total",
+    "times this node gained or lost leadership",
+    labels=("node",),
+)
+RAFT_RPC = REGISTRY.counter(
+    "seaweedfs_raft_rpc_total",
+    "outbound raft rpcs by type (vote|append) and result (ok|error|dropped)",
+    labels=("type", "result"),
+)
+
+# -- SLO engine and canary (telemetry/slo.py, telemetry/canary.py) ----------
+# the master-resident judgment layer: declarative SLO specs evaluated as
+# multi-window multi-burn-rate rules over federated counter deltas, fed
+# by a black-box canary prober (write/read/delete round trips, EC
+# degraded-read, filer/S3 routed PUT/GET, geo sentinel) so "process up
+# but serving garbage or slow" pages.
+
+SLO_BURN_RATE = REGISTRY.gauge(
+    "seaweedfs_slo_burn_rate",
+    "error-budget burn rate per SLO and evaluation window (1.0 = "
+    "burning exactly the budget; the page tier fires at its factor in "
+    "BOTH windows)",
+    labels=("slo", "window"),  # short | long
+)
+SLO_ALERT_STATE = REGISTRY.gauge(
+    "seaweedfs_slo_alert_state",
+    "per-SLO alert state (0 ok, 1 pending, 2 firing)",
+    labels=("slo", "severity"),  # page | warn
+)
+SLO_TRANSITIONS = REGISTRY.counter(
+    "seaweedfs_slo_alert_transitions_total",
+    "alert state-machine transitions by SLO and target state",
+    labels=("slo", "to"),  # pending | firing | resolved
+)
+SLO_EVAL_SECONDS = REGISTRY.histogram(
+    "seaweedfs_slo_eval_seconds",
+    "wall time per SLO engine evaluation tick (scrape + rule pass)",
+)
+CANARY_PROBE_TOTAL = REGISTRY.counter(
+    "seaweedfs_canary_probe_total",
+    "synthetic canary probes by probe kind and outcome; `error` counts "
+    "failed or byte-divergent round trips, `skipped` counts probes with "
+    "no eligible target",
+    labels=("probe", "result"),  # ok | error | skipped
+)
+CANARY_PROBE_SECONDS = REGISTRY.histogram(
+    "seaweedfs_canary_probe_seconds",
+    "end-to-end canary probe latency (the black-box SLI the latency "
+    "SLOs judge)",
+    labels=("probe",),
+)
+CANARY_STALENESS = REGISTRY.gauge(
+    "seaweedfs_canary_staleness_seconds",
+    "seconds since a probe kind last fully succeeded (for the geo "
+    "sentinel: age of the sentinel payload observed on the remote "
+    "cluster)",
+    labels=("probe",),
+)
+
+# -- flight recorder (master/flight.py) ---------------------------------------
+DEBUG_BUNDLES = REGISTRY.counter(
+    "seaweedfs_debug_bundles_total",
+    "cluster debug bundles captured, by trigger and outcome",
+    labels=("trigger", "result"),  # alert|manual ; ok|error
+)
+DEBUG_BUNDLE_SECONDS = REGISTRY.histogram(
+    "seaweedfs_debug_bundle_capture_seconds",
+    "wall time to fan out and persist one cluster debug bundle",
 )
 
 

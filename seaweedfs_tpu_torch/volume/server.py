@@ -133,6 +133,9 @@ class VolumeServer:
                     counts.get(loc.disk_type, 0) + max_volume_count)
             self.store.max_volume_counts = counts
         self.current_leader: str | None = None
+        # the leader whose heartbeat ack came last: what lookups ask when
+        # no redirect pinned current_leader (a seed reached directly)
+        self._acked_leader: str | None = None
         # highest leader epoch (raft term) learned from heartbeat acks;
         # mutating rpcs stamped with an older epoch are rejected — a
         # deposed master cannot drive rebuilds/vacuums on this node
@@ -393,6 +396,18 @@ class VolumeServer:
         if resp.leader_grpc and resp.leader_grpc != master:
             self.current_leader = resp.leader_grpc
             raise grpc.RpcError()  # reconnect to leader
+        if resp.leader_grpc == master:
+            self._acked_leader = master
+
+    def _lookup_master(self) -> str:
+        """The master the node's lookups ask: the pinned leader, else the
+        one that acked its last heartbeat, else the first seed.  Port
+        difference: the reference asks `current_leader or
+        master_addresses[0]`, and `current_leader` is set only by a
+        redirect, so a node that reached the leader as a seed asks the
+        first seed, a follower or a dead master, after a failover."""
+        return (self.current_leader or self._acked_leader
+                or self.master_addresses[0])
 
     # -- remote EC shard access ------------------------------------------
 
@@ -401,7 +416,7 @@ class VolumeServer:
         excluded) — one lookup shape shared by the full-interval fetcher
         and the partial-repair client."""
         me = f"{self.ip}:{self.port}"
-        master = self.current_leader or self.master_addresses[0]
+        master = self._lookup_master()
         resp = rpclib.master_stub(master, timeout=5).LookupEcVolume(
             master_pb2.LookupEcVolumeRequest(volume_id=vid)
         )
@@ -634,7 +649,7 @@ class VolumeServer:
         reads anywhere (store_ec_delete.go:15-33 + :35).  Returns the
         needle's size from the local .ecx."""
         size = self.store.delete_ec_needle(vid, needle_id)
-        master = self.current_leader or self.master_addresses[0]
+        master = self._lookup_master()
         try:
             resp = rpclib.master_stub(master, timeout=5).LookupEcVolume(
                 master_pb2.LookupEcVolumeRequest(volume_id=vid)
@@ -662,7 +677,7 @@ class VolumeServer:
 
     def lookup_volume_url(self, vid: int) -> str | None:
         """Public URL of some server holding vid (for read redirects)."""
-        master = self.current_leader or self.master_addresses[0]
+        master = self._lookup_master()
         try:
             resp = rpclib.master_stub(master, timeout=5).LookupVolume(
                 master_pb2.LookupVolumeRequest(volume_or_file_ids=[str(vid)])
@@ -678,7 +693,7 @@ class VolumeServer:
 
     def other_replica_locations(self, vid: int) -> list[str]:
         """Ask the master where the other replicas of vid live."""
-        master = self.current_leader or self.master_addresses[0]
+        master = self._lookup_master()
         try:
             stub = rpclib.master_stub(master, timeout=5)
             resp = stub.LookupVolume(

@@ -21,6 +21,7 @@ import chip_ab  # noqa: E402
                                   ["chip_smoke.py", "--only-maintenance"],
                                   ["chip_smoke.py", "--only-mesh"],
                                   ["chip_smoke.py", "--only-tier"],
+                                  ["chip_smoke.py", "--only-quorum"],
                                   ["chip_ab.py", "--tree", "a=."]])
 def test_exits_nonzero_without_a_card(argv):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
@@ -558,6 +559,70 @@ def test_tier_phase_rehearsed_on_the_host(tmp_path, capsys):
     assert ref["unregistered_backend"].startswith("FAILED_PRECONDITION")
     assert {n: e["rc"] for n, e in rows["tier_stop"]["exits"].items()} \
         == {"a": 0, "b": 0, "master": 0, "s3": 0}
+    # no card: the kernels' launch counters stayed at 0 on every server
+    assert out["launches_by_path"] == {"gf_matmul": {},
+                                       "gf_matmul_batched": {}}
+
+
+def test_quorum_phase_rehearsed_on_the_host(tmp_path, capsys):
+    """chip_smoke.py's quorum phase (4i) with 4 volumes of 16 MiB on this
+    host: three `python -m seaweedfs_tpu_torch master` processes in one
+    raft quorum with the SLO engine, the canary and the flight recorder
+    on, and four volume processes with `-ec.codec torch_cpu` (the
+    kernel's plain version, passed because the caller asks).  Every check
+    of the phase passes: one leader elected, writes through a follower
+    redirected to it, the leader killed mid-encode and every ec_encode
+    job done exactly once under the new leader (a running one resumed),
+    the follower's job set equal, parity equal to the plain version, no
+    volume id reissued; the canary probes every node, a rotten parity
+    byte fires the availability page, a bundle is captured on its own
+    and listed by the shell, the restored byte resolves the alert; the
+    killed master rejoins as a caught-up follower; a dead node's shards
+    are rebuilt equal by sha256 while GETs return every body equal; the
+    degraded GET is stitched across volume processes, the hot keys are
+    listed, and every process exits 0 on SIGTERM."""
+    import chip_smoke
+    from helpers import free_port
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+
+    work = tmp_path / "work"
+    work.mkdir()
+    out = chip_smoke.phase_quorum(
+        rs_cuda, gf256, str(work), 16 << 20, seed=0, power="test card",
+        reduced=["test size"], codec="torch_cpu", device="cpu",
+        free_port=free_port, gets=256, writes=64, cool_s=25.0)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {f"quorum_{s}" for s in (
+        "election", "writes", "failover", "canary_slo", "rejoin",
+        "dead_node", "gets_during_repair", "tracing", "stop", "summary")}
+    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    assert rows["quorum_writes"]["redirect"] == 307
+    fo = rows["quorum_failover"]
+    assert fo["killed"] == rows["quorum_election"]["leader"]
+    assert fo["new_leader"] != fo["killed"] and fo["jobs_done"] == 4
+    assert any(fo["resumed"][str(v)] for v in fo["running_at_kill"])
+    assert fo["parity_slices_checked"] >= 4
+    assert not set(fo["vids_after"]) & set(fo["vids_before"])
+    assert not any(c["host_apply_rows"] for c in fo["counts"].values())
+    slo = rows["quorum_canary_slo"]
+    assert slo["probes_ok"] >= 4 and slo["bundle"].startswith("bundle-")
+    assert 0 < slo["flip_to_firing_s"] and slo["resolve_s"] > 0
+    rejoin = rows["quorum_rejoin"]
+    assert rejoin["role"] == "follower" and rejoin["master"] == fo["killed"]
+    dead = rows["quorum_dead_node"]
+    assert dead["sha256_equal"] and dead["mass_repair_done"] == len(
+        dead["affected_volumes"])
+    assert dead["detect_s"] < dead["time_to_recover_s"]
+    gets = rows["quorum_gets_during_repair"]
+    assert gets["byte_equal"] and gets["reads"] > 0
+    tr = rows["quorum_tracing"]
+    assert tr["hot_keys_listed"] == 16
+    assert {"volumeServer.get", "ec.reconstruct"} <= set(tr["span_names"])
+    assert len(tr["nodes"]) == 1 + 3  # the leader and the live servers
+    assert all(e["rc"] == 0 for e in rows["quorum_stop"]["exits"].values())
     # no card: the kernels' launch counters stayed at 0 on every server
     assert out["launches_by_path"] == {"gf_matmul": {},
                                        "gf_matmul_batched": {}}

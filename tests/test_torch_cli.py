@@ -8,7 +8,8 @@ needles from a remote tier and from a 5-byte-offset volume, and a master
 takes a lifecycle policy naming a tier backend.  Then the refusals: a
 `volume` with no codec on this card-less host names the card, the TPU
 codec names are refused naming `cuda`, a subcommand, plane flag or TLS
-setting not ported yet exits naming its ROADMAP item, and the entry
+setting not ported yet exits naming its ROADMAP item, the judgment,
+flight-recorder and quorum flags build their planes, and the entry
 point's modules import neither jax nor any module of seaweedfs_tpu."""
 
 import json
@@ -209,9 +210,7 @@ def test_subcommands_not_ported_exit_2_naming_the_roadmap(tmp_path, cmd,
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["master", "-sloInterval", "15"], "slo_interval"),
-    (["master", "-sloSpecs", "s.json"], "-sloSpecs"),
-    (["master", "-peers", "127.0.0.1:{p},127.0.0.1:1"], "raft"),
+    (["master", "-peerClusters", "127.0.0.1:1"], "A-7"),
     (["server", "-filer", "-ec.codec=cpu"], "A-7"),
 ])
 def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
@@ -223,6 +222,97 @@ def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
     out = _cli(argv, str(tmp_path))
     assert out.returncode != 0
     assert words in out.stderr and "not ported yet" in out.stderr
+
+
+def _stop_all(procs, logs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        assert p.wait(timeout=DEADLINE_S) == 0
+    for log in logs:
+        assert "Traceback" not in log.read_text()
+
+
+@pytest.mark.parametrize("case", ["slo_canary_debug", "slo_default",
+                                  "quorum"])
+def test_judgment_and_quorum_flags_are_live(tmp_path, case):
+    """The master's -sloInterval, -sloSpecs (a JSON file of specs),
+    -canaryInterval, -alertWebhook and -debugDir build the SLO engine,
+    the canary and the flight recorder, as /cluster/alerts and
+    /cluster/debug show; -sloInterval defaults to the reference's 15 s;
+    two masters naming each other in -peers, each with its -raftDir,
+    elect one leader that both report, and the follower redirects an
+    assign to it.  SIGTERM exits 0 everywhere."""
+    procs, logs = [], []
+    ports = [free_port() for _ in range(2 if case == "quorum" else 1)]
+    flags = {p: [] for p in ports}
+    if case == "slo_canary_debug":
+        (tmp_path / "specs.json").write_text(json.dumps([{
+            "name": "only", "severity": "warn", "kind": "gauge",
+            "family": "seaweedfs_lifecycle_queue_depth",
+            "threshold": 5.0}]))
+        flags[ports[0]] = ["-sloInterval", "1", "-sloSpecs", "specs.json",
+                           "-canaryInterval", "2", "-alertWebhook",
+                           "http://127.0.0.1:1/hook", "-debugDir", "dbg"]
+    elif case == "quorum":
+        peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+        for p in ports:
+            (tmp_path / f"raft{p}").mkdir()
+            flags[p] = ["-ip", "127.0.0.1", "-peers", peers, "-raftDir",
+                        f"raft{p}"]
+    try:
+        for p in ports:
+            log = tmp_path / f"master{p}.log"
+            logs.append(log)
+            with open(log, "wb") as f:
+                procs.append(_spawn(["master", "-port", str(p),
+                                     *flags[p]], str(tmp_path), f))
+        if case != "quorum":
+            doc = _wait(lambda: _get_json(
+                f"http://127.0.0.1:{ports[0]}/cluster/alerts"),
+                "/cluster/alerts", procs)
+            if case == "slo_default":
+                assert doc["intervalS"] == 15.0
+                assert len(doc["specs"]) == 10
+                assert not doc["canary"]["running"]
+                return
+            assert doc["intervalS"] == 1.0
+            assert [sp["name"] for sp in doc["specs"]] == ["only"]
+            assert doc["canary"]["interval_s"] == 2.0
+            assert doc["canary"]["running"]
+            dbg = _get_json(f"http://127.0.0.1:{ports[0]}/cluster/debug")
+            assert dbg["debugDir"] == "dbg" and dbg["bundles"] == []
+            assert (tmp_path / "dbg").is_dir()
+            return
+
+        def one_leader():
+            docs = [_get_json(f"http://127.0.0.1:{p}/cluster/status")
+                    for p in ports]
+            leaders = {d["Leader"] for d in docs}
+            roles = sorted(d["Raft"]["role"] for d in docs)
+            if roles == ["follower", "leader"] and len(leaders) == 1:
+                return docs
+            return None
+
+        docs = _wait(one_leader, "one leader both masters report", procs)
+        leader = docs[0]["Leader"]
+        follower = next(p for p in ports if f"127.0.0.1:{p}" != leader)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{follower}/dir/assign")
+
+        class NoRedirect(urllib.request.HTTPRedirectHandler):
+            def redirect_request(self, *a, **k):
+                return None
+
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.build_opener(NoRedirect).open(req, timeout=10)
+        assert e.value.code == 307
+        assert e.value.headers["Location"].startswith(f"http://{leader}/")
+        for p in ports:
+            assert (tmp_path / f"raft{p}" / f"raft-{p}.json").exists()
+    finally:
+        _stop_all(procs, logs)
 
 
 @pytest.mark.parametrize("flag", ["-tierBackends", "-offset.5bytes"])

@@ -510,6 +510,7 @@ def test_each_package_keeps_its_own_profiler_and_registry():
     assert metrics.REGISTRY is not ref_metrics.REGISTRY
     port_families = set(metrics.REGISTRY._metrics)
     assert "seaweedfs_httpd_inflight_requests" in port_families
-    # the reference's master-side families are not the port's
-    assert "seaweedfs_raft_term" in ref_metrics.REGISTRY._metrics
-    assert "seaweedfs_raft_term" not in port_families
+    # the families of planes the port leaves out (the filer fleet and
+    # geo, ROADMAP A-7) are the reference's only
+    assert "seaweedfs_geo_lag_seconds" in ref_metrics.REGISTRY._metrics
+    assert "seaweedfs_geo_lag_seconds" not in port_families

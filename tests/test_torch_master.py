@@ -5,13 +5,15 @@ VolumeList, Statistics, the heartbeat acks and the HTTP API (/dir/assign,
 address replaced by a name, fid keys compared by format and order (the
 cookie is random in both).  Then the packages cross-wired: port volume
 servers register with the reference master and reference volume servers
-with the port's.  Last, the planes the port leaves out answer 501 or
-ValueError, the maintenance plane's surfaces (/cluster/lifecycle, the
-Lifecycle rpc, /vol/repair's massRepair) answer as the reference's, and
-stop() leaves no thread of the master's.
+with the port's.  Last, the geo registry the port leaves out answers 501
+or ValueError, the SLO, canary, flight-recorder, federation and quorum
+surfaces and the maintenance plane's (/cluster/lifecycle, the Lifecycle
+rpc, /vol/repair's massRepair) answer as the reference's, and stop()
+leaves no thread of the master's, a quorum member's included.
 """
 
 import json
+import os
 import queue
 import re
 import threading
@@ -252,9 +254,9 @@ def test_http_api_answers_equal(masters, path):
 
 
 def test_dir_status_answers_equal_but_for_the_left_out_planes(masters):
-    """/dir/status: the same topology, leader, health and Lifecycle
-    blocks; the reference's block of planes the port does not have (the
-    SLO and canary Health) is absent from the port's, and nothing else."""
+    """/dir/status: the same topology, leader, health, Lifecycle and
+    Health (SLO and canary) blocks; the only plane the port leaves out,
+    the geo registry, has no block in the reference's document either."""
     docs = {}
     for pkg, (m, _s, _a) in masters.items():
         code, body = _http(f"http://127.0.0.1:{m.port}/dir/status")
@@ -263,26 +265,82 @@ def test_dir_status_answers_equal_but_for_the_left_out_planes(masters):
         for node in doc["DataNodes"].values():
             node.pop("secondsSinceLastBeat")
         docs[pkg] = doc
-    assert set(docs["ref"]) - set(docs["port"]) == {"Health"}
-    assert set(docs["port"]) <= set(docs["ref"])
-    assert docs["port"] == {k: docs["ref"][k] for k in docs["port"]}
+    assert set(docs["ref"]) == set(docs["port"])
+    assert docs["port"]["Health"]["slo"]["specs"] == 10
+    assert docs["port"] == docs["ref"]
 
 
-@pytest.mark.parametrize("path", [
-    "/cluster/alerts", "/cluster/debug", "/cluster/debug/capture",
-    "/cluster/geo", "/cluster/hot",
-    "/cluster/metrics", "/cluster/traces?trace=" + "a" * 32,
-    "/cluster/raft",
-])
+@pytest.mark.parametrize("path", ["/cluster/geo"])
 def test_left_out_surfaces_answer_501_naming_the_plane(masters, path):
     m = masters["port"][0]
     code, body = _http(f"http://127.0.0.1:{m.port}{path}")
     doc = json.loads(body)
     assert code == 501 and "not ported yet" in doc["error"]
-    assert "ROADMAP" in doc["plane"]
-    if path == "/cluster/raft":  # POST too, as the quorum would send it
-        code, body = _http(f"http://127.0.0.1:{m.port}{path}", "POST", b"{}")
-        assert code == 501
+    assert "ROADMAP A-7" in doc["plane"]
+    code, body = _http(f"http://127.0.0.1:{m.port}{path}", "POST", b"{}")
+    assert code == 501
+
+
+def _plane_doc(path: str, doc: dict) -> dict:
+    """The plane's document with what differs between two masters by
+    construction (times, addresses, process-wide counters, and the alert
+    states the engines judge from each package's process-wide gauges)
+    taken out."""
+    if path == "/cluster/alerts":
+        return {"specs": doc["specs"], "states": sorted(doc["states"]),
+                "windowScale": doc["windowScale"],
+                "intervalS": doc["intervalS"],
+                "canary": {k: doc["canary"][k] for k in (
+                    "interval_s", "running", "tick", "byteMismatches")},
+                "debugBundles": doc["debugBundles"]}
+    if path == "/cluster/debug":
+        return {k: doc[k] for k in ("debugDir", "retain", "bundles")}
+    if path == "/cluster/hot":
+        return {"nodes": sorted(doc["nodes"]), "dims": sorted(doc["dims"])}
+    if path.startswith("/cluster/traces"):
+        return {"traceId": doc["traceId"], "spans": doc["spans"],
+                "nodes": sorted(doc["nodes"])}
+    return doc
+
+
+@pytest.mark.parametrize("path", [
+    "/cluster/alerts", "/cluster/debug", "/cluster/hot",
+    "/cluster/traces?trace=" + "a" * 32, "/cluster/traces",
+    "/cluster/metrics?family=no-dash", "/cluster/debug?bundle=bundle-none",
+])
+def test_plane_surfaces_answer_as_the_reference(masters, path):
+    """The SLO, flight-recorder, hot-key and trace surfaces answer the
+    same status and the same document (but for each master's own
+    addresses and times) on a single master with no alert, no bundle and
+    no trace; a bad query is refused alike."""
+    got = {}
+    for pkg, (m, _s, _a) in masters.items():
+        code, body = _http(f"http://127.0.0.1:{m.port}{path}")
+        doc = json.loads(body)
+        if code == 200:
+            doc = _plane_doc(path, _norm(doc, m))
+        got[pkg] = (code, doc)
+    assert got["port"] == got["ref"]
+
+
+def test_cluster_metrics_federates_as_the_reference(masters):
+    """/cluster/metrics: the same families from both masters (each
+    master's own exposition and its volume servers' with instance and
+    type labels), up for every scraped node; /cluster/raft on a single
+    master answers like the reference's (no quorum: not a raft peer)."""
+    fams = {}
+    for pkg, (m, _s, _a) in masters.items():
+        code, body = _http(f"http://127.0.0.1:{m.port}/cluster/metrics"
+                           "?family=seaweedfs_federation")
+        assert code == 200
+        fams[pkg] = sorted(line.split("{", 1)[0] for line in
+                           body.decode().splitlines()
+                           if line and not line.startswith("#"))
+        code, body = _http(f"http://127.0.0.1:{m.port}/cluster/raft",
+                           "POST", b"{}")
+        fams[pkg + "_raft"] = code
+    assert fams["port"] == fams["ref"] and fams["port"]
+    assert fams["port_raft"] == fams["ref_raft"]
 
 
 def _lifecycle_docs(masters, action: str) -> dict:
@@ -381,19 +439,43 @@ def test_maintenance_plane_arguments_are_live(tmp_path):
     {"peer_clusters": ["127.0.0.1:1"]},
     {"slo_interval": 15.0}, {"slo_specs": []}, {"slo_window_scale": 0.1},
     {"canary_interval": 1.0}, {"canary_s3": "127.0.0.1:8333"},
-    {"alert_webhook": "http://127.0.0.1:1/a"}, {"debug_dir": "/tmp/d"},
+    {"alert_webhook": "http://127.0.0.1:1/a"}, {"debug_dir": "d"},
 ])
-def test_left_out_plane_arguments_raise(kwargs):
+def test_left_out_plane_arguments_raise(kwargs, tmp_path):
+    """`peer_clusters` (the geo registry, ROADMAP A-7) raises naming it;
+    every argument of the SLO engine, the canary and the flight recorder
+    builds its plane as the reference's master does."""
+    from seaweedfs_tpu.master.server import MasterServer as RefMaster
+
     name = next(iter(kwargs))
-    with pytest.raises(ValueError, match=name):
-        PortMaster(ip="127.0.0.1", port=free_port(), **kwargs)
+    if name == "peer_clusters":
+        with pytest.raises(ValueError, match="A-7"):
+            PortMaster(ip="127.0.0.1", port=free_port(), **kwargs)
+        return
+    if name == "debug_dir":
+        kwargs = {name: str(tmp_path / "d")}
+    planes = {}
+    for pkg, cls in (("port", PortMaster), ("ref", RefMaster)):
+        m = cls(ip="127.0.0.1", port=free_port(), **kwargs)
+        planes[pkg] = (
+            m.slo.interval_s, m.slo.window_scale,
+            [s.name for s in m.slo.specs], len(m.slo._sinks),
+            m.canary.interval_s, m.canary.s3_address, m.flight.debug_dir,
+            m.flight.retain)
+    assert planes["port"] == planes["ref"]
 
 
-def test_quorum_and_etcd_refuse_to_start():
+def test_quorum_and_etcd_refuse_to_start(tmp_path):
+    """A peer list naming more masters builds a raft node over them, as
+    the reference does; a list without this master and the etcd
+    sequencer (ROADMAP A-7) still refuse."""
     port = free_port()
-    with pytest.raises(ValueError, match="raft"):
-        PortMaster(ip="127.0.0.1", port=port,
+    m = PortMaster(ip="127.0.0.1", port=port, raft_state_dir=str(tmp_path),
                    peers=[f"127.0.0.1:{port}", "127.0.0.1:1"])
+    assert m.raft is not None and m.raft.peers == ["127.0.0.1:1"]
+    assert m.raft.state_path == str(tmp_path / f"raft-{port}.json")
+    assert not m.is_leader() and not m.control_warmed()
+    assert m.lifecycle.journal.proposer is not None
     with pytest.raises(ValueError, match="not in -peers"):
         PortMaster(ip="127.0.0.1", port=port, peers=["127.0.0.1:1"])
     # a one-master peer list naming itself is the single-master case
@@ -435,6 +517,33 @@ def test_stop_leaves_no_master_thread():
     sub.cancel()
     for c in conns:
         c.close()
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.name.startswith("master-")]
+    assert left == []
+    # a quorum member with every plane's loop on: raft's loops, role
+    # callbacks and rpc pool, the SLO engine, the canary, the federation
+    # pool and the flight recorder's captures are joined too
+    import tempfile
+
+    ports = [free_port(), free_port()]
+    peers = [f"127.0.0.1:{p}" for p in ports]
+    with tempfile.TemporaryDirectory() as d:
+        quorum = [PortMaster(ip="127.0.0.1", port=p, peers=peers,
+                             raft_state_dir=d, pulse_seconds=0.2,
+                             slo_interval=0.1, canary_interval=0.1,
+                             debug_dir=os.path.join(d, f"debug{p}"))
+                  for p in ports]
+        for q in quorum:
+            q.start()
+        _wait(lambda: any(q.is_leader() and q.control_warmed()
+                          for q in quorum), "a warmed quorum leader")
+        leader = next(q for q in quorum if q.is_leader())
+        assert leader.flight.capture(trigger="manual")["name"]
+        names = {t.name for t in set(threading.enumerate()) - before}
+        assert {"master-slo-engine", "master-canary"} <= names
+        assert any(n.startswith("master-raft-elect") for n in names)
+        for q in quorum:
+            q.stop()
     left = [t.name for t in set(threading.enumerate()) - before
             if t.name.startswith("master-")]
     assert left == []

@@ -359,11 +359,16 @@ def test_unknown_and_left_out_commands_raise(clusters):
     _ref, port, _d, _src = clusters
     with pytest.raises(ValueError, match="unknown command 'nope'"):
         port.run("nope")
-    for line, item in (("cluster.status", "A-5"),
+    for line, item in (("cluster.geo", "A-7"),
+                       ("filer.ring", "A-7"),
                        ("fs.ls /", "A-7"),
                        ("collection.list", "A-7")):
         with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
             port.run(line)
+    # the cluster plane's commands are the port's own
+    for name in ("cluster.status", "cluster.alerts", "cluster.hot",
+                 "cluster.debug"):
+        assert name in port_shell.COMMANDS
     # the remote tier's and disk-type moves' commands are the port's own
     for name in ("volume.tier.upload", "volume.tier.download",
                  "volume.tier.move"):
@@ -371,6 +376,48 @@ def test_unknown_and_left_out_commands_raise(clusters):
     assert port.run("") == ""
     assert port.run("lock") == "locked"
     assert port.run("unlock") == "unlocked"
+
+
+@pytest.mark.parametrize("line", ["cluster.status", "cluster.alerts",
+                                  "cluster.hot", "cluster.debug"])
+def test_cluster_commands_read_alike(clusters, line):
+    """The cluster plane's commands print the same report from both
+    clusters: every address replaced by its node's name, every number
+    and hex key by a placeholder (ages, counts and keys differ between
+    two clusters by construction), lines compared as a set (nodes are
+    listed in address order); for cluster.hot its header and the names
+    of its dimensions (which window still holds a dimension's traffic
+    depends on when each cluster's window turned); of the SLO states
+    only each SLO's name and severity (the engines judge gauges of
+    each package's process-wide registry, which the module's other
+    tests move)."""
+    import re
+
+    ref, port, _d, _src = clusters
+    out = {}
+    for c in (ref, port):
+        text = c.named(c.run(line)).replace(
+            f"127.0.0.1:{c.master.port}", "master")
+        lines = re.sub(r"\d+(\.\d+)?", "N", re.sub(
+            r"\b[0-9a-f]{8,}\b", "H", text)).splitlines()
+        if line == "cluster.hot":
+            lines = [lines[0]] + [x.split(":")[0].split(" (")[0]
+                                  for x in lines[1:]
+                                  if x.startswith("  ")
+                                  and not x.startswith("    ")]
+        if line == "cluster.alerts":
+            states = lines[1:lines.index(next(
+                x for x in lines[1:] if not x.startswith("  ")))]
+            lines = [lines[0]] + [x.split("]")[0] + "]" for x in states] \
+                + [x for x in lines if x.startswith("canary:")]
+        if line == "cluster.status":
+            lines = [x.split(":")[0] if x.startswith("health:") else x
+                     for x in lines]
+        out[c.pkg] = sorted(lines)
+    assert out["port"] == out["ref"]
+    if line == "cluster.status":
+        assert "health" in out["port"]
+        assert any(x.startswith("canary: ") for x in out["port"])
 
 
 def test_volume_lifecycle_installs_a_tier_policy(clusters):

@@ -1,14 +1,15 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--volume-gib 10.5] [--service-volume-gib 1]
-                          [--store-volume-gib 3] [--seed 0]
-                          [--cluster-volume-gib 3] [--cluster-codec cuda]
+                          [--store-volume-gib 1.5] [--seed 0]
+                          [--cluster-volume-gib 1] [--cluster-codec cuda]
                           [--maintenance-volume-gib 0.5]
-                          [--tier-volume-gib 1] [--quorum-volume-gib 1]
+                          [--tier-volume-gib 0.5] [--quorum-volume-gib 0.5]
+                          [--filer-gib 1]
                           [--only-ec-reads | --only-store |
                            --only-volume-server | --only-cluster |
                            --only-maintenance | --only-mesh | --only-tier |
-                           --only-quorum]
+                           --only-quorum | --only-filer]
 
 The main path is what SeaweedFS operators run to seal, protect and serve
 volumes: `ec.encode`, then `ec.rebuild` and reads of needles from the EC
@@ -21,7 +22,9 @@ maintenance plane doing the same with no operator: sealing and encoding
 volumes by policy, rebuilding a dead server's shards on the survivors,
 and moving sealed `.dat` files to an S3 remote tier, and a raft quorum
 of masters failing over mid-encode while its SLO engine, canary and
-flight recorder judge the cluster.  A full volume
+flight recorder judge the cluster, and SeaweedFS's secured layout with a
+filer (gRPC mTLS, the client tools) whose files are encoded on the cards
+and read back after a node dies.  A full volume
 `.dat` of needle records is striped into the RS(10,4) shards
 `.ec00`..`.ec13` plus the sorted `.ecx` index, shards are lost, the lost
 ones are rebuilt, and needles are read back, lost intervals decoded on
@@ -87,7 +90,7 @@ Phases, each printing one JSON line:
      to phase 4's;
   4c. store_lifecycle, in a fresh directory after 4b's is removed: one
      Store([dir]) on the default `cuda` codec and service settings, a
-     volume of --store-volume-gib (3 by default: 1 MB-block rows only,
+     volume of --store-volume-gib (1.5 by default: 1 MB-block rows only,
      phase 4 keeps the 1 GB-block row)
      written through Store.write_needle (seeded needles of 1 B..256 KiB,
      each needle's length and CRC kept) and sealed; generate_ec_shards on
@@ -143,7 +146,7 @@ Phases, each printing one JSON line:
      gf_matmul launch per degraded interval) and 64 HEADs; (h3) after step
      8, the GETs on the decoded volume, the sendfile counter moving by the
      bytes served, then 64 Range GETs on the fallback path; (h4) volume 2
-     (replication 001) on A and B, 512 MiB of seeded needles (256 JSON-lines
+     (replication 001) on A and B, 256 MiB of seeded needles (256 JSON-lines
      ones, then 1 B..256 KiB) POSTed to A by 16 threads with write JWTs and
      fanned out to B, a POST without a token refused 401, every needle read
      back equal from B, 16 DELETEs at A then 404 on both; (h5) 64 needles
@@ -155,7 +158,7 @@ Phases, each printing one JSON line:
      mass repair switched off by SEAWEEDFS_TPU_MASS_REPAIR=0: this phase's
      subject is the shell's rebuild) and three volume processes (`-max
      40`, no -ec.codec: their default `cuda`; A alone in rack1 holding a
-     sealed volume of --cluster-volume-gib, 3 by default, made before it
+     sealed volume of --cluster-volume-gib, 1 by default, made before it
      starts; B and C in rack0), started in that order; (1)
      256 MiB of seeded needles by /dir/assign?replication=001, POSTed by
      16 threads and read back through /dir/lookup; (2) `shell -c
@@ -202,7 +205,7 @@ Phases, each printing one JSON line:
      {"ec_cooldown_seconds": 5, "tier_backend": "s3.tier",
      "tier_idle_seconds": 5}}) and two volume processes (`-offset.5bytes
      -tierBackends <json> -ec.codec=cuda`), A and B, each holding one
-     volume of collection `tier` of --tier-volume-gib (1 by default) with
+     volume of collection `tier` of --tier-volume-gib (0.5 by default) with
      a 17-byte-entry .idx, made before it starts; (a) the controller seals
      both, encodes each on its node's card keeping the source (batched
      launches on each node) and tiers its .dat (multipart uploads of 8
@@ -226,7 +229,7 @@ Phases, each printing one JSON line:
      captured) and four `volume` processes (`-mserver` naming all three,
      their default `cuda`, SEAWEEDFS_TPU_EC_PARTIAL=0: a degraded interval
      decodes on the card), A and B in rack0, C and D in rack1, each
-     holding one sealed volume of --quorum-volume-gib (1 by default; its
+     holding one sealed volume of --quorum-volume-gib (0.5 by default; its
      first needle spans every data shard's first 1 MiB block) and one
      empty writable volume: (0) the election and the registrations; (1)
      256 seeded writes through a follower's /dir/assign (307 to the
@@ -249,6 +252,31 @@ Phases, each printing one JSON line:
      by sha256, the time to recover as in 4g, 2048 GETs during it; (6)
      one degraded GET of the lead needle traced by /cluster/traces, and
      /cluster/hot listing 16 keys read 8 times each; (7) SIGTERM;
+  4j. filer, in a fresh directory after 4i's is removed: SeaweedFS's
+     secured layout with a filer, each a `python -m seaweedfs_tpu_torch`
+     process: certificates made with openssl (else generate_dev_certs), a
+     security.toml from `scaffold -config security` naming them and a JWT
+     key, so every gRPC hop is mTLS; a master (-volumeSizeLimitMB 256,
+     mass repair off), four volume processes on their default `cuda` (A
+     and B in rack0, C and D in rack1, SEAWEEDFS_TPU_EC_PARTIAL=0, their
+     needle and interval caches off) and a filer (-maxMB 4) on leveldb2
+     from a scaffolded filer.toml: (0) registration, and gRPC without a
+     client certificate refused; (1) --filer-gib (1 by default) of seeded
+     files of 4 KiB-32 MiB PUT by 16 threads under /buckets/b4j, a
+     `filer.copy` of 64 files and an `upload` of 16, all read back equal;
+     (2) `backup` of a b4j volume in full, then incrementally, then with
+     nothing new, its needles equal to the server's, `export` and `fix`
+     of the backup; (3) `benchmark -n 4096 -c 16 -size 1024`; (4) the
+     plan ec.encode's planner makes on that cluster, a node given 5+
+     shards of every volume named (ROADMAP C-1), the nodes' volume counts
+     evened, each generating node's codec warmed by one job, then
+     `ec.encode -collection=b4j` from the shell on the cards (batched
+     launches on every generating node, parity equal to the plain
+     version, every source dropped); (5) every file and 256 ranges across
+     chunk boundaries read through the filer; (6) D (else a node whose
+     loss every volume survives) SIGKILLed: every file read through the filer again,
+     decoded on the survivors' cards (gf_matmul launches), 8 `filer.cat`s
+     and a `download`; (7) SIGTERM;
   5. batched_vs_plain: gf_apply_batched for V in {1, 3, 16} entries at
      ragged, unaligned and 16 MiB widths, more than 65535 entries, and
      gf_sweep over overlapping windows, byte-equal to the plain versions;
@@ -312,8 +340,9 @@ no kernels line; `--only-tier` runs phases 1-2 and 4h alone (a quick
 check: `--only-tier --tier-volume-gib 0.25`), and prints no kernels line;
 `--only-quorum` runs phases 1-2 and 4i alone (a quick check:
 `--only-quorum --quorum-volume-gib 0.25`), and prints no kernels line;
-`--cluster-codec` passes -ec.codec to 4f's, 4g's, 4h's and 4i's volume
-processes (a CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
+`--only-filer` runs phases 1-2 and 4j alone (a quick check:
+`--only-filer --filer-gib 0.25`), and prints no kernels line;
+`--cluster-codec` passes -ec.codec to 4f's-4j's volume processes (a CPU rehearsal asks for `torch_cpu`).  Exits non-zero, printing no result, without a CUDA card
 or without the package beside this script.  Data comes from --seed;
 nothing is downloaded.
 """
@@ -1783,7 +1812,7 @@ def _latency_row(name: str, lat: list, wall: float, **extra) -> dict:
 
 # h4: seeded needles POSTed to A, replicated to B; one process hosts the
 # clients and both servers (~0.017-0.021 GB/s on the H100 machine)
-HTTP_WRITE_BYTES = 512 * MIB
+HTTP_WRITE_BYTES = 256 * MIB
 HTTP_JSON_NEEDLES = 256  # h4's first needles are JSON lines, for h6's Query
 HTTP_SAMPLE = 64  # h2's HEADs, h3's Range GETs, h5's TCP needles
 HTTP_DELETES = 16
@@ -2611,7 +2640,7 @@ def phase_volume_server(rs_cuda, gf256, enc, metrics, work: str, seed: int,
 
 # -- phase 4f: cluster -------------------------------------------------------
 
-CLUSTER_VOLUME_BYTES = 3 * GIB  # the sealed volume A holds before it starts
+CLUSTER_VOLUME_BYTES = GIB  # the sealed volume A holds before it starts
 CLUSTER_WRITE_BYTES = 256 * MIB  # step 1: replicated writes through assigns
 CLUSTER_DECODE_SAMPLE = 64  # step 6: GETs served from the decoded .dat
 CLUSTER_START_S = 60.0  # every process registered and the volume listed
@@ -3713,7 +3742,7 @@ def phase_maintenance(rs_cuda, gf256, work: str, size: int, seed: int,
 # -- phase 4h: tier ----------------------------------------------------------
 
 TIER_NODES = (("a", "rack0"), ("b", "rack1"))  # one volume each
-TIER_VOLUME_BYTES = GIB  # each; the master's limit is the same size
+TIER_VOLUME_BYTES = GIB // 2  # each; the master's limit is the same size
 TIER_COLLECTION = "tier"
 TIER_BACKEND = ("s3", "tier")  # -tierBackends name "s3.tier", bucket "tier"
 TIER_ACCESS_KEY, TIER_SECRET_KEY = "chipsmoke", "chip-smoke-tier-secret"
@@ -4379,7 +4408,7 @@ def phase_tier(rs_cuda, gf256, work: str, size: int, seed: int, power: str,
 
 QUORUM_MASTERS = ("m0", "m1", "m2")
 QUORUM_NODES = MAINT_NODES  # A and B in rack0, C and D in rack1
-QUORUM_VOLUME_BYTES = GIB  # each node's sealed volume; the masters' limit
+QUORUM_VOLUME_BYTES = GIB // 2  # each node's sealed volume; masters' limit
 QUORUM_WRITES = 256  # step 1: through a follower's /dir/assign
 QUORUM_WRITE_MAX = 64 * 1024
 QUORUM_GETS = 2048  # step 5: during the repair, across the 4 volumes
@@ -4393,8 +4422,9 @@ QUORUM_COOLDOWN_S = 5
 QUORUM_POLICY = {"*": {"ec_cooldown_seconds": QUORUM_COOLDOWN_S}}
 QUORUM_INTERVAL_S = 3  # lifecycle cycle seconds
 # every volume cools this long after the processes start: the election,
-# the four registrations and step 1's writes come first
-QUORUM_COOL_S = 40.0
+# the four registrations and step 1's writes come first (a slow host took
+# 19 s to elect and 16 more to register)
+QUORUM_COOL_S = 55.0
 # tests/test_slo_cluster.py's burn-window scale: the page tier evaluates
 # 1.5 s / 18 s windows
 QUORUM_WINDOW_SCALE = "0.005"
@@ -4900,9 +4930,23 @@ def phase_quorum(rs_cuda, gf256, work: str, size: int, seed: int,
 
         cl.wait_for("the availability page firing", firing, QUORUM_S)
         fire_s = time.perf_counter() - t_flip
-        _w, alerts_out = cl.shell("cluster.alerts")
-        if not re.search(r"availability \[page\] firing", alerts_out):
-            raise AssertionError(f"cluster.alerts: {alerts_out[-2000:]}")
+        # the canary probes one of the 16 (node, volume) pairs a tick and
+        # two of them fail, so at the scaled windows the page flaps
+        # between firing and ok: the shell, a process of its own, is
+        # asked again when it started in a resolved moment
+        shell_alerts = [""]
+
+        def shell_lists_the_page() -> bool:
+            shell_alerts[0] = cl.shell("cluster.alerts")[1]
+            return bool(re.search(r"availability \[page\] firing",
+                                  shell_alerts[0]))
+
+        try:
+            cl.wait_for("cluster.alerts listing the availability page",
+                        shell_lists_the_page, QUORUM_S)
+        except AssertionError:
+            raise AssertionError(
+                f"cluster.alerts: {shell_alerts[0][-2000:]}") from None
         def new_bundles() -> list[str]:
             return sorted(b[:-len(".json")] for b in os.listdir(debug_dir)
                           if "-alert-" in b and b.endswith(".json")
@@ -5162,6 +5206,800 @@ def phase_quorum(rs_cuda, gf256, work: str, size: int, seed: int,
                "wall_s": time.perf_counter() - t_phase,
                "launches_by_path": paths, "nvidia_smi": power}
     emit(summary)
+    return {"launches_by_path": paths, "rows": rows}
+
+
+# -- phase 4j: filer -----------------------------------------------------------
+
+FILER_NODES = MAINT_NODES  # A and B in rack0, C and D in rack1
+FILER_BYTES = GIB  # step 1: seeded files PUT through the filer
+FILER_FILE_MIN, FILER_FILE_MAX = 4 * 1024, 32 * MIB  # log-uniform sizes
+FILER_LIMIT_MB = 256  # the master's -volumeSizeLimitMB
+FILER_MAX_MB = 4  # the filer's -maxMB, the reference's default chunk
+FILER_COLLECTION = "b4j"  # /buckets/b4j maps to it
+FILER_COPY_FILES = 64  # filer.copy of a local directory
+FILER_UPLOAD_FILES = 16  # one `upload`
+FILER_RANGED = 256  # step 5: ranged GETs across chunk boundaries
+FILER_CAT = 8  # step 6: filer.cat of so many files
+FILER_BENCH = (4096, 16, 1024)  # step 3: benchmark -n -c -size
+FILER_TLS = ("master", "volume", "filer", "client")
+FILER_S = 300.0  # bound of each wait
+FILER_PAD_COLLECTION = "pad4j"
+
+
+def make_tls_certs(directory: str, components=FILER_TLS) -> tuple[dict, str]:
+    """A CA and a certificate and key per component, signed by it, each
+    with the SANs localhost and 127.0.0.1: made with `openssl`, as
+    SeaweedFS's documentation directs, else with the port's
+    generate_dev_certs (the `cryptography` package); neither is a
+    failure naming both.  -> ({"ca": (crt, ""), component: (crt, key)},
+    the tool)."""
+    os.makedirs(directory, exist_ok=True)
+    openssl = shutil.which("openssl")
+    if openssl is None:
+        try:
+            import cryptography  # noqa: F401
+        except ImportError:
+            raise AssertionError(
+                "no certificate tool: no `openssl` on PATH and no "
+                "`cryptography` package for generate_dev_certs") from None
+        from seaweedfs_tpu_torch.security.tls import generate_dev_certs
+
+        return generate_dev_certs(directory, components), "cryptography"
+    conf = os.path.join(directory, "openssl.cnf")
+    with open(conf, "w") as f:
+        f.write("[req]\ndistinguished_name = dn\nprompt = no\n"
+                "[dn]\nCN = seaweedfs dev ca\n"
+                "[v3_ca]\nbasicConstraints = critical,CA:TRUE\n"
+                "keyUsage = critical,keyCertSign,cRLSign\n"
+                "subjectKeyIdentifier = hash\n"
+                "[leaf]\nbasicConstraints = CA:FALSE\n"
+                "keyUsage = critical,digitalSignature,keyEncipherment\n"
+                "extendedKeyUsage = serverAuth,clientAuth\n"
+                "subjectAltName = DNS:localhost,IP:127.0.0.1\n")
+
+    def run(*argv: str) -> str:
+        proc = subprocess.run([openssl, *argv], cwd=directory, timeout=120,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"openssl {' '.join(argv)}: "
+                                 f"{proc.stderr[-1000:]}")
+        return proc.stdout
+
+    run("req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout",
+        "ca.key", "-out", "ca.crt", "-days", "30", "-config", conf,
+        "-extensions", "v3_ca")
+    out = {"ca": (os.path.join(directory, "ca.crt"), "")}
+    for c in components:
+        run("req", "-new", "-newkey", "rsa:2048", "-nodes", "-keyout",
+            f"{c}.key", "-out", f"{c}.csr", "-config", conf, "-subj",
+            f"/CN={c}.seaweedfs")
+        run("x509", "-req", "-in", f"{c}.csr", "-CA", "ca.crt", "-CAkey",
+            "ca.key", "-CAcreateserial", "-out", f"{c}.crt", "-days", "30",
+            "-extfile", conf, "-extensions", "leaf")
+        out[c] = (os.path.join(directory, f"{c}.crt"),
+                  os.path.join(directory, f"{c}.key"))
+    return out, run("version").strip()
+
+
+def _filled(text: str, old: str, new: str) -> str:
+    if text.count(old) != 1:
+        raise AssertionError(f"scaffold text lacks {old!r}")
+    return text.replace(old, new)
+
+
+def security_toml(scaffold_text: str, certs: dict, jwt_key: str) -> str:
+    """`scaffold -config security`'s text with the JWT key and the gRPC
+    CA, and each component's certificate and key, filled in."""
+    text = _filled(scaffold_text, 'overrides).\nkey = ""',
+                   f'overrides).\nkey = "{jwt_key}"')
+    text = _filled(text, '[grpc]\nca = ""', f'[grpc]\nca = "{certs["ca"][0]}"')
+    for c in FILER_TLS:
+        text = _filled(text, f'[grpc.{c}]\ncert = ""\nkey  = ""',
+                       f'[grpc.{c}]\ncert = "{certs[c][0]}"\n'
+                       f'key  = "{certs[c][1]}"')
+    return text
+
+
+def filer_toml(scaffold_text: str, store_dir: str) -> str:
+    """`scaffold -config filer`'s text with sqlite off and leveldb2, the
+    store upstream SeaweedFS's filer.toml enables, on at `store_dir`."""
+    text = _filled(scaffold_text, "[sqlite]\nenabled = true",
+                   "[sqlite]\nenabled = false")
+    return _filled(text, 'enabled = false\ndir = "./filerldb2"',
+                   f'enabled = true\ndir = "{store_dir}"')
+
+
+def _plan_files(total: int, seed: int, lo: int, hi: int) -> list[bytes]:
+    """Seeded files of log-uniform sizes in [lo, hi], `total` bytes."""
+    rng = np.random.default_rng(seed)
+    out, size = [], 0
+    while size < total:
+        n = min(int(np.exp(rng.uniform(np.log(lo), np.log(hi)))),
+                total - size)
+        out.append(rng.bytes(max(n, 1)))
+        size += len(out[-1])
+    return out
+
+
+def phase_filer(rs_cuda, gf256, work: str, seed: int, power: str,
+                reduced: list[str], codec: str = "cuda",
+                device: str = "cuda", free_port=free_port_pair,
+                total: int = FILER_BYTES, file_max: int = FILER_FILE_MAX,
+                limit_mb: int = FILER_LIMIT_MB,
+                bench: tuple = FILER_BENCH, wait_s: float = FILER_S) -> dict:
+    """SeaweedFS's secured layout with a filer, each a `python -m
+    seaweedfs_tpu_torch` process: one security.toml (from `scaffold
+    -config security`) with the JWT key and a CA, master, volume, filer
+    and client certificates made by make_tls_certs, so every gRPC hop is
+    under mTLS; one `master -volumeSizeLimitMB limit_mb` (mass repair
+    off, SEAWEEDFS_TPU_MASS_REPAIR=0, so the reads after the kill stay
+    degraded); four `volume` processes on their default codec (`cuda`;
+    another is passed as -ec.codec), A and B in rack0 and C and D in
+    rack1, with SEAWEEDFS_TPU_EC_PARTIAL=0 (a degraded interval decodes
+    on the serving node's card) and their needle and interval caches off,
+    so every read after the kill reaches the decode; one `filer -maxMB 4`
+    on leveldb2, enabled through a filer.toml `scaffold -config filer`
+    wrote and this phase edited.  Steps, each on its own line:
+    (0) the seconds until the four nodes registered and the filer's
+    master client joined the master; a gRPC call to the master without a
+    client certificate is refused; (1) 16 threads PUT `total` bytes of
+    seeded files of log-uniform sizes (4 KiB..`file_max`, 1-8 chunks)
+    under /buckets/b4j/ (collection b4j, the filer's bucket mapping), one
+    `filer.copy` of a local directory of FILER_COPY_FILES files and one
+    `upload` of FILER_UPLOAD_FILES blobs into b4j; every file read back
+    through the filer equal by sha256; (2) a b4j volume grown by the
+    master's /vol/grow and given blobs by `upload`, its `backup` in full,
+    `upload`s until a blob lands on it, `backup` again
+    (appends, no full resync) and a third time (appends none); every
+    needle of the backup read offline equals the server's; `export` of
+    the backup lists every live needle; its .idx replaced with garbage,
+    `fix` keeps the live count and every needle; (3) `benchmark -n -c
+    -size` in a collection of its own, its write and read rates; (4) the
+    plan the shell's free-slot planner makes on the cluster as the
+    benchmark left it, with a node it gives 5+ shards of every volume
+    named (ROADMAP C-1: its loss would lose them); the nodes' volume
+    counts evened with empty volumes of a collection of their own, so
+    that step 6 has a node whose loss every volume survives; each
+    generating node's codec warmed by one job of its own, all at once
+    (its smallest b4j volume encoded over gRPC, its shards deleted: the
+    device probe, the CUDA context and the kernel's build, timed apart);
+    then `shell -c "ec.encode -collection=b4j -fullPercent=0
+    -quietFor=1s"`: its rate, the spread, the batched launches on each
+    generating node and the host codec's apply_rows on none, a
+    sample of slices' parity equal to the plain version, every source
+    volume dropped; (5) every file read through the filer again, equal by
+    sha256, and FILER_RANGED ranged GETs across chunk boundaries, with
+    the filer's failovers to a fresh lookup counted; (6) D (or the first
+    node holding at most 4 shards of every volume and a data shard, so
+    every volume survives its loss and reads decode) SIGKILLed: the
+    seconds until the master drops it, every file read by 16 threads through the filer
+    equal by sha256 with `gf_matmul` launches on the survivors that
+    decoded, FILER_CAT `filer.cat`s and a `download` of the uploaded blobs
+    equal; (7) SIGTERM: clean exits.  -> launches by kernel and step, and
+    the rows."""
+    import urllib.request
+
+    import grpc
+
+    from seaweedfs_tpu_torch.pb import master_pb2
+    from seaweedfs_tpu_torch.pb import rpc as rpclib
+    from seaweedfs_tpu_torch.pb import volume_server_pb2
+    from seaweedfs_tpu_torch.security import tls
+    from seaweedfs_tpu_torch.util.config import Configuration
+
+    t_phase = time.perf_counter()
+    names = [n for n, _r in FILER_NODES]
+    dirs = {n: os.path.join(work, n) for n in names}
+    for d in dirs.values():
+        os.makedirs(d)
+    cl = _Cluster(work, codec, free_port)
+    rows: dict[str, dict] = {}
+    paths: dict[str, dict] = {"gf_matmul": {}, "gf_matmul_batched": {}}
+    coll = FILER_COLLECTION
+
+    t_step = [time.perf_counter()]
+
+    def step(name: str, row: dict) -> None:
+        now = time.perf_counter()
+        row = {"phase": f"filer_{name}", **row, "step_s": now - t_step[0],
+               "nvidia_smi": power}
+        t_step[0] = now
+        emit(row)
+        rows[name] = row
+
+    def cli(*argv: str, timeout: float = 600.0) -> str:
+        proc = subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", *argv],
+            cwd=work, env=cl.env, capture_output=True, timeout=timeout)
+        with open(os.path.join(work, "cli.log"), "ab") as f:
+            f.write(f"$ {' '.join(argv)}\n".encode() + proc.stdout[-4000:]
+                    + proc.stderr[-4000:])
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(argv[:3])} exited "
+                                 f"{proc.returncode}: "
+                                 f"{proc.stderr.decode()[-2000:]}")
+        return proc.stdout.decode(errors="replace")
+
+    def scrape_all() -> dict:
+        return {n: cl.scrape(n) for n in names if n not in cl.killed}
+
+    def counted(name: str, before: dict, after: dict) -> dict:
+        out = {}
+        for n in after:
+            launches = _launches_moved(before[n], after[n])
+            for k, v in launches.items():
+                if v:
+                    paths[k][f"filer_{name}_{n}"] = v
+            out[n] = {"launches": launches, "host_apply_rows": _moved(
+                before[n], after[n], "seaweedfs_ec_op_seconds_count",
+                op="apply_rows", impl="cpu"),
+                "ops": _codec_ops(before[n], after[n], codec)}
+        if codec != "cpu" and any(c["host_apply_rows"]
+                                  for c in out.values()):
+            raise AssertionError(f"{name}: the host codec's apply_rows "
+                                 f"moved: {out}")
+        return out
+
+    # certificates, security.toml and filer.toml, as an operator makes them
+    t0 = time.perf_counter()
+    certs, cert_tool = make_tls_certs(os.path.join(work, "certs"))
+    cert_s = time.perf_counter() - t0
+    with open(os.path.join(work, "security.toml"), "w") as f:
+        f.write(security_toml(cli("scaffold", "-config", "security",
+                                  "-output", "-"), certs,
+                              os.urandom(16).hex()))
+    cli("scaffold", "-config", "filer", "-output", work)
+    with open(os.path.join(work, "filer.toml")) as f:
+        text = f.read()
+    with open(os.path.join(work, "filer.toml"), "w") as f:
+        f.write(filer_toml(text, os.path.join(work, "filerldb2")))
+    client_conf = Configuration({"grpc": {
+        "ca": certs["ca"][0], "client": {"cert": certs["client"][0],
+                                         "key": certs["client"][1]}}},
+        path=os.path.join(work, "security.toml"))
+    rpclib.configure_security(
+        None, tls.load_client_credentials(client_conf, "client"))
+
+    files = _plan_files(total, seed + 90, FILER_FILE_MIN, file_max)
+    content = {f"/buckets/{coll}/f{i:04d}.bin": b
+               for i, b in enumerate(files)}
+    want = {p: hashlib.sha256(b).hexdigest() for p, b in content.items()}
+    sizes = {p: len(b) for p, b in content.items()}
+    copy_src = os.path.join(work, "copy_src")
+    os.makedirs(copy_src)
+    for i, b in enumerate(_plan_files(FILER_COPY_FILES * 128 * 1024,
+                                      seed + 91, 1024, 256 * 1024)
+                          [:FILER_COPY_FILES]):
+        with open(os.path.join(copy_src, f"c{i:02d}.bin"), "wb") as f:
+            f.write(b)
+        want[f"/buckets/{coll}/copied/copy_src/c{i:02d}.bin"] = \
+            hashlib.sha256(b).hexdigest()
+        sizes[f"/buckets/{coll}/copied/copy_src/c{i:02d}.bin"] = len(b)
+    up_dir = os.path.join(work, "upload_src")
+    os.makedirs(up_dir)
+    up_paths = []
+    for i, b in enumerate(_plan_files(FILER_UPLOAD_FILES * 256 * 1024,
+                                      seed + 92, 1024, 256 * 1024)
+                          [:FILER_UPLOAD_FILES]):
+        up_paths.append(os.path.join(up_dir, f"u{i:02d}.bin"))
+        with open(up_paths[-1], "wb") as f:
+            f.write(b)
+    fport, fmetrics = free_port(), free_port()
+    filer = _KeepAlive(fport)
+    rng = np.random.default_rng(seed + 93)
+
+    def read_all(label: str) -> dict:
+        """Every filer file GET by 16 threads, equal by sha256."""
+        def get(path: str) -> float:
+            t0 = time.perf_counter()
+            st, _h, body = filer.request("GET", path)
+            dt = time.perf_counter() - t0
+            if st != 200 or hashlib.sha256(body).hexdigest() != want[path]:
+                raise AssertionError(f"{label}: GET {path} from the filer: "
+                                     f"{st}, {len(body)} bytes, differs")
+            return dt
+
+        order = sorted(want)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+            lat = list(pool.map(get, order))
+        wall = time.perf_counter() - t0
+        return _latency_row(label, lat, wall, files=len(order),
+                            bytes=sum(sizes.values()),
+                            GBps=sum(sizes.values()) / wall / 1e9,
+                            sha256_equal=True)
+
+    def failovers() -> float:
+        """The filer's chunk reads that failed over to another location
+        or a fresh lookup (seaweedfs_retry_total, type filer)."""
+        return _moved({}, cl.scrape_port(fmetrics, ("seaweedfs_retry_total",)),
+                      "seaweedfs_retry_total", type="filer", op="chunk_read")
+
+    try:
+        # 0. start: the master, four volume servers, the filer; mTLS only
+        t0 = time.perf_counter()
+        cl.start_master(limit_mb=limit_mb,
+                        env={"SEAWEEDFS_TPU_MASS_REPAIR": "0"})
+        vol_env = {"SEAWEEDFS_TPU_EC_PARTIAL": "0",
+                   "SEAWEEDFS_TPU_NEEDLE_CACHE_MB": "0",
+                   "SEAWEEDFS_TPU_EC_INTERVAL_CACHE_MB": "0"}
+        for n, rack in FILER_NODES:
+            cl.start_volume(n, rack, dirs[n], env=vol_env)
+        cl.start("filer", "filer", "-master",
+                 f"127.0.0.1:{cl.master_port}", "-port", str(fport),
+                 "-maxMB", str(FILER_MAX_MB), "-metricsPort", str(fmetrics))
+        urls = {cl.nodes[n]["url"]: n for n in names}
+        cl.wait_for("four nodes and the filer registered", lambda: (
+            set(cl.http_json("/dir/status")["DataNodes"]) >= set(urls)
+            and cl.http_json("/dir/status")["Filers"]), wait_s)
+        start_s = time.perf_counter() - t0
+        for n in names:
+            cl.wait_for(f"{n}'s /metrics", lambda n=n: cl.scrape(n) or True,
+                        wait_s)
+        cl.wait_for("the filer's /metrics", lambda: cl.scrape_port(
+            fmetrics, ("seaweedfs_",)) is not None, wait_s)
+        refused = {}
+        addr = f"127.0.0.1:{cl.master_port + 10000}"
+        with open(certs["ca"][0], "rb") as f:
+            ca = f.read()
+        for who, ch in (("plaintext", grpc.insecure_channel(addr)),
+                        ("tls_without_client_cert", grpc.secure_channel(
+                            addr, grpc.ssl_channel_credentials(ca)))):
+            try:
+                ch.unary_unary(
+                    "/master_pb.Seaweed/VolumeList",
+                    request_serializer=master_pb2.VolumeListRequest
+                    .SerializeToString,
+                    response_deserializer=master_pb2.VolumeListResponse
+                    .FromString)(master_pb2.VolumeListRequest(), timeout=10)
+                raise AssertionError(f"a {who} gRPC call to the master was "
+                                     "answered")
+            except grpc.RpcError as e:
+                refused[who] = e.code().name
+            finally:
+                ch.close()
+        limit = rpclib.master_stub(addr, timeout=30).VolumeList(
+            master_pb2.VolumeListRequest()).volume_size_limit_mb
+        step("start", {"seconds": start_s, "cert_tool": cert_tool,
+                       "cert_s": cert_s, "refused": refused,
+                       "certified_volume_list_limit_mb": limit,
+                       "store": "leveldb2", "reduced": reduced})
+
+        # 1. writes through the filer, filer.copy, upload; read back
+        def put(i_blob) -> float:
+            i, blob = i_blob
+            t0 = time.perf_counter()
+            st, _h, body = filer.request(
+                "PUT", f"/buckets/{coll}/f{i:04d}.bin", body=blob)
+            if st != 201:
+                raise AssertionError(f"PUT f{i:04d}.bin: {st} {body[:300]}")
+            return time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+            put_lat = list(pool.map(put, enumerate(files)))
+        put_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        copied = cli("filer.copy", "-filer", f"127.0.0.1:{fport}", copy_src,
+                     f"/buckets/{coll}/copied").split()
+        copy_s = time.perf_counter() - t0
+        if len(copied) != FILER_COPY_FILES:
+            raise AssertionError(f"filer.copy created {len(copied)} files")
+        uploaded = json.loads(cli("upload", "-master",
+                                  f"127.0.0.1:{cl.master_port}",
+                                  "-collection", coll, *up_paths))
+        up_want, first_up = {}, {}
+        for r, p in zip(uploaded, up_paths):
+            with open(p, "rb") as f:
+                up_want[r["fid"]] = hashlib.sha256(f.read()).hexdigest()
+            first_up[r["fid"]] = (os.path.basename(p), up_want[r["fid"]])
+            with urllib.request.urlopen(f"http://{r['url']}",
+                                        timeout=60) as resp:
+                if hashlib.sha256(resp.read()).hexdigest() \
+                        != up_want[r["fid"]]:
+                    raise AssertionError(f"upload {r['fid']} read back "
+                                         "differs")
+        listing = {}
+        for d in (f"/buckets/{coll}/", f"/buckets/{coll}/copied/copy_src/"):
+            _st, _h, body = filer.request("GET", d + "?limit=100000")
+            for e in json.loads(body)["Entries"] or []:
+                listing[e["FullPath"]] = e["Chunks"]
+        chunk_counts = [listing.get(p, 0) for p in want]
+        if set(want) - set(listing):
+            raise AssertionError(
+                f"not listed: {sorted(set(want) - set(listing))[:5]}")
+        lat = np.asarray(put_lat)
+        step("writes", {
+            "files": len(put_lat), "bytes": total, "threads":
+            EC_READ_THREADS, "wall_s": put_wall,
+            "GBps": total / put_wall / 1e9,
+            "files_per_s": len(put_lat) / put_wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "chunks": int(sum(chunk_counts)),
+            "chunks_per_file": [int(min(chunk_counts)),
+                                int(max(chunk_counts))],
+            "filer_copy_files": len(copied), "filer_copy_s": copy_s,
+            "uploaded": len(uploaded), "upload_readback_equal": True,
+            "readback": read_all("after_writes")})
+
+        # 2. incremental backup of a b4j volume, export, fix: a volume
+        # grown for it (the master's /vol/grow), given blobs by `upload`
+        def b4j_volumes() -> dict:
+            vl = rpclib.master_stub(addr, timeout=30).VolumeList(
+                master_pb2.VolumeListRequest())
+            held = {}
+            for dc in vl.topology_info.data_center_infos:
+                for rack in dc.rack_infos:
+                    for dn in rack.data_node_infos:
+                        for disk in dn.disk_infos.values():
+                            for v in disk.volume_infos:
+                                if v.collection == coll:
+                                    held[v.id] = (dn.id, v.size)
+            return held
+
+        grown = cl.http_json(f"/vol/grow?collection={coll}&count=1")
+        bvid = grown["volumeIds"][0]
+        vs_url = cl.http_json(f"/dir/lookup?volumeId={bvid}")[
+            "locations"][0]["url"]
+        bdir = os.path.join(work, "backup")
+        runs = []
+
+        def backup() -> dict:
+            t0 = time.perf_counter()
+            out = cli("backup", "-server", f"127.0.0.1:{cl.master_port}",
+                      "-volumeId", str(bvid), "-dir", bdir, "-collection",
+                      coll)
+            n = int(out.split("appended ", 1)[1].split()[0])
+            return {"appended": n, "full_resync": "full resync" in out,
+                    "seconds": time.perf_counter() - t0}
+
+        def upload_until_landed() -> list[str]:
+            """`upload`s of the blobs into b4j until one lands on bvid."""
+            for _round in range(4):
+                more = json.loads(cli(
+                    "upload", "-master", f"127.0.0.1:{cl.master_port}",
+                    "-collection", coll, *up_paths, *up_paths))
+                for r, p in zip(more, up_paths + up_paths):
+                    up_want[r["fid"]] = sha256_of(p)
+                landed = [r["fid"] for r in more
+                          if int(r["fid"].split(",")[0]) == bvid]
+                if landed:
+                    return landed
+            raise AssertionError(f"no upload landed on volume {bvid}")
+
+        upload_until_landed()
+        runs.append(backup())
+        landed = upload_until_landed()
+        runs.append(backup())
+        runs.append(backup())
+        if runs[0]["appended"] < 1 or runs[1]["appended"] < len(landed) \
+                or runs[1]["full_resync"] or runs[2]["appended"] != 0:
+            raise AssertionError(f"backup runs {runs}, {len(landed)} "
+                                 "landed")
+        from seaweedfs_tpu_torch.storage.volume import Volume
+
+        def live_needles() -> dict:
+            v = Volume(bdir, coll, bvid)
+            try:
+                return {nv.key: (v.read_needle(nv.key).cookie,
+                                 hashlib.sha256(bytes(
+                                     v.read_needle(nv.key).data))
+                                 .hexdigest())
+                        for nv in v.needle_map.items_ascending()}
+            finally:
+                v.close()
+
+        needles = live_needles()
+        for key, (cookie, sha) in needles.items():
+            with urllib.request.urlopen(
+                    f"http://{vs_url}/{_fid(bvid, key, cookie)}",
+                    timeout=60) as r:
+                if hashlib.sha256(r.read()).hexdigest() != sha:
+                    raise AssertionError(f"backup needle {key:x} differs "
+                                         "from the server's")
+        tar = os.path.join(work, "backup.tar")
+        exported = int(cli("export", "-dir", bdir, "-volumeId", str(bvid),
+                           "-collection", coll, "-o", tar).split()[1])
+        import tarfile
+
+        with tarfile.open(tar) as tf:
+            members = len(tf.getmembers())
+        if exported != len(needles) or members != len(needles):
+            raise AssertionError(f"export: {exported} needles, {members} "
+                                 f"members, {len(needles)} live")
+        with open(os.path.join(bdir, f"{coll}_{bvid}.idx"), "wb") as f:
+            f.write(b"garbage!" * 64)
+        cli("fix", "-dir", bdir, "-volumeId", str(bvid), "-collection", coll)
+        if live_needles() != needles:
+            raise AssertionError("fix changed the backup's live needles")
+        step("backup", {"volume": bvid, "runs": runs,
+                        "landed": len(landed),
+                        "live_needles": len(needles),
+                        "offline_equal_to_server": True,
+                        "exported": exported, "fix_live_equal": True})
+
+        # 3. benchmark over mTLS, in a collection of its own
+        n_bench, c_bench, s_bench = (str(x) for x in bench)
+        t0 = time.perf_counter()
+        out = cli("benchmark", "-master", f"127.0.0.1:{cl.master_port}",
+                  "-n", n_bench, "-c", c_bench, "-size", s_bench,
+                  "-collection", "bench4j")
+        rates = [float(line.split(":")[1]) for line in out.splitlines()
+                 if line.startswith("Requests per second:")]
+        failed = [int(line.split(":")[1]) for line in out.splitlines()
+                  if line.startswith("Failed requests:")]
+        done = [int(line.split(":")[1]) for line in out.splitlines()
+                if line.startswith("Completed requests:")]
+        if len(rates) != 2 or any(failed) or done != [int(n_bench)] * 2:
+            raise AssertionError(f"benchmark: {out[-1500:]}")
+        step("benchmark", {"n": int(n_bench), "c": int(c_bench),
+                           "size": int(s_bench), "write_per_s": rates[0],
+                           "read_per_s": rates[1], "failed": 0,
+                           "seconds": time.perf_counter() - t0})
+
+        # 4. encode on the cards.  First the plan ec.encode's planner
+        # makes on the cluster as the benchmark left it (the shell's own
+        # free-slot count and balanced_ec_distribution on the master's
+        # topology): every volume is planned from one snapshot, so the node
+        # with the most free slots takes 5+ shards of each (ROADMAP C-1)
+        # and its loss loses them.  Printed and named; then the nodes'
+        # volume counts are evened with empty volumes of a collection of
+        # their own, so that step 6 has a node whose loss every volume
+        # survives, and the encode runs on that cluster
+        from seaweedfs_tpu_torch.shell.ec_commands import (_free_ec_slots,
+                                                           _iter_nodes)
+        from seaweedfs_tpu_torch.topology.placement import (
+            balanced_ec_distribution)
+
+        # each node's own count of its volumes (its .dat files): the
+        # master's view may still lag a heartbeat behind the benchmark's
+        # growth
+        counts = {n: sum(f.endswith(".dat") for f in os.listdir(dirs[n]))
+                  for n in names}
+
+        def topology():
+            return rpclib.master_stub(addr, timeout=30).VolumeList(
+                master_pb2.VolumeListRequest()).topology_info
+
+        def master_counts(topo) -> dict:
+            return {urls[dn.id]: sum(d.volume_count
+                                     for d in dn.disk_infos.values())
+                    for _dc, _r, dn in _iter_nodes(topo) if dn.id in urls}
+
+        cl.wait_for("the master's volume counts", lambda: master_counts(
+            topology()) == counts, wait_s)
+        natural = {urls[n]: sids for n, sids in balanced_ec_distribution(
+            {dn.id: _free_ec_slots(dn) for _dc, _r, dn in
+             _iter_nodes(topology()) if dn.id in urls}).items()}
+        c1 = {n: len(sids) for n, sids in natural.items() if len(sids) >= 5}
+        pad_vid = cl.http_json("/dir/status")["MaxVolumeId"] + 1000
+        padded = {}
+        for n, c in counts.items():
+            for _ in range(max(counts.values()) - c):
+                rpclib.volume_server_stub(
+                    f"127.0.0.1:{cl.nodes[n]['port'] + 10000}",
+                    timeout=60).AllocateVolume(
+                    volume_server_pb2.AllocateVolumeRequest(
+                        volume_id=pad_vid, collection=FILER_PAD_COLLECTION))
+                padded.setdefault(n, []).append(pad_vid)
+                pad_vid += 1
+        cl.wait_for("even volume counts at the master", lambda: set(
+            master_counts(topology()).values()) == {max(counts.values())},
+            wait_s)
+        # each generating node's codec is warmed by one job of its own
+        # (its smallest b4j volume encoded, then its shards deleted), all
+        # at once: a volume process's first job pays the device probe, the
+        # CUDA context and the kernel's build, and the encode's rate is to
+        # measure the encode
+        held = b4j_volumes()
+        b4j = sorted(held)
+        src_nodes = sorted({urls[u] for u, _s in held.values()})
+        dat_bytes = sum(os.path.getsize(os.path.join(dirs[urls[u]],
+                                                     f"{coll}_{v}.dat"))
+                        for v, (u, _s) in held.items())
+
+        def warm(n: str) -> float:
+            vid = min((v for v, (u, _s) in held.items() if urls[u] == n),
+                      key=lambda v: held[v][1])
+            stub = rpclib.volume_server_stub(
+                f"127.0.0.1:{cl.nodes[n]['port'] + 10000}", timeout=wait_s)
+            t0 = time.perf_counter()
+            stub.VolumeEcShardsGenerate(
+                volume_server_pb2.VolumeEcShardsGenerateRequest(
+                    volume_id=vid, collection=coll))
+            seconds = time.perf_counter() - t0
+            stub.VolumeEcShardsDelete(
+                volume_server_pb2.VolumeEcShardsDeleteRequest(
+                    volume_id=vid, collection=coll,
+                    shard_ids=list(range(14))))
+            return seconds
+
+        before = scrape_all()
+        with ThreadPoolExecutor(len(src_nodes)) as pool:
+            warm_s = dict(zip(src_nodes, pool.map(warm, src_nodes)))
+        warm_counts = counted("warm", before, scrape_all())
+        time.sleep(1.5)  # -quietFor=1s
+        before = scrape_all()
+        wall, shell_out = cl.shell(f"ec.encode -collection={coll} "
+                                   "-fullPercent=0 -quietFor=1s")
+        cl.wait_for("14 shards of every b4j volume at the master", lambda:
+                    all(len(cl.ec_shards(v)) == 14 for v in b4j), wait_s)
+        after = scrape_all()
+        enc_counts = counted("encode", before, after)
+        for n in src_nodes:
+            if codec == "cuda" and not enc_counts[n]["launches"][
+                    "gf_matmul_batched"]:
+                raise AssertionError(f"ec.encode: no batched launch on {n}"
+                                     f": {enc_counts}")
+        left = [v for v in b4j for d in dirs.values()
+                if os.path.exists(os.path.join(d, f"{coll}_{v}.dat"))]
+        listed = [v for d in cl.http_json("/dir/status")[
+            "DataNodes"].values() for v in d["volumes"] if v in b4j]
+        if left or listed:
+            raise AssertionError(f"sources not dropped: files {left}, "
+                                 f"listed {listed}")
+        spread, checked = {}, 0
+        view = os.path.join(work, "parity_view")
+        os.makedirs(view)
+        from seaweedfs_tpu_torch.storage.ec import encoder as enc
+
+        for v in b4j:
+            holders = cl.ec_shards(v)
+            spread[v] = {}
+            for sid, hs in holders.items():
+                spread[v].setdefault(urls[hs[0]], []).append(sid)
+                os.symlink(os.path.join(dirs[urls[hs[0]]],
+                                        f"{coll}_{v}.ec{sid:02d}"),
+                           os.path.join(view, f"{v}.ec{sid:02d}"))
+            shard = os.path.getsize(os.path.join(view, f"{v}.ec00"))
+            last = (shard - 1) // enc.DEFAULT_SLICE * enc.DEFAULT_SLICE
+            checked += check_parity(os.path.join(view, str(v)), rs_cuda,
+                                    gf256, enc.DEFAULT_SLICE,
+                                    offsets=sorted({0, last}), device=device)
+        step("encode", {
+            "volumes": len(b4j), "dat_bytes": dat_bytes, "seconds": wall,
+            "GBps": dat_bytes / wall / 1e9, "generating_nodes": src_nodes,
+            "batched_launches": {n: c["launches"]["gf_matmul_batched"]
+                                 for n, c in enc_counts.items()},
+            "host_apply_rows": {n: c["host_apply_rows"]
+                                for n, c in enc_counts.items()},
+            "warm_s": warm_s, "warm_batched_launches": {
+                n: c["launches"]["gf_matmul_batched"]
+                for n, c in warm_counts.items()},
+            "unpadded_plan": natural, "c1_stacked": c1,
+            "c1": (f"ROADMAP C-1: on the cluster as the benchmark left it "
+                   f"({counts} volumes), ec.encode gives {c1} shards of "
+                   "every volume; volume counts evened first" if c1 else
+                   None), "padded": padded, "shards_per_node": {
+                n: sorted({len(s.get(n, [])) for s in spread.values()})
+                for n in names},
+            "parity_slices_checked": checked, "sources_dropped": True,
+            "shell_output_tail": shell_out.strip()[-300:]})
+
+        # 5. healthy reads through the filer, whole and ranged
+        r0 = failovers()
+        whole = read_all("after_encode")
+        multi = [p for p in content if sizes[p] > FILER_MAX_MB * MIB] or [
+            max(content, key=sizes.get)]
+
+        def ranged(i: int) -> tuple:
+            p = multi[i % len(multi)]
+            chunk = FILER_MAX_MB * MIB
+            b = chunk * int(rng.integers(1, max(2, -(-sizes[p] // chunk))))
+            b = min(b, sizes[p] - 1)
+            lo = max(0, b - int(rng.integers(1, 64 * 1024)))
+            hi = min(sizes[p] - 1, b + int(rng.integers(0, 64 * 1024)))
+            return p, lo, hi
+
+        plans = [ranged(i) for i in range(FILER_RANGED)]
+
+        def get_range(plan) -> float:
+            p, lo, hi = plan
+            t0 = time.perf_counter()
+            st, _h, body = filer.request("GET", p, headers={
+                "Range": f"bytes={lo}-{hi}"})
+            dt = time.perf_counter() - t0
+            if st != 206 or body != content[p][lo:hi + 1]:
+                raise AssertionError(f"range {lo}-{hi} of {p}: {st}, "
+                                     f"{len(body)} bytes, differs")
+            return dt
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(EC_READ_THREADS) as pool:
+            ranged_lat = list(pool.map(get_range, plans))
+        ranged_wall = time.perf_counter() - t0
+        step("healthy_reads", {
+            "whole": whole, "ranged": _latency_row(
+                "ranged", ranged_lat, ranged_wall, files=len(
+                    {p for p, _l, _h in plans}), byte_equal=True),
+            "filer_failovers": failovers() - r0})
+
+        # 6. a dead node: SIGKILL, then reads decode on the survivors
+        def most_of_a_volume(n: str) -> int:
+            return max(len(s.get(n, [])) for s in spread.values())
+
+        def survivable(n: str) -> bool:
+            """Its loss leaves 10 shards of every volume, and it holds a
+            data shard, so the reads after its kill decode."""
+            return most_of_a_volume(n) <= 4 and any(
+                sid < 10 for sp in spread.values() for sid in sp.get(n, []))
+
+        victim = "d" if survivable("d") else next(
+            (n for n in names if survivable(n)), None)
+        if victim is None:
+            raise AssertionError("no node's loss leaves 10 shards of every "
+                                 f"volume with a data shard lost: {spread}")
+        vurl = cl.nodes[victim]["url"]
+        before = scrape_all()
+        before.pop(victim)
+        r0 = failovers()
+        t0 = time.perf_counter()
+        cl.killed.add(victim)
+        cl.procs[victim].kill()
+        cl.procs[victim].wait()
+        cl.wait_for(f"the master drops {victim}", lambda: all(
+            vurl not in hs for v in b4j for hs in cl.ec_shards(v).values()),
+            CLUSTER_LIVENESS_S)
+        drop_s = time.perf_counter() - t0
+        degraded = read_all("after_kill")
+        after = scrape_all()
+        kill_counts = counted("degraded_reads", before, after)
+        # on the card a decode is a gf_matmul launch; on another codec
+        # (the host rehearsal) one of its instrumented ops
+        decoders = sorted(n for n, c in kill_counts.items()
+                          if c["launches"]["gf_matmul"]
+                          or (codec != "cuda" and c["ops"]))
+        if not decoders:
+            raise AssertionError(f"no survivor decoded: {kill_counts}")
+        refreshes = failovers() - r0
+        cats = sorted(want)[:: max(1, len(want) // FILER_CAT)][:FILER_CAT]
+
+        def cat(p: str) -> bool:
+            proc = subprocess.run(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "filer.cat",
+                 "-filer", f"127.0.0.1:{fport}", p], cwd=work, env=cl.env,
+                capture_output=True, timeout=600)
+            if proc.returncode != 0 or hashlib.sha256(
+                    proc.stdout).hexdigest() != want[p]:
+                raise AssertionError(f"filer.cat {p}: {proc.returncode} "
+                                     f"{proc.stderr[-500:]}")
+            return True
+
+        with ThreadPoolExecutor(FILER_CAT) as pool:
+            list(pool.map(cat, cats))
+        dl_dir = os.path.join(work, "download")
+        os.makedirs(dl_dir)
+        got = cli("download", "-server", f"127.0.0.1:{cl.master_port}",
+                  "-dir", dl_dir, *sorted(first_up)).split()
+        if len(got) != len(first_up):
+            raise AssertionError(f"download wrote {len(got)} files")
+        for fid, path in zip(sorted(first_up), got):
+            if sha256_of(path) != first_up[fid][1]:
+                raise AssertionError(f"download of {fid} differs")
+        step("dead_node", {
+            "killed": victim, "victim_rule": "D, else the first node "
+            "holding at most 4 shards of every volume and a data shard",
+            "shards_held": {
+                str(v): s.get(victim, []) for v, s in spread.items()},
+            "drop_s": drop_s, "reads": degraded,
+            "launches": {n: c["launches"] for n, c in kill_counts.items()},
+            "codec_ops": {n: c["ops"] for n, c in kill_counts.items()},
+            "decoding_survivors": decoders, "filer_failovers": refreshes,
+            "filer_cat_equal": len(cats), "downloaded": len(got)})
+
+        # 7. SIGTERM: clean exits
+        step("stop", {"exits": cl.terminate(
+            ["filer"] + [n for n in names if n != victim] + ["master"])})
+    except BaseException:
+        print(cl.tails(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        cl.stop_all()
+        rpclib.configure_security(None, None)
+    emit({"phase": "filer_summary", "wall_s": time.perf_counter() - t_phase,
+          "launches_by_path": paths, "nvidia_smi": power})
     return {"launches_by_path": paths, "rows": rows}
 
 
@@ -6083,7 +6921,7 @@ def main() -> int:
     ap.add_argument("--volume-gib", type=float, default=10.5)
     ap.add_argument("--service-volume-gib", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--store-volume-gib", type=float, default=3.0)
+    ap.add_argument("--store-volume-gib", type=float, default=1.5)
     ap.add_argument("--only-ec-reads", action="store_true",
                     help="phases 1-4b only, no kernels line (a quick check)")
     ap.add_argument("--only-store", action="store_true",
@@ -6121,6 +6959,11 @@ def main() -> int:
                     help="each of the quorum phase's 4 sealed volumes")
     ap.add_argument("--only-quorum", action="store_true",
                     help="phases 1-2 and the quorum phase only, no kernels "
+                    "line (a quick check)")
+    ap.add_argument("--filer-gib", type=float, default=FILER_BYTES / GIB,
+                    help="the files the filer phase writes")
+    ap.add_argument("--only-filer", action="store_true",
+                    help="phases 1-2 and the filer phase only, no kernels "
                     "line (a quick check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6184,7 +7027,8 @@ def main() -> int:
             reduced = [f"volume {size} bytes: SeaweedFS's default 30 GB "
                        "volume limit (-volumeSizeLimitMB 30000) cut for the "
                        "machine's disk (.dat + 14 shards + copies ~3.4x) "
-                       "and the script's time limit"] + reduced
+                       "and the script's time limit, from 3 GiB to 1 so "
+                       "that the filer phase fits in it"] + reduced
             return phase_cluster(rs_cuda, gf256, work, size, args.seed,
                                  power, reduced, codec=args.cluster_codec)
         finally:
@@ -6231,7 +7075,8 @@ def main() -> int:
                 count=len(TIER_NODES), per_volume=3.5)
             reduced = [f"2 volumes of {size} bytes (-volumeSizeLimitMB "
                        f"{size // MIB}): SeaweedFS's default 30 GB volume "
-                       "limit cut for the script's run time, as 4g"
+                       "limit cut for the script's run time, as 4g, from 1 "
+                       "GiB to 0.5 so that the filer phase fits in it"
                        ] + reduced
             return phase_tier(rs_cuda, gf256, work, size, args.seed, power,
                               reduced, codec=args.cluster_codec)
@@ -6248,16 +7093,31 @@ def main() -> int:
             reduced = [f"reduced: from 30000 MB: 4 volumes of {size} bytes "
                        f"(-volumeSizeLimitMB {size // MIB}): SeaweedFS's "
                        "default 30 GB volume limit cut for the script's run "
-                       "time, as 4g"] + reduced
+                       "time, as 4g, from 1 GiB to 0.5 so that the filer "
+                       "phase fits in it"] + reduced
             return phase_quorum(rs_cuda, gf256, work, size, args.seed,
                                 power, reduced, codec=args.cluster_codec)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    def filer() -> dict:
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            total = int(args.filer_gib * GIB) // MIB * MIB
+            reduced = [f"reduced: volumeSizeLimitMB from 30000 to "
+                       f"{FILER_LIMIT_MB}: SeaweedFS's default 30 GB volume "
+                       f"limit cut so that {total} bytes of files fill "
+                       "several volumes within the phase's time"]
+            return phase_filer(rs_cuda, gf256, work, args.seed, power,
+                               reduced, codec=args.cluster_codec,
+                               total=total)
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
     for only, phase in (("only_cluster", cluster),
                         ("only_maintenance", maintenance),
                         ("only_mesh", mesh), ("only_tier", tier),
-                        ("only_quorum", quorum)):
+                        ("only_quorum", quorum), ("only_filer", filer)):
         if getattr(args, only):
             phase()
             emit({"phase": "done", "wall_s": time.perf_counter() - start,
@@ -6321,7 +7181,8 @@ def main() -> int:
             work, int(args.store_volume_gib * GIB) // MIB * MIB,
             per_volume=2.6)
         reduced = [f"volume {size} bytes: SeaweedFS's default 30 GB volume "
-                   "limit cut for the script's time limit, no 1 GB-block "
+                   "limit cut for the script's time limit (from 3 GiB to "
+                   "1.5 so that the filer phase fits in it), no 1 GB-block "
                    "row (phase 4 runs one)"] + reduced
         stored = phase_store_lifecycle(rs_cuda, gf256, enc, codec_service,
                                        metrics, work, size, args.seed,
@@ -6346,6 +7207,7 @@ def main() -> int:
     maint_paths = maintenance()["launches_by_path"]
     tier_paths = tier()["launches_by_path"]
     quorum_paths = quorum()["launches_by_path"]
+    filer_paths = filer()["launches_by_path"]
 
     batched_err = phase_batched(rs_cuda, gf256, gen)
     phase_kernel_sweep(rs_cuda, gf256, gen, power)
@@ -6391,7 +7253,8 @@ def main() -> int:
         + sum(cluster_paths["gf_matmul"].values())
         + sum(maint_paths["gf_matmul"].values())
         + sum(tier_paths["gf_matmul"].values())
-        + sum(quorum_paths["gf_matmul"].values()),
+        + sum(quorum_paths["gf_matmul"].values())
+        + sum(filer_paths["gf_matmul"].values()),
         "launches_by_path": {
             "encode": e2e["encode_launches"],
             "rebuild": e2e["rebuild_launches"],
@@ -6399,7 +7262,8 @@ def main() -> int:
             "remote_rebuild": reads["rebuild_launches"],
             **store_paths["gf_matmul"], **server_paths["gf_matmul"],
             **cluster_paths["gf_matmul"], **maint_paths["gf_matmul"],
-            **tier_paths["gf_matmul"], **quorum_paths["gf_matmul"]},
+            **tier_paths["gf_matmul"], **quorum_paths["gf_matmul"],
+            **filer_paths["gf_matmul"]},
         "max_abs_err": err, "ms": parity16["ms"],
         "back_to_back_ms": parity16["back_to_back_ms"],
         "plain_ms": parity16["plain_ms"], "bound_ms": parity16["bound_ms"],
@@ -6420,6 +7284,7 @@ def main() -> int:
         + sum(maint_paths["gf_matmul_batched"].values())
         + sum(tier_paths["gf_matmul_batched"].values())
         + sum(quorum_paths["gf_matmul_batched"].values())
+        + sum(filer_paths["gf_matmul_batched"].values())
         + sum(mesh_launches("gf_matmul_batched").values()),
         "launches_by_path": {
             "service_encode": svc["encode_launches"],
@@ -6431,6 +7296,7 @@ def main() -> int:
             **maint_paths["gf_matmul_batched"],
             **tier_paths["gf_matmul_batched"],
             **quorum_paths["gf_matmul_batched"],
+            **filer_paths["gf_matmul_batched"],
             **mesh_launches("gf_matmul_batched")},
         "max_abs_err": batched_err, "ms": batched["ms"],
         "back_to_back_ms": batched["back_to_back_ms"],

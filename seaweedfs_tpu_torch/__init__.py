@@ -116,8 +116,25 @@ EC parity and `ec.decode`):
     ec.* and volume.* commands, cluster.status, cluster.alerts,
     cluster.hot and cluster.debug; util/config.py (the TOML tier),
     util/grace.py (profiling hooks).
+  * filer/ — the filer: filechunks.py (the interval model),
+    filechunk_manifest.py, filerstore.py with the embedded stores
+    (memory, sqlite, leveldb, leveldb2, leveldb3), meta_log.py (the
+    durable metadata event log), filer.py (the namespace), filer_conf.py,
+    fleet/tenant.py (quotas, admission), grpc_handlers.py,
+    http_handlers.py and server.py (auto-chunked writes, reads through
+    the master client's vid map with failover to a fresh lookup);
+    wdclient/masterclient.py and vid_map.py; s3api/filer_client.py;
+    util/cipher.py (AES-GCM chunks, `cryptography` imported when used)
+    and util/compression.py.
+  * security/tls.py and pb/rpc.py's configure_security — gRPC mTLS from
+    security.toml for every server and client.
+  * tools/ — `benchmark`, `backup`, `upload`, `download`, `filer.cat`,
+    `filer.copy` (backup.py, benchmark.py) and the offline `fix`,
+    `export` (offline.py); util/scaffold.py (`scaffold`).
   * cli.py, __main__.py — `python -m seaweedfs_tpu_torch master | volume |
-    server | shell | version`; `-ec.codec` defaults to `cuda`.
+    server [-filer] | filer | shell | scaffold | benchmark | backup |
+    upload | download | filer.cat | filer.copy | fix | compact | export |
+    version`; `-ec.codec` defaults to `cuda`.
 
 Checks: `JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py` holds
 every module against the reference on the CPU (no card, nvcc or triton;
@@ -130,14 +147,19 @@ three volume processes driven by the shell, `--only-maintenance
 --maintenance-volume-gib 0.25` a master encoding and repairing four
 volume processes on its own, `--only-quorum --quorum-volume-gib 0.25`
 three masters in a raft quorum that fails over mid-encode, with the
-canary, the SLO engine and the flight recorder).  Every protobuf message of the port lives in pb.POOL,
+canary, the SLO engine and the flight recorder, `--only-filer
+--filer-gib 0.25` a secured cluster with a filer whose files are encoded
+on the cards and read back after a node dies).  Every protobuf message of the port lives in pb.POOL,
 never in protobuf's default pool, where the reference registers the same
 file names: a process importing both packages would fail.
 
-Not ported yet: the geo registry (the master's `peer_clusters`,
-/cluster/geo); the shell's fs.*, filer.ring and cluster.geo commands; gRPC
-TLS; the filer, the gateways (s3api/ holds only SigV4 signing, which the
-S3 remote tier uses) and the CLI's other subcommands; spans and stage
-metrics inside the encode pipeline.
+Not ported yet (ROADMAP A-7): the geo registry (the master's
+`peer_clusters`, /cluster/geo); the shell's fs.*, collection.*, s3.*,
+filer.ring and cluster.geo commands; the filer's peers (meta
+aggregator), fleet ring, router and fleet client, geo replication,
+notification publishers and the store kinds with an external server; the
+gateways (s3api/ holds SigV4 signing and the filer client), WebDAV, FTP,
+mount, messaging and replication, and their CLI subcommands; spans and
+stage metrics inside the encode pipeline.
 util/jaxenv.py works around a JAX-only hang and has no counterpart here.
 """

@@ -1,10 +1,12 @@
 """CLI entry: `python -m seaweedfs_tpu_torch <subcommand>`.
 
 The port's copy of seaweedfs_tpu/cli.py for the subcommands whose modules
-are ported: `master`, `volume`, `server` (master and volume in one
-process), `shell` and `version`, with the reference's flags.  Every other
-reference subcommand exits 2 with one line naming the ROADMAP item that
-ports it.
+are ported: `master`, `volume`, `server` (master, volume and optionally a
+filer in one process), `filer`, `shell`, `scaffold`, the client tools
+(`benchmark`, `backup`, `upload`, `download`, `filer.cat`, `filer.copy`),
+the offline volume tools (`fix`, `compact`, `export`) and `version`, with
+the reference's flags.  Every other reference subcommand exits 2 with one
+line naming the ROADMAP item that ports it.
 
 Differences from the reference, on purpose:
   * `-ec.codec` resolves flag, then master.toml's `codec.type`, then
@@ -16,12 +18,19 @@ Differences from the reference, on purpose:
     `cuda`.  A volume server on a device codec on a host without a card
     exits non-zero naming the card;
   * a flag of a plane that is not ported (the master's `-peerClusters`,
-    the server's `-filer` and `-s3`) given a value other than its default
-    exits non-zero naming ROADMAP A-7;
-  * security.toml's JWT key and white list are read as the reference
-    reads them; gRPC TLS certificates configured there make the process
-    exit non-zero naming ROADMAP A-6 (security/tls.py is not ported), so
-    it never runs without the TLS the operator asked for;
+    the server's `-s3`, the filer's `-peers`, `-clusterId`, `-geoPeers`
+    and `-geoRateMBps`) given a value other than its default, a filer.toml
+    that enables a store kind with an external server, and a
+    notification.toml that enables a publisher exit non-zero naming
+    ROADMAP A-7;
+  * security.toml is read as the reference reads it: the JWT key, the
+    white list, and the gRPC mTLS certificates every process installs
+    before it serves or dials (the listener presents its component's
+    certificate, `client` for the shell and the client tools).  A
+    certificate set that is named but incomplete or does not load stops
+    the process with the error; it never serves in the clear;
+  * `benchmark` takes `-collection` and `-replication` (the reference's
+    run_benchmark has both; its CLI passes neither);
   * SIGTERM and SIGINT stop the servers (every thread joined) and the
     process exits 0; the reference dies on SIGTERM's default action.
 """
@@ -44,30 +53,27 @@ TPU_CODEC_NAMES = ("tpu", "tpu_xor", "tpu_mxu", "pallas", "tpu_pallas",
 
 # reference subcommands this package does not have yet -> the ROADMAP item
 NOT_PORTED = {
-    "filer": "A-7 (filer/)",
-    "mount": "A-7 (mount/)",
-    "msgBroker": "A-7 (messaging/)",
-    "filer.replicate": "A-7 (replication/)",
-    "filer.backup": "A-7 (replication/)",
-    "filer.meta.tail": "A-7 (replication/)",
-    "filer.meta.backup": "A-7 (replication/meta_backup.py)",
-    "filer.sync": "A-7 (replication/)",
-    "s3": "A-7 (s3api/)",
-    "iam": "A-7 (iamapi/)",
-    "gateway": "A-7 (gateway.py)",
-    "webdav": "A-7 (webdav/)",
-    "ftp": "A-7 (ftpd/)",
-    "backup": "A-6 (tools/backup.py)",
-    "upload": "A-6 (tools/backup.py)",
-    "download": "A-6 (tools/backup.py)",
-    "filer.cat": "A-7 (tools/backup.py, the filer)",
-    "filer.copy": "A-7 (tools/backup.py, the filer)",
-    "benchmark": "A-6 (tools/benchmark.py)",
-    "fix": "A-6 (tools/offline.py, the CLI's half)",
-    "compact": "A-6 (the CLI's offline compact)",
-    "export": "A-6 (tools/offline.py export_volume)",
-    "scaffold": "A-6 (util/scaffold.py)",
+    "s3": "A-7a (s3api/)",
+    "iam": "A-7a (iamapi/)",
+    "mount": "A-7b (mount/)",
+    "msgBroker": "A-7b (messaging/)",
+    "filer.replicate": "A-7b (replication/)",
+    "filer.backup": "A-7b (replication/)",
+    "filer.meta.tail": "A-7b (replication/)",
+    "filer.meta.backup": "A-7b (replication/meta_backup.py)",
+    "filer.sync": "A-7b (replication/)",
+    "webdav": "A-7b (webdav/)",
+    "ftp": "A-7b (ftpd/)",
+    "gateway": "A-7c (gateway.py)",
 }
+
+# filer.toml's store kinds in the order the reference tries them, each
+# with the key naming its path (reference _filer_store_selection)
+FILER_TOML_KINDS = (("sqlite", "dbFile"), ("leveldb", "dir"),
+                    ("leveldb2", "dir"), ("leveldb3", "dir"), ("redis", ""),
+                    ("etcd", ""), ("elastic7", ""), ("mongodb", ""),
+                    ("cassandra", ""), ("mysql", ""), ("postgres", ""),
+                    ("memory", ""))
 
 
 class CliError(Exception):
@@ -249,26 +255,216 @@ def cmd_volume(args) -> None:
 
 
 def cmd_server(args) -> None:
-    """`weed server`: master + volume in one process (command/server.go).
-    The filer and S3 gateway it can add come with ROADMAP A-7."""
+    """`weed server`: master + volume, optionally a filer, in one process
+    (command/server.go).  The S3 gateway it can add comes with ROADMAP
+    A-7a."""
     from .master.server import MasterServer
 
-    _refuse("-filer", args.filer, False, "the filer (filer/, ROADMAP A-7)")
-    _refuse("-s3", args.s3, False, "the S3 gateway (s3api/, ROADMAP A-7)")
+    _refuse("-s3", args.s3, False, "the S3 gateway (s3api/, ROADMAP A-7a)")
     codec = _resolve_codec(args.ec_codec)
     _require_card(codec)
+    if args.filer:
+        _refuse_notification()
+    store, store_path = (_filer_store_selection(args.filerStore)
+                         if args.filer else (None, None))
     stopper = _Stopper()
-    m = MasterServer(ip=args.ip, port=args.masterPort)
-    m.start()
+    servers = []
     try:
+        m = MasterServer(ip=args.ip, port=args.masterPort)
+        m.start()
+        servers.insert(0, m)
         v = _volume_server(args, codec, [f"{args.ip}:{m.grpc_port}"])
+        v.start()
+        servers.insert(0, v)
+        extras = ""
+        if args.filer:
+            from .filer.server import FilerServer
+
+            f = FilerServer(masters=[f"{args.ip}:{m.grpc_port}"],
+                            ip=args.ip, port=args.filerPort, store=store,
+                            store_path=store_path)
+            f.start()
+            servers.insert(0, f)
+            extras = f" filer={args.filerPort}"
     except BaseException:
-        m.stop()
+        for srv in servers:
+            srv.stop()
         raise
-    v.start()
-    print(f"server: master={args.masterPort} volume={args.port} "
+    print(f"server: master={args.masterPort} volume={args.port}{extras} "
           f"codec={codec}", flush=True)
-    stopper.wait([v, m])
+    stopper.wait(servers)
+
+
+def _filer_store_selection(flag_store: str) -> tuple[str, str]:
+    """filer.toml picks the store backend; the -store flag (a path) keeps
+    its historical meaning of "sqlite at this path" and wins when given.
+    -> (store, store_path).  A filer.toml that enables a kind with an
+    external server is refused naming ROADMAP A-7a."""
+    from .filer.filerstore import NOT_PORTED_KINDS
+    from .util.config import load_configuration
+
+    store, store_path = "sqlite", flag_store
+    ported = [k for k, _p in FILER_TOML_KINDS if k not in NOT_PORTED_KINDS]
+    fconf = load_configuration("filer")
+    if fconf.loaded and flag_store == "./filer.db":  # flag left at default
+        for kind, path_key in FILER_TOML_KINDS:
+            if fconf.get_bool(f"{kind}.enabled"):
+                if kind in NOT_PORTED_KINDS:
+                    raise CliError(
+                        f"{fconf.path} enables the {kind!r} filer store, "
+                        "which is not ported yet (ROADMAP A-7a: the external "
+                        f"store kinds); the port has {', '.join(ported)}")
+                store = kind
+                if path_key:
+                    store_path = fconf.get_string(f"{kind}.{path_key}",
+                                                  store_path)
+                break
+    return store, store_path
+
+
+def _refuse_notification() -> None:
+    """notification.toml with a publisher enabled: the filer would fan
+    every metadata event out to it; the port has no publishers yet."""
+    from .util.config import load_configuration
+
+    conf = load_configuration("notification")
+    if not conf.loaded:
+        return
+    section = conf.data.get("notification", {})
+    enabled = [k for k, v in section.items()
+               if isinstance(v, dict) and v.get("enabled")]
+    if enabled:
+        raise CliError(
+            f"{conf.path} enables notification.{', '.join(enabled)}; "
+            "notification publishers are not ported yet (notification/, "
+            "ROADMAP A-7b)")
+
+
+def cmd_filer(args) -> None:
+    from .filer.server import FilerServer
+
+    _refuse("-peers", args.peers, "",
+            "filer peers (filer/meta_aggregator.py, ROADMAP A-7c)")
+    _refuse("-clusterId", args.clusterId, 0,
+            "geo replication (replication/geo.py, ROADMAP A-7c)")
+    _refuse("-geoPeers", args.geoPeers, "",
+            "geo replication (replication/geo.py, ROADMAP A-7c)")
+    _refuse("-geoRateMBps", args.geoRateMBps, None,
+            "geo replication (replication/geo.py, ROADMAP A-7c)")
+    _refuse_notification()
+    store, store_path = _filer_store_selection(args.store)
+    stopper = _Stopper()
+    f = FilerServer(
+        masters=[_grpc_addr(m) for m in args.master.split(",")],
+        ip=args.ip,
+        port=args.port,
+        store=store,
+        store_path=store_path,
+        max_mb=args.maxMB,
+        metrics_port=args.metricsPort,
+        cipher=args.cipher,
+        meta_log_dir=args.metaLogDir,
+    )
+    f.start()
+    print(f"filer http={args.port} grpc={f.grpc_port} store={store}",
+          flush=True)
+    stopper.wait([f])
+
+
+def cmd_backup(args) -> None:
+    from .tools.backup import backup_volume
+
+    res = backup_volume(args.server, args.volumeId, args.dir,
+                        collection=args.collection)
+    print(f"volume {args.volumeId}: appended {res['appended']} needles"
+          + (" (full resync)" if res["full_resync"] else ""))
+
+
+def cmd_upload(args) -> None:
+    import json
+
+    from .tools.backup import upload_files
+
+    results = upload_files(args.master, args.files,
+                           collection=args.collection,
+                           replication=args.replication, ttl=args.ttl)
+    print(json.dumps(results, indent=2))
+
+
+def cmd_download(args) -> None:
+    from .tools.backup import download_files
+
+    for path in download_files(args.server, args.fids, args.dir):
+        print(path)
+
+
+def cmd_filer_cat(args) -> None:
+    from .tools.backup import filer_cat
+
+    sys.stdout.buffer.write(filer_cat(args.filer, args.path))
+    sys.stdout.buffer.flush()
+
+
+def cmd_filer_copy(args) -> None:
+    from .tools.backup import filer_copy
+
+    for p in filer_copy(args.filer, args.sources, args.dest):
+        print(p)
+
+
+def cmd_bench(args) -> None:
+    from .tools.benchmark import run_benchmark
+
+    run_benchmark(
+        master=args.master,
+        num_files=args.n,
+        file_size=args.size,
+        concurrency=args.c,
+        do_read=not args.write_only,
+        collection=args.collection,
+        replication=args.replication,
+    )
+
+
+def cmd_fix(args) -> None:
+    from .tools.offline import fix_index
+
+    fix_index(args.dir, args.volumeId, args.collection)
+    print(f"rebuilt index for volume {args.volumeId}")
+
+
+def cmd_compact(args) -> None:
+    from .storage.vacuum import vacuum_volume
+    from .storage.volume import Volume
+
+    v = Volume(args.dir, args.collection, args.volumeId)
+    try:
+        vacuum_volume(v)
+    finally:
+        v.close()
+    print(f"compacted volume {args.volumeId}")
+
+
+def cmd_export(args) -> None:
+    from .tools.offline import export_volume
+
+    n = export_volume(args.dir, args.volumeId, args.collection, args.output)
+    print(f"exported {n} needles to {args.output}")
+
+
+def cmd_scaffold(args) -> None:
+    import os
+
+    from .util.scaffold import scaffold
+
+    text = scaffold(args.config)
+    if args.output == "-":
+        print(text, end="")
+    else:
+        path = os.path.join(args.output, f"{args.config}.toml")
+        with open(path, "w") as f:
+            f.write(text)
+        print(f"wrote {path}")
 
 
 def cmd_shell(args) -> None:
@@ -323,31 +519,34 @@ def _security_white_list() -> list[str] | None:
     return [str(ip) for ip in wl] or None
 
 
-def _refuse_tls(conf) -> None:
-    """security.toml's gRPC TLS: certificates at `grpc.ca`,
-    `grpc.<component>.cert/.key` or `<component>.cert/.key` (reference
-    security/tls.py).  The port has no TLS half yet, so a configured
-    certificate stops the process instead of serving in the clear."""
+# cmd -> the certificate identity its gRPC listener presents; commands
+# absent here are pure clients ("server" hosts its servers behind one
+# listener credential set, the master's)
+_TLS_COMPONENT = {
+    "master": "master", "volume": "volume", "filer": "filer",
+    "server": "master",
+}
+
+
+def _configure_security(cmd: str) -> None:
+    """Load security.toml and install this process's gRPC mTLS
+    credentials before any server or channel exists (the reference's
+    boot-time LoadServerTLS/LoadClientTLS).  A named but incomplete or
+    unloadable certificate set raises ValueError: the process stops."""
+    from .pb import rpc as rpclib
+    from .security.tls import (load_client_credentials,
+                               load_server_credentials)
+    from .util.config import load_configuration
+
+    conf = load_configuration("security")
     if not conf.loaded:
         return
-    keys = []
-    for name, section in conf.data.items():
-        if not isinstance(section, dict):
-            continue
-        if name == "grpc":
-            if section.get("ca"):
-                keys.append("grpc.ca")
-            keys += [f"grpc.{c}.{k}" for c, sub in section.items()
-                     if isinstance(sub, dict)
-                     for k in ("cert", "key") if sub.get(k)]
-        else:
-            keys += [f"{name}.{k}" for k in ("cert", "key")
-                     if isinstance(section.get(k), str) and section.get(k)]
-    if keys:
-        raise CliError(
-            f"{conf.path} configures gRPC TLS ({', '.join(keys)}); "
-            "security/tls.py is not ported yet (ROADMAP A-6), and this "
-            "process will not serve without the TLS asked for")
+    component = _TLS_COMPONENT.get(cmd, "client")
+    server_creds = (load_server_credentials(conf, component)
+                    if cmd in _TLS_COMPONENT else None)
+    channel_creds = load_client_credentials(conf, component)
+    if server_creds or channel_creds:
+        rpclib.configure_security(server_creds, channel_creds)
 
 
 def _setup_profiling(args) -> None:
@@ -471,13 +670,103 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("-port", type=int, default=8080)
     s.add_argument("-ec.codec", dest="ec_codec", default="")
     s.add_argument("-filer", action="store_true",
-                   help="also start a filer (not ported: ROADMAP A-7)")
+                   help="also start a filer")
     s.add_argument("-filer.port", dest="filerPort", type=int, default=8888)
     s.add_argument("-filer.store", dest="filerStore", default="./filer.db")
     s.add_argument("-s3", action="store_true",
-                   help="also start an S3 gateway (not ported: ROADMAP A-7)")
+                   help="also start an S3 gateway (not ported: ROADMAP A-7a)")
     s.add_argument("-s3.port", dest="s3Port", type=int, default=8333)
     s.set_defaults(fn=cmd_server)
+
+    f = sub.add_parser("filer")
+    f.add_argument("-master", default="127.0.0.1:9333")
+    f.add_argument("-ip", default="127.0.0.1")
+    f.add_argument("-port", type=int, default=8888)
+    f.add_argument("-store", default="./filer.db",
+                   help="sqlite file (filer.toml picks another store when "
+                        "this is left at its default)")
+    f.add_argument("-maxMB", type=int, default=4,
+                   help="split files into chunks of at most this size")
+    f.add_argument("-metricsPort", type=int, default=0)
+    f.add_argument("-peers", default="",
+                   help="peer filer http addresses for metadata "
+                        "federation (ROADMAP A-7c: refused)")
+    f.add_argument("-encryptVolumeData", dest="cipher", action="store_true",
+                   help="AES-GCM encrypt chunk data before it reaches "
+                        "volume servers")
+    f.add_argument("-clusterId", type=int, default=0,
+                   help="geo replication cluster id (ROADMAP A-7c: refused)")
+    f.add_argument("-geoPeers", default="",
+                   help="remote-cluster filer http addresses (ROADMAP "
+                        "A-7c: refused)")
+    f.add_argument("-geoRateMBps", type=float, default=None,
+                   help="per-link geo budget (ROADMAP A-7c: refused)")
+    f.add_argument("-metaLogDir", default="",
+                   help="durable metadata event log dir (default: "
+                        "<store path>.metalog for disk stores)")
+    f.set_defaults(fn=cmd_filer)
+
+    bk = sub.add_parser("backup")
+    bk.add_argument("-server", default="127.0.0.1:9333",
+                    help="master http address")
+    bk.add_argument("-volumeId", type=int, required=True)
+    bk.add_argument("-dir", default=".")
+    bk.add_argument("-collection", default="")
+    bk.set_defaults(fn=cmd_backup)
+
+    up = sub.add_parser("upload")
+    up.add_argument("-master", default="127.0.0.1:9333")
+    up.add_argument("-collection", default="")
+    up.add_argument("-replication", default="")
+    up.add_argument("-ttl", default="")
+    up.add_argument("files", nargs="+")
+    up.set_defaults(fn=cmd_upload)
+
+    dl = sub.add_parser("download")
+    dl.add_argument("-server", default="127.0.0.1:9333",
+                    help="master http address")
+    dl.add_argument("-dir", default=".")
+    dl.add_argument("fids", nargs="+")
+    dl.set_defaults(fn=cmd_download)
+
+    fcat = sub.add_parser("filer.cat")
+    fcat.add_argument("-filer", default="127.0.0.1:8888")
+    fcat.add_argument("path")
+    fcat.set_defaults(fn=cmd_filer_cat)
+
+    fcp = sub.add_parser("filer.copy")
+    fcp.add_argument("-filer", default="127.0.0.1:8888")
+    fcp.add_argument("sources", nargs="+")
+    fcp.add_argument("dest")
+    fcp.set_defaults(fn=cmd_filer_copy)
+
+    b = sub.add_parser("benchmark")
+    b.add_argument("-master", default="127.0.0.1:9333")
+    b.add_argument("-n", type=int, default=1024)
+    b.add_argument("-size", type=int, default=1024)
+    b.add_argument("-c", type=int, default=16)
+    b.add_argument("-collection", default="")
+    b.add_argument("-replication", default="")
+    b.add_argument("--write-only", action="store_true")
+    b.set_defaults(fn=cmd_bench)
+
+    for name, fn in (("fix", cmd_fix), ("compact", cmd_compact),
+                     ("export", cmd_export)):
+        o = sub.add_parser(name)
+        o.add_argument("-dir", default=".")
+        o.add_argument("-volumeId", type=int, required=True)
+        o.add_argument("-collection", default="")
+        if name == "export":
+            o.add_argument("-o", dest="output", default="export.tar")
+        o.set_defaults(fn=fn)
+
+    sc = sub.add_parser("scaffold")
+    sc.add_argument("-config", default="security",
+                    choices=("security", "master", "filer",
+                             "notification", "replication", "shell"))
+    sc.add_argument("-output", default=".",
+                    help="output directory, or - for stdout")
+    sc.set_defaults(fn=cmd_scaffold)
 
     sh = sub.add_parser("shell")
     sh.add_argument("-master", default=None,
@@ -495,8 +784,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from .util.config import load_configuration
-
     argv = sys.argv[1:] if argv is None else list(argv)
     # the subcommand is the first word that is neither a global flag nor
     # its value
@@ -509,7 +796,8 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     try:
         _setup_profiling(args)
-        _refuse_tls(load_configuration("security"))
+        if args.cmd != "scaffold":
+            _configure_security(args.cmd)
         args.fn(args)
     except (CliError, ValueError, RuntimeError, OSError) as e:
         print(f"seaweedfs_tpu_torch {args.cmd}: error: {e}", file=sys.stderr)

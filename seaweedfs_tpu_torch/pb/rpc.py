@@ -1,6 +1,7 @@
 """gRPC plumbing without generated service stubs — the port's copy of
-seaweedfs_tpu/pb/rpc.py for the master (`master_pb.Seaweed`) and volume
-server (`volume_server_pb.VolumeServer`) services.
+seaweedfs_tpu/pb/rpc.py for the master (`master_pb.Seaweed`), volume
+server (`volume_server_pb.VolumeServer`) and filer
+(`filer_pb.SeaweedFiler`) services.
 
 No grpc codegen plugin is needed: each service is declared once (method
 name -> kind + message classes) and wired through grpc's generic-handler
@@ -10,9 +11,10 @@ server and a port stub to a reference server.
 
 The channel cache is the port's own (one channel per address), and
 `close_channels(address)` releases the channels to an address whose
-server stopped.  Not ported yet: the filer, messaging and etcd services,
-which come with their slices, and mTLS (`configure_security`), which
-comes with the security slice.
+server stopped.  `configure_security` installs the process's mTLS
+credentials (security/tls.py, from security.toml): every later `serve`
+binds a secure port and every cached channel is a secure one.  Not ported
+yet: the messaging and etcd services (ROADMAP A-7).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import grpc
 
 from ..telemetry import trace as _trace
 from ..util import failsafe as _failsafe
-from . import master_pb2, volume_server_pb2
+from . import filer_pb2, master_pb2, volume_server_pb2
 
 UU, US, SU, SS = "uu", "us", "su", "ss"  # unary/stream request x response
 MAX_MESSAGE_BYTES = 128 * 1024 * 1024
@@ -113,6 +115,53 @@ VOLUME_SERVER = Service("volume_server_pb.VolumeServer", {
     "VolumeScrub": _m(UU, _V.VolumeScrubRequest, _V.VolumeScrubResponse),
 })
 
+_F = filer_pb2
+FILER = Service("filer_pb.SeaweedFiler", {
+    "LookupDirectoryEntry": _m(UU, _F.LookupDirectoryEntryRequest, _F.LookupDirectoryEntryResponse),
+    "ListEntries": _m(US, _F.ListEntriesRequest, _F.ListEntriesResponse),
+    "CreateEntry": _m(UU, _F.CreateEntryRequest, _F.CreateEntryResponse),
+    "UpdateEntry": _m(UU, _F.UpdateEntryRequest, _F.UpdateEntryResponse),
+    "AppendToEntry": _m(UU, _F.AppendToEntryRequest, _F.AppendToEntryResponse),
+    "DeleteEntry": _m(UU, _F.DeleteEntryRequest, _F.DeleteEntryResponse),
+    "AtomicRenameEntry": _m(UU, _F.AtomicRenameEntryRequest, _F.AtomicRenameEntryResponse),
+    "AssignVolume": _m(UU, _F.AssignVolumeRequest, _F.AssignVolumeResponse),
+    "LookupVolume": _m(UU, _F.LookupVolumeRequest, _F.LookupVolumeResponse),
+    "CollectionList": _m(UU, _F.CollectionListRequest, _F.CollectionListResponse),
+    "DeleteCollection": _m(UU, _F.DeleteCollectionRequest, _F.DeleteCollectionResponse),
+    "Statistics": _m(UU, _F.StatisticsRequest, _F.StatisticsResponse),
+    "GetFilerConfiguration": _m(UU, _F.GetFilerConfigurationRequest, _F.GetFilerConfigurationResponse),
+    "SubscribeMetadata": _m(US, _F.SubscribeMetadataRequest, _F.SubscribeMetadataResponse),
+    "SubscribeLocalMetadata": _m(US, _F.SubscribeMetadataRequest, _F.SubscribeMetadataResponse),
+    "KeepConnected": _m(SS, _F.KeepConnectedRequest, _F.KeepConnectedResponse),
+    "LocateBroker": _m(UU, _F.LocateBrokerRequest, _F.LocateBrokerResponse),
+    "KvGet": _m(UU, _F.KvGetRequest, _F.KvGetResponse),
+    "KvPut": _m(UU, _F.KvPutRequest, _F.KvPutResponse),
+})
+
+
+# ---------------------------------------------------------------------------
+# mTLS (security/tls.py loads these from security.toml; set once at startup
+# before any server or channel exists, as every reference component
+# resolves its gRPC credentials from its config at boot)
+# ---------------------------------------------------------------------------
+
+_server_credentials: "grpc.ServerCredentials | None" = None
+_channel_credentials: "grpc.ChannelCredentials | None" = None
+
+
+def configure_security(server_credentials=None,
+                       channel_credentials=None) -> None:
+    """Install process-wide gRPC credentials (None = plaintext); the
+    channels cached so far are closed, so later calls dial anew."""
+    global _server_credentials, _channel_credentials
+    _server_credentials = server_credentials
+    _channel_credentials = channel_credentials
+    with _channel_lock:
+        channels = list(_channels.values())
+        _channels.clear()
+    for ch in channels:
+        ch.close()
+
 
 # ---------------------------------------------------------------------------
 # Server side
@@ -123,6 +172,7 @@ VOLUME_SERVER = Service("volume_server_pb.VolumeServer", {
 _GRPC_TYPE = {
     "master_pb.Seaweed": "masterGrpc",
     "volume_server_pb.VolumeServer": "volumeServerGrpc",
+    "filer_pb.SeaweedFiler": "filerGrpc",
 }
 
 
@@ -231,7 +281,10 @@ def serve(
     )
     for service, impl in service_impls:
         server.add_generic_rpc_handlers((generic_handler(service, impl),))
-    server.add_insecure_port(f"{host}:{port}")
+    if _server_credentials is not None:
+        server.add_secure_port(f"{host}:{port}", _server_credentials)
+    else:
+        server.add_insecure_port(f"{host}:{port}")
     server.start()
     server.pool = pool
     return server
@@ -249,10 +302,15 @@ def get_channel(address: str) -> grpc.Channel:
     with _channel_lock:
         ch = _channels.get(address)
         if ch is None:
-            ch = grpc.insecure_channel(address, options=[
+            options = [
                 ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
                 ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
-            ])
+            ]
+            if _channel_credentials is not None:
+                ch = grpc.secure_channel(
+                    address, _channel_credentials, options=options)
+            else:
+                ch = grpc.insecure_channel(address, options=options)
             _channels[address] = ch
         return ch
 
@@ -340,3 +398,7 @@ def master_stub(address: str, timeout: "float | None" = None) -> Stub:
 
 def volume_server_stub(address: str, timeout: "float | None" = None) -> Stub:
     return Stub(VOLUME_SERVER, address, timeout)
+
+
+def filer_stub(address: str, timeout: "float | None" = None) -> Stub:
+    return Stub(FILER, address, timeout)

@@ -17,8 +17,9 @@ runs the reference's servers keeps two registries, each on its own port.
 
 The master adds the lifecycle and mass-repair families, and for its
 quorum, judgment and flight-recorder planes the raft, SLO, canary and
-debug-bundle families.  Not carried over: the families of the filer and
-the gateways.
+debug-bundle families.  The filer adds the chunk-cache, metadata-listener
+and tenant families.  Not carried over: the families of the gateways, the
+filer ring and geo replication.
 """
 
 from __future__ import annotations
@@ -949,6 +950,39 @@ DEBUG_BUNDLE_SECONDS = REGISTRY.histogram(
     "seaweedfs_debug_bundle_capture_seconds",
     "wall time to fan out and persist one cluster debug bundle",
 )
+
+# the filer (filer/server.py, filer/meta_log.py, filer/fleet/tenant.py)
+CHUNK_CACHE_COUNTER = REGISTRY.counter(
+    "seaweedfs_chunk_cache_total", "chunk cache lookups by result",
+    labels=("result",),
+)
+META_LISTENER_ERRORS = REGISTRY.counter(
+    "seaweedfs_meta_listener_errors_total",
+    "metadata-log listener callback failures; `evicted` counts listeners "
+    "unsubscribed after too many consecutive failures",
+    labels=("result",),  # error | evicted
+)
+TENANT_INFLIGHT = REGISTRY.gauge(
+    "seaweedfs_tenant_inflight",
+    "admitted in-flight filer requests per tenant",
+    labels=("tenant",),
+)
+TENANT_ADMIT = REGISTRY.counter(
+    "seaweedfs_tenant_admit_total",
+    "filer admission decisions per tenant",
+    labels=("tenant", "result"),  # ok | slowdown
+)
+TENANT_USAGE_BYTES = REGISTRY.gauge(
+    "seaweedfs_tenant_usage_bytes",
+    "logical bytes stored per tenant on this filer shard",
+    labels=("tenant",),
+)
+TENANT_USAGE_OBJECTS = REGISTRY.gauge(
+    "seaweedfs_tenant_usage_objects",
+    "objects stored per tenant on this filer shard",
+    labels=("tenant",),
+)
+
 
 
 def serve_metrics(port: int, registry: Registry = REGISTRY,

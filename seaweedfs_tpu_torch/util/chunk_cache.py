@@ -1,7 +1,12 @@
-"""Bounded LRUs of hot needles and of reconstructed EC shard intervals —
-the port's copy of `NeedleCache` and `IntervalCache` from
-seaweedfs_tpu/util/chunk_cache.py (its fid-keyed chunk caches belong to
-the filer and the gateways and are not ported yet).
+"""Bounded LRUs of hot needles, of reconstructed EC shard intervals and
+of the filer's chunks — the port's copy of
+seaweedfs_tpu/util/chunk_cache.py.
+
+Reference: weed/util/chunk_cache/chunk_cache.go:25 (TieredChunkCache) —
+small chunks live in a memory LRU keyed by fid, which the filer's reads
+consult before any volume-server round trip.  The reference's disk tier
+(mount's ``-cacheDir``) is not ported yet: it comes with mount (ROADMAP
+A-7b).
 """
 
 from __future__ import annotations
@@ -10,20 +15,57 @@ import threading
 from collections import OrderedDict
 
 from ..stats.metrics import (
+    CHUNK_CACHE_COUNTER,
     EC_INTERVAL_CACHE,
     NEEDLE_CACHE_EVICT,
     NEEDLE_CACHE_HIT,
     NEEDLE_CACHE_MISS,
 )
 
-# the children resolved once: labels() takes the metric's lock, and these
-# fire on every needle read and degraded interval
+# resolve the label-less children once: Metric.labels() takes the metric
+# lock, and these fire on every needle read
 _NC_HIT = NEEDLE_CACHE_HIT.labels()
 _NC_MISS = NEEDLE_CACHE_MISS.labels()
 _NC_EVICT = NEEDLE_CACHE_EVICT.labels()
 _IC_HIT = EC_INTERVAL_CACHE.labels("hit")
 _IC_MISS = EC_INTERVAL_CACHE.labels("miss")
 _IC_EVICT = EC_INTERVAL_CACHE.labels("evict")
+
+
+class MemoryChunkCache:
+    """Byte-bounded LRU of fid -> chunk bytes."""
+
+    def __init__(self, limit_bytes: int = 64 << 20,
+                 max_entry_bytes: int = 4 << 20):
+        self.limit = limit_bytes
+        self.max_entry = max_entry_bytes
+        self._lock = threading.Lock()
+        self._data: OrderedDict[str, bytes] = OrderedDict()
+        self._bytes = 0
+
+    def get(self, fid: str) -> bytes | None:
+        with self._lock:
+            data = self._data.get(fid)
+            if data is not None:
+                self._data.move_to_end(fid)
+            return data
+
+    def set(self, fid: str, data: bytes) -> bool:
+        if len(data) > self.max_entry or len(data) > self.limit:
+            return False
+        with self._lock:
+            old = self._data.pop(fid, None)
+            if old is not None:
+                self._bytes -= len(old)
+            self._data[fid] = data
+            self._bytes += len(data)
+            while self._bytes > self.limit and self._data:
+                _, evicted = self._data.popitem(last=False)
+                self._bytes -= len(evicted)
+            return True
+
+    def __len__(self) -> int:
+        return len(self._data)
 
 
 class NeedleCache:
@@ -33,7 +75,8 @@ class NeedleCache:
     (treated as immutable by every reader), so a hit skips the needle-map
     lookup, the disk read AND the header/CRC parse.  Writers invalidate
     per needle on every append/delete; vacuum and volume removal drop the
-    whole volume's entries.  LRU by bytes, with its own metric family
+    whole volume's entries.  Same LRU-by-bytes discipline as
+    MemoryChunkCache above, with its own metric family
     seaweedfs_needle_cache_{hit,miss,evict}_total.
     """
 
@@ -160,3 +203,26 @@ class IntervalCache:
 
     def __len__(self) -> int:
         return len(self._data)
+
+
+class TieredChunkCache:
+    """The filer's fid-keyed chunk cache: the reference's memory tier.
+
+    Chunks at or under ``mem_max_entry`` live in a bytes-bounded LRU.  The
+    reference's disk tier serves mount's ``-cacheDir``; it comes with
+    mount (ROADMAP A-7b).
+    """
+
+    def __init__(self, mem_limit_bytes: int = 64 << 20,
+                 mem_max_entry: int = 1 << 20):
+        self.mem = MemoryChunkCache(mem_limit_bytes, mem_max_entry)
+
+    def get(self, fid: str) -> bytes | None:
+        data = self.mem.get(fid)
+        CHUNK_CACHE_COUNTER.labels(
+            "hit" if data is not None else "miss"
+        ).inc()
+        return data
+
+    def set(self, fid: str, data: bytes) -> None:
+        self.mem.set(fid, data)

@@ -1,8 +1,8 @@
 """Shared HTTP plumbing for the http.server-based servers.
 
 The port's copy of the part of seaweedfs_tpu/util/http_util.py that the
-volume server's replica fan-out and operation/upload.py use:
-`trace_headers` and `netloc`.
+volume server's replica fan-out, operation/upload.py, the filer and the
+client tools use: `trace_headers`, `netloc` and `grpc_address`.
 
 Reference analogue: weed/util/http_util.go (request helpers shared by
 every server).
@@ -32,3 +32,13 @@ def netloc(url: str) -> str:
     if "//" not in url:
         return url.split("/", 1)[0]
     return urllib.parse.urlsplit(url).netloc
+
+
+GRPC_PORT_OFFSET = 10000
+
+
+def grpc_address(http_address: str, offset: int = GRPC_PORT_OFFSET) -> str:
+    """Every server exposes gRPC at http_port + 10000 (the convention the
+    reference sets with its -port.grpc defaults)."""
+    host, _, port = http_address.partition(":")
+    return f"{host}:{int(port) + offset}"

@@ -22,6 +22,7 @@ import chip_ab  # noqa: E402
                                   ["chip_smoke.py", "--only-mesh"],
                                   ["chip_smoke.py", "--only-tier"],
                                   ["chip_smoke.py", "--only-quorum"],
+                                  ["chip_smoke.py", "--only-filer"],
                                   ["chip_ab.py", "--tree", "a=."]])
 def test_exits_nonzero_without_a_card(argv):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
@@ -623,6 +624,83 @@ def test_quorum_phase_rehearsed_on_the_host(tmp_path, capsys):
     assert {"volumeServer.get", "ec.reconstruct"} <= set(tr["span_names"])
     assert len(tr["nodes"]) == 1 + 3  # the leader and the live servers
     assert all(e["rc"] == 0 for e in rows["quorum_stop"]["exits"].values())
+    # no card: the kernels' launch counters stayed at 0 on every server
+    assert out["launches_by_path"] == {"gf_matmul": {},
+                                       "gf_matmul_batched": {}}
+
+
+def test_filer_phase_rehearsed_on_the_host(tmp_path, capsys):
+    """chip_smoke.py's filer phase (4j) at a tiny size on this host: the
+    secured layout (certificates made with openssl, one security.toml from
+    `scaffold`), a master with -volumeSizeLimitMB 8, four volume processes
+    with `-ec.codec torch_cpu` (the kernel's plain version, passed because
+    the caller asks) and a filer on leveldb2 from a scaffolded filer.toml.
+    Every check of the phase passes: gRPC without a client certificate is
+    refused; files PUT through the filer, filer.copy and upload read back
+    equal; backup appends in full, then the delta, then nothing, and its
+    needles equal the server's, export lists them and fix keeps them;
+    the benchmark fails nothing; the planner's plan on the unevened
+    cluster is printed with a node given 5+ shards of every volume named
+    (ROADMAP C-1); each generating node's codec is warmed; ec.encode of
+    the collection drops every source, moves the host codec's apply_rows
+    on no node and its parity equals the plain version; reads through
+    the filer stay equal after the encode and after the SIGKILL of a node
+    whose loss every volume survives, as do filer.cat and download; every
+    process exits 0 on SIGTERM."""
+    import chip_smoke
+    from helpers import free_port
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
+
+    work = tmp_path / "work"
+    work.mkdir()
+    out = chip_smoke.phase_filer(
+        rs_cuda, gf256, str(work), seed=0, power="test card",
+        reduced=["test size"], codec="torch_cpu", device="cpu",
+        free_port=free_port, total=40 << 20, file_max=9 << 20, limit_mb=8,
+        bench=(256, 8, 1024), wait_s=120.0)
+    rows = {}
+    for line in capsys.readouterr().out.splitlines():
+        row = json.loads(line)
+        rows[row["phase"]] = row
+    assert set(rows) == {f"filer_{s}" for s in (
+        "start", "writes", "backup", "benchmark", "encode", "healthy_reads",
+        "dead_node", "stop", "summary")}
+    assert all(r["nvidia_smi"] == "test card" for r in rows.values())
+    start = rows["filer_start"]
+    assert start["cert_tool"].startswith("OpenSSL")
+    assert set(start["refused"]) == {"plaintext", "tls_without_client_cert"}
+    assert start["certified_volume_list_limit_mb"] == 8
+    w = rows["filer_writes"]
+    assert w["readback"]["sha256_equal"] and w["filer_copy_files"] == 64
+    assert w["chunks_per_file"][1] >= 2 and w["uploaded"] == 16
+    bk = rows["filer_backup"]
+    assert [r["appended"] > 0 for r in bk["runs"]] == [True, True, False]
+    assert bk["exported"] == bk["live_needles"] and bk["fix_live_equal"]
+    assert rows["filer_benchmark"]["failed"] == 0
+    enc = rows["filer_encode"]
+    assert enc["sources_dropped"] and enc["parity_slices_checked"] >= 2
+    assert not any(enc["host_apply_rows"].values())
+    assert enc["warm_s"] and set(enc["warm_s"]) == set(
+        enc["generating_nodes"])
+    # the planner's own plan on the unevened cluster, with the node it
+    # gives 5+ shards of every volume named (ROADMAP C-1)
+    assert sorted(sid for sids in enc["unpadded_plan"].values()
+                  for sid in sids) == list(range(14))
+    assert enc["c1_stacked"] == {n: len(s) for n, s in
+                                 enc["unpadded_plan"].items() if len(s) >= 5}
+    assert (enc["c1"] is None) == (not enc["c1_stacked"])
+    assert all(max(s) <= 4 for s in enc["shards_per_node"].values() if s)
+    hr = rows["filer_healthy_reads"]
+    assert hr["whole"]["sha256_equal"] and hr["ranged"]["reads"] == 256
+    dead = rows["filer_dead_node"]
+    # the victim's loss leaves 10 shards of every volume
+    assert dead["reads"]["sha256_equal"]
+    assert max(len(s) for s in dead["shards_held"].values()) <= 4
+    assert any(sid < 10 for s in dead["shards_held"].values() for sid in s)
+    assert dead["decoding_survivors"]
+    assert dead["killed"] not in dead["codec_ops"]
+    assert dead["filer_cat_equal"] == 8 and dead["downloaded"] == 16
+    assert all(e["rc"] == 0 for e in rows["filer_stop"]["exits"].values())
     # no card: the kernels' launch counters stayed at 0 on every server
     assert out["launches_by_path"] == {"gf_matmul": {},
                                        "gf_matmul_batched": {}}

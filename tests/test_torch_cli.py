@@ -1,14 +1,15 @@
 """`python -m seaweedfs_tpu_torch` as an operator runs it: a master and
 two volume servers as real processes (the cluster of
 tests/test_cli_processes.py, with a second volume server where that one
-has a filer, which the port does not have yet), needles written through
-assigns and `ec.encode` run by `shell -c`; SIGTERM stops each process
-cleanly.  The volume's `-tierBackends` and `-offset.5bytes` serve
+has a filer), needles written through assigns and `ec.encode` run by
+`shell -c`; SIGTERM stops each process cleanly.  The volume's `-tierBackends` and `-offset.5bytes` serve
 needles from a remote tier and from a 5-byte-offset volume, and a master
 takes a lifecycle policy naming a tier backend.  Then the refusals: a
 `volume` with no codec on this card-less host names the card, the TPU
-codec names are refused naming `cuda`, a subcommand, plane flag or TLS
-setting not ported yet exits naming its ROADMAP item, the judgment,
+codec names are refused naming `cuda`, a subcommand, plane flag, filer
+store or publisher not ported yet exits naming its ROADMAP item, a
+security.toml naming certificates that do not load stops the process and
+one whose certificates load puts the master under mTLS, the judgment,
 flight-recorder and quorum flags build their planes, and the entry
 point's modules import neither jax nor any module of seaweedfs_tpu."""
 
@@ -198,8 +199,8 @@ def test_codec_type_in_master_toml_is_read(tmp_path):
 
 
 @pytest.mark.parametrize("cmd,item", [
-    ("filer", "A-7"), ("s3", "A-7"), ("mount", "A-7"), ("webdav", "A-7"),
-    ("benchmark", "A-6"), ("scaffold", "A-6"), ("backup", "A-6"),
+    ("msgBroker", "A-7"), ("s3", "A-7"), ("mount", "A-7"), ("webdav", "A-7"),
+    ("ftp", "A-7"), ("gateway", "A-7"), ("iam", "A-7"),
 ])
 def test_subcommands_not_ported_exit_2_naming_the_roadmap(tmp_path, cmd,
                                                           item):
@@ -211,13 +212,15 @@ def test_subcommands_not_ported_exit_2_naming_the_roadmap(tmp_path, cmd,
 
 @pytest.mark.parametrize("argv,words", [
     (["master", "-peerClusters", "127.0.0.1:1"], "A-7"),
-    (["server", "-filer", "-ec.codec=cpu"], "A-7"),
+    (["server", "-s3", "-ec.codec=cpu"], "A-7"),
+    (["filer", "-peers", "127.0.0.1:1"], "A-7"),
+    (["filer", "-geoPeers", "127.0.0.1:1", "-clusterId", "2"], "A-7"),
 ])
 def test_left_out_plane_flags_exit_nonzero(tmp_path, argv, words):
     p = free_port()
     argv = [a.replace("{p}", str(p)) for a in argv] + [
         "-port", str(p)]
-    if argv[0] != "master":
+    if argv[0] == "server":
         argv += ["-dir", str(tmp_path)]
     out = _cli(argv, str(tmp_path))
     assert out.returncode != 0
@@ -445,13 +448,85 @@ def test_lifecycle_policy_with_a_tier_backend_is_accepted(tmp_path, flags):
             assert p.wait(timeout=DEADLINE_S) == 0
 
 
+@pytest.mark.parametrize("case", ["filer_toml_redis", "notification_toml",
+                                  "make_store_redis"])
+def test_left_out_filer_stores_and_publishers_name_the_roadmap(tmp_path,
+                                                               case):
+    if case == "make_store_redis":
+        from seaweedfs_tpu_torch.filer.filerstore import make_store
+
+        with pytest.raises(ValueError, match="ROADMAP A-7"):
+            make_store("redis", host="127.0.0.1", port=1)
+        return
+    if case == "filer_toml_redis":
+        (tmp_path / "filer.toml").write_text(
+            "[sqlite]\nenabled = false\n[redis]\nenabled = true\n")
+    else:
+        (tmp_path / "notification.toml").write_text(
+            '[notification.file]\nenabled = true\npath = "x.jsonl"\n')
+    out = _cli(["filer", "-port", str(free_port()), "-master",
+                "127.0.0.1:1"], str(tmp_path))
+    assert out.returncode != 0
+    assert "ROADMAP A-7" in out.stderr and "not ported yet" in out.stderr
+    assert len(out.stderr.strip().splitlines()) == 1
+
+
 def test_grpc_tls_in_security_toml_is_refused(tmp_path):
+    """security.toml naming certificates that do not exist stops the
+    master with the error (never plaintext); with real certificates the
+    master serves gRPC under mTLS: a certified client is answered, a
+    client without a certificate is refused."""
+    pytest.importorskip("cryptography")
+    import grpc
+
+    from seaweedfs_tpu_torch.pb import master_pb2
+    from seaweedfs_tpu_torch.security.tls import generate_dev_certs
+
     (tmp_path / "security.toml").write_text(
         '[jwt.signing]\nkey = "k"\n[grpc]\nca = "ca.crt"\n'
         '[grpc.master]\ncert = "m.crt"\nkey = "m.key"\n')
     out = _cli(["master", "-port", str(free_port())], str(tmp_path))
-    assert out.returncode == 2
-    assert "grpc.ca" in out.stderr and "ROADMAP A-6" in out.stderr
+    assert out.returncode != 0
+    assert "ca.crt" in out.stderr and "cannot load" in out.stderr
+    certs = generate_dev_certs(str(tmp_path / "certs"),
+                               components=("master", "client"))
+    (tmp_path / "security.toml").write_text(
+        f'[grpc]\nca = "{certs["ca"][0]}"\n'
+        f'[grpc.master]\ncert = "{certs["master"][0]}"\n'
+        f'key = "{certs["master"][1]}"\n'
+        f'[grpc.client]\ncert = "{certs["client"][0]}"\n'
+        f'key = "{certs["client"][1]}"\n')
+    port = free_port()
+    read = lambda f: open(f, "rb").read()  # noqa: E731
+    with open(tmp_path / "master.log", "wb") as log:
+        p = _spawn(["master", "-port", str(port)], str(tmp_path), log)
+        try:
+            _wait(lambda: _get_json(f"http://127.0.0.1:{port}/cluster/status"),
+                  "the master's HTTP side", [p])
+            addr = f"127.0.0.1:{port + 10000}"
+            creds = {
+                "certified": grpc.ssl_channel_credentials(
+                    read(certs["ca"][0]), read(certs["client"][1]),
+                    read(certs["client"][0])),
+                "anonymous": grpc.ssl_channel_credentials(
+                    read(certs["ca"][0]))}
+            for who, cred in creds.items():
+                with grpc.secure_channel(addr, cred) as ch:
+                    call = ch.unary_unary(
+                        "/master_pb.Seaweed/GetMasterConfiguration",
+                        request_serializer=master_pb2
+                        .GetMasterConfigurationRequest.SerializeToString,
+                        response_deserializer=master_pb2
+                        .GetMasterConfigurationResponse.FromString)
+                    if who == "certified":
+                        call(master_pb2.GetMasterConfigurationRequest(),
+                             timeout=10)
+                    else:
+                        with pytest.raises(grpc.RpcError):
+                            call(master_pb2.GetMasterConfigurationRequest(),
+                                 timeout=5)
+        finally:
+            _stop_all([p], [tmp_path / "master.log"])
 
 
 def test_security_toml_jwt_key_and_white_list_are_read(tmp_path,
@@ -498,3 +573,45 @@ def test_entry_point_imports_no_jax_and_no_reference_module():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("[]")
+
+
+@pytest.mark.parametrize("case", ["server_filer", "scaffold"])
+def test_filer_and_scaffold_subcommands_run(tmp_path, case):
+    """`server -filer` starts a master, a volume server and a filer in one
+    process whose filer stores and serves a multi-chunk file; `scaffold`
+    writes the reference's text for every -config."""
+    if case == "scaffold":
+        from seaweedfs_tpu.util.scaffold import scaffold as ref_scaffold
+
+        for config in ("security", "master", "filer", "notification",
+                       "replication", "shell"):
+            out = _cli(["scaffold", "-config", config, "-output",
+                        str(tmp_path)], str(tmp_path))
+            assert out.returncode == 0, out.stderr
+            assert (tmp_path / f"{config}.toml").read_text() == \
+                ref_scaffold(config)
+        out = _cli(["scaffold", "-config", "filer", "-output", "-"],
+                   str(tmp_path))
+        assert out.stdout == ref_scaffold("filer")
+        return
+    mport, vport, fport = free_port(), free_port(), free_port()
+    payload = os.urandom((9 << 20) // 2)  # 2 chunks at -maxMB 4
+    with open(tmp_path / "server.log", "wb") as log:
+        p = _spawn(["server", "-ec.codec=cpu", "-dir", str(tmp_path),
+                    "-masterPort", str(mport), "-port", str(vport),
+                    "-filer", "-filer.port", str(fport), "-filer.store",
+                    str(tmp_path / "f.db")], str(tmp_path), log)
+        try:
+            def put():
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{fport}/d/f.bin", data=payload,
+                    method="PUT")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    return r.status == 201
+            _wait(put, "a PUT through the filer", [p], timeout=60)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{fport}/d/f.bin", timeout=30) as r:
+                assert r.read() == payload
+            assert "filer=" in (tmp_path / "server.log").read_text()
+        finally:
+            _stop_all([p], [tmp_path / "server.log"])

@@ -531,6 +531,15 @@ def _parse_exposition(text: str) -> dict:
     return families
 
 
+def _family(sample_name: str) -> str:
+    """A histogram's `_bucket`, `_count` and `_sum` samples -> its family."""
+    for suffix in ("_bucket", "_count", "_sum"):
+        base = sample_name[:-len(suffix)]
+        if sample_name.endswith(suffix) and base in metrics.REGISTRY._metrics:
+            return base
+    return sample_name
+
+
 def test_status_metrics_and_traces(planes):
     clusters, _ = planes
     status = {}
@@ -552,9 +561,15 @@ def test_status_metrics_and_traces(planes):
                        "seaweedfs_httpd_inflight_requests",
                        "seaweedfs_request_seconds_bucket"):
             assert family in fams, family
-        # the port's registry only: no master or filer family
-        assert not any(f.startswith(("seaweedfs_raft_", "seaweedfs_geo_"))
-                       for f in fams)
+        # the port's registry only: every family is one the port
+        # registers, and none is the reference's alone (its geo plane's,
+        # its filer ring's).  The raft families are the port's own since
+        # its master's quorum: they render once any port master ran in
+        # this process, as test_torch_master.py's do when its file runs
+        # first in the same worker
+        assert {_family(f) for f in fams} <= set(metrics.REGISTRY._metrics)
+        assert not any(f.startswith(("seaweedfs_geo_", "seaweedfs_filer_"
+                                     "ring_")) for f in fams)
     code, _h, body = port.request("GET", "/metrics?family=seaweedfs_http")
     assert code == 200 and set(_parse_exposition(body.decode())) == {
         "seaweedfs_httpd_open_sockets", "seaweedfs_httpd_inflight_requests"}

@@ -13,17 +13,18 @@ import pytest
 from google.protobuf import descriptor as D
 from google.protobuf import descriptor_pool
 
+from seaweedfs_tpu.pb import filer_pb2 as ref_filer
 from seaweedfs_tpu.pb import master_pb2 as ref_master
 from seaweedfs_tpu.pb import volume_info_pb2 as ref_info
 from seaweedfs_tpu.pb import volume_server_pb2 as ref_vs
 from seaweedfs_tpu_torch import pb
 from seaweedfs_tpu_torch.pb import descriptors
-from seaweedfs_tpu_torch.pb import master_pb2, volume_info_pb2
+from seaweedfs_tpu_torch.pb import filer_pb2, master_pb2, volume_info_pb2
 from seaweedfs_tpu_torch.pb import volume_server_pb2
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAIRS = [(master_pb2, ref_master), (volume_server_pb2, ref_vs),
-         (volume_info_pb2, ref_info)]
+         (volume_info_pb2, ref_info), (filer_pb2, ref_filer)]
 MESSAGES = sorted(
     (port_mod.__name__.rsplit(".", 1)[1], name)
     for port_mod, _ in PAIRS
@@ -37,6 +38,7 @@ def test_descriptors_are_the_reference_bytes():
     assert descriptors.VOLUME_SERVER_PROTO == \
         ref_vs.DESCRIPTOR.serialized_pb
     assert descriptors.VOLUME_INFO_PROTO == ref_info.DESCRIPTOR.serialized_pb
+    assert descriptors.FILER_PROTO == ref_filer.DESCRIPTOR.serialized_pb
 
 
 def _scalar(field, n: int):
@@ -128,7 +130,8 @@ def test_message_bytes_match_reference(module, name):
 _NAMES = [f"{fd.package}.{n}" for fd in (
     pb.POOL.FindFileByName("master.proto"),
     pb.POOL.FindFileByName("volume_server.proto"),
-    pb.POOL.FindFileByName("volume_info.proto"))
+    pb.POOL.FindFileByName("volume_info.proto"),
+    pb.POOL.FindFileByName("filer.proto"))
     for n in fd.message_types_by_name]
 
 _CHILD = r"""
@@ -136,7 +139,8 @@ import json, sys
 from google.protobuf import descriptor_pool
 names = json.loads(sys.argv[1])
 order = sys.argv[2]
-FILES = ("master.proto", "volume_server.proto", "volume_info.proto")
+FILES = ("master.proto", "volume_server.proto", "volume_info.proto",
+         "filer.proto")
 
 def default_view():
     pool = descriptor_pool.Default()
@@ -158,6 +162,7 @@ def port():
     from seaweedfs_tpu_torch.pb import master_pb2, rpc  # noqa: F401
     from seaweedfs_tpu_torch.pb import volume_info_pb2  # noqa: F401
     from seaweedfs_tpu_torch.volume import server  # noqa: F401
+    from seaweedfs_tpu_torch.filer import server as filer  # noqa: F401
     return master_pb2.Heartbeat(ip="x").SerializeToString().hex()
 
 def ref():
@@ -187,9 +192,9 @@ def _child(order: str) -> dict:
 @pytest.mark.parametrize("order", ["port,ref", "ref,port"])
 def test_default_pool_is_the_reference_alone(order):
     """In a fresh process, importing the port (its messages, rpc layer and
-    volume server) before or after the reference leaves protobuf's default
-    pool exactly as the reference alone makes it: the port alone adds none
-    of the three files and none of their messages."""
+    volume server and filer) before or after the reference leaves
+    protobuf's default pool exactly as the reference alone makes it: the
+    port alone adds none of the four files and none of their messages."""
     alone = _child("ref")["ref_view"]
     both = _child(order)
     assert alone["messages"] == len(_NAMES)
